@@ -1,0 +1,337 @@
+"""Multi-layer network compilation + device-resident serving (paper §4.2).
+
+``compile_network``, ``calibrate_network`` and ``calibrate_network_shifts``
+are the reference's host-side numpy compiler, copied: every layer compiles
+against one shared DRAM allocation, so the port emits byte-identical
+programs (``tests/test_torch_compiler.py``).
+
+Serving differs from the reference in where the work happens.  The
+reference stages every layer's input on the host between VTA executions;
+here the whole ``(batch, nbytes)`` DRAM stack lives on the device for the
+whole network: images come in once, each layer's im2row / pad / split /
+binarise (:mod:`repro_torch.core.staging`), its kernel launch and its
+TensorAlu epilogue (:mod:`repro_torch.core.cuda_backend`) and the OUT
+decode all run in torch on that device, and only the logits come back.
+
+This slice serves linear layer chains (layer k feeds layer k+1), which is
+every network ``compile_network`` builds; the graph front end's DAG
+schedules and residual staging arrive with resnet8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, device_of, resolve_device
+
+from . import staging
+from .cuda_backend import _execute_stack
+from .cycle_model import CycleReport, analyze_programs
+from .dram import DramAllocator
+from .errors import CompileError
+from .hwconfig import VTAConfig, vta_default
+from .layer_compiler import CompiledLayer, LayerSpec, compile_layer
+from .simulator import SimReport
+
+# ``serve`` and ``serve_one`` run on the one backend the port has.
+SERVE_BACKENDS = ("cuda",)
+SERVE_ONE_BACKENDS = ("cuda",)
+
+
+@dataclasses.dataclass
+class NetworkProgram:
+    """Everything needed to run a compiled network (a linear layer chain)."""
+
+    config: VTAConfig
+    allocator: DramAllocator
+    layers: List[CompiledLayer]
+    input_tensor: np.ndarray
+    # the DRAM image, uploaded once per device (compile once, serve many)
+    _device_images: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    # ------------------------------------------------------------------
+    def gemm_loops(self) -> int:
+        """§5.1 metric over the whole network (LeNet-5: 2942)."""
+        return sum(l.program.gemm_loops() for l in self.layers)
+
+    def cycle_report(self) -> CycleReport:
+        return analyze_programs([l.program for l in self.layers])
+
+    def dram_image(self) -> np.ndarray:
+        image = np.zeros(self.allocator.image_size(), dtype=np.uint8)
+        for layer in self.layers:
+            layer.program.place_segments(image)
+        return image
+
+    # ------------------------------------------------------- serving --
+    def _device_image(self, device: torch.device) -> torch.Tensor:
+        key = device_of(device)
+        if key not in self._device_images:
+            self._device_images[key] = torch.from_numpy(
+                self.dram_image()).to(device)
+        return self._device_images[key]
+
+    def _as_image_batch(self, images, device: torch.device) -> torch.Tensor:
+        """Normalise a request batch to one ``(B,) + input_shape[1:]`` int8
+        tensor on ``device``: a sequence of per-image tensors (each shaped
+        like ``input_tensor``), or one stacked array or tensor whose leading
+        axis is the batch."""
+        want = tuple(self.input_tensor.shape)
+        if isinstance(images, (np.ndarray, torch.Tensor)):
+            shape = tuple(images.shape)
+            if shape[1:] == want:                        # (B,) + full shape
+                batch = images
+            elif len(shape) == len(want) and shape[1:] == want[1:]:
+                batch = images                           # batch axis leads
+            else:
+                raise ValueError(
+                    f"cannot interpret stacked input of shape {shape} "
+                    f"as a batch of {want} images")
+        else:
+            imgs = [np.asarray(img) for img in images]
+            if not imgs:
+                raise ValueError("empty request batch")
+            for img in imgs:
+                if img.shape != want:
+                    raise ValueError(
+                        f"request shape {img.shape} does not match the "
+                        f"compiled input shape {want}")
+            batch = np.stack(imgs)
+        batch = torch.as_tensor(batch).to(torch.int8)
+        return batch.reshape((batch.shape[0],) + want[1:]).to(device)
+
+    @staticmethod
+    def _input_matrices(layer: CompiledLayer,
+                        sem: torch.Tensor) -> torch.Tensor:
+        """(B, M, K) input matrices of ``layer`` from the previous layer's
+        semantic outputs: im2row (conv) or NCHW flatten (fc)."""
+        spec = layer.spec
+        if spec.kind == "conv":
+            _, _, kh, kw = spec.weights.shape
+            return staging.im2row_batch(sem, kh, kw, spec.stride,
+                                        spec.padding)
+        return sem.reshape(sem.shape[0], 1, -1)
+
+    def _stage_layer_input_batch(self, stack: torch.Tensor,
+                                 layer: CompiledLayer,
+                                 A: torch.Tensor) -> None:
+        """Batched §4.2 stage (ii) on the device: pad → split → binarise
+        the (B, M, K) input matrices into the layer's INP region."""
+        spec = layer.spec
+        raw = staging.batch_matrix_to_binary(A, self.config.block_size,
+                                             torch.int8)
+        region = layer.program.regions["inp"]
+        if raw.shape[1] != region.nbytes:
+            raise ValueError(
+                f"layer {spec.name!r}: staged input is {raw.shape[1]} "
+                f"bytes, INP region holds {region.nbytes} — request shape "
+                f"does not match the compiled geometry")
+        start = region.phys_addr - self.allocator.offset
+        stack[:, start:start + raw.shape[1]] = raw
+
+    def _run_chain(self, stack: torch.Tensor, first: torch.Tensor, *,
+                   check_chaining: bool = False
+                   ) -> Tuple[torch.Tensor, List[SimReport]]:
+        """Stage ``first`` into layer 0, then run every layer over the
+        stack in place; returns the last layer's semantic outputs (on the
+        device) and the per-layer batch-total reports.  ``check_chaining``
+        asserts each staged input equals the matrix the layer was compiled
+        against — a divergence is a compilation bug (the paper's
+        traceability)."""
+        reports: List[SimReport] = []
+        sem = first
+        for layer in self.layers:
+            A = self._input_matrices(layer, sem)
+            if check_chaining:
+                np.testing.assert_array_equal(
+                    A[0].cpu().numpy(), layer.input_matrix,
+                    err_msg=f"layer {layer.spec.name!r}: reshaping mismatch")
+            self._stage_layer_input_batch(stack, layer, A)
+            reports.append(_execute_stack(layer.program, stack,
+                                          saturate=False))
+            out_mats = staging.decode_out_region_batch(layer.program, stack)
+            sem = staging.decode_layer_output_batch(layer, out_mats)
+        return sem, reports
+
+    @staticmethod
+    def _refuse(backend: str, allowed: Tuple[str, ...], what: str,
+                fault_hook, count_overflows: bool, guard) -> None:
+        if guard is not None:
+            raise CompileError(
+                "guarded serving runs on the reference package's numpy "
+                "interpreter (its watchdog and injection hooks are "
+                "per-instruction); the port serves unguarded",
+                constraint="serve-guard-backend")
+        if fault_hook is not None:
+            raise CompileError(
+                "fault_hook requires per-instruction execution; the cuda "
+                "backend has no instruction stream to hook",
+                constraint="serve-fault-hook")
+        if count_overflows:
+            raise CompileError(
+                "overflow counters need per-instruction execution; the "
+                "cuda backend executes whole programs",
+                constraint="serve-count-overflows")
+        if backend not in allowed:
+            raise CompileError(
+                f"{what} supports backend in {allowed}, got {backend!r}",
+                constraint=f"{what.replace('_', '-')}-backend")
+
+    def _outputs(self, sem: torch.Tensor) -> np.ndarray:
+        """Device semantic outputs → the reference's stacked host form:
+        ``(B, rows, F)`` for fc, ``(B, 1, F, H, W)`` for conv."""
+        host = sem.cpu().numpy()
+        if self.layers[-1].spec.kind == "conv":
+            host = host[:, None]
+        return host
+
+    def serve(self, images, *, backend: str = "cuda",
+              device: DeviceLike = None, fault_hook=None,
+              count_overflows: bool = False, guard=None
+              ) -> Tuple[np.ndarray, List[SimReport]]:
+        """Compile-once/serve-many batched inference on the device.
+
+        ``images`` is a batch of requests (see :meth:`_as_image_batch`).
+        One ``(batch, nbytes)`` DRAM stack on ``device`` (the card unless
+        the caller names another) moves through the layer chain: one
+        stacked kernel launch per layer over the whole batch.  Returns
+        ``(stacked outputs, per-layer batch-total reports)``, outputs on
+        the host with the request index leading — bit-identical to the
+        reference's ``serve``.
+
+        ``guard``, ``fault_hook`` and ``count_overflows`` need the
+        reference's per-instruction interpreters and raise here."""
+        self._refuse(backend, SERVE_BACKENDS, "serve", fault_hook,
+                     count_overflows, guard)
+        dev = resolve_device(device)
+        batch = self._as_image_batch(images, dev)
+        base = self._device_image(dev)
+        stack = base.expand(batch.shape[0], -1).clone()
+        sem, reports = self._run_chain(stack, batch)
+        return self._outputs(sem), reports
+
+    def serve_one(self, image, *, backend: str = "cuda",
+                  device: DeviceLike = None, fault_hook=None,
+                  count_overflows: bool = False, guard=None) -> np.ndarray:
+        """One inference request (a batch of one through :meth:`serve`);
+        returns the request's semantic output as the reference does."""
+        self._refuse(backend, SERVE_ONE_BACKENDS, "serve_one", fault_hook,
+                     count_overflows, guard)
+        outs, _ = self.serve([np.asarray(image)], backend=backend,
+                             device=device)
+        return outs[0]
+
+    def run_functional(self, *, check_chaining: bool = True,
+                       backend: str = "cuda", device: DeviceLike = None,
+                       fault_hook=None
+                       ) -> Tuple[np.ndarray, List[SimReport]]:
+        """Fig. 12 over the compile-time input: one execution per layer with
+        the reshaping between, asserting (``check_chaining``) that each
+        staged input equals the matrix the layer was compiled against."""
+        self._refuse(backend, SERVE_BACKENDS, "run_functional", fault_hook,
+                     False, None)
+        dev = resolve_device(device)
+        first = self._as_image_batch([self.input_tensor], dev)
+        stack = self._device_image(dev).reshape(1, -1).clone()
+        sem, reports = self._run_chain(stack, first,
+                                       check_chaining=check_chaining)
+        return self._outputs(sem)[0], reports
+
+
+def calibrate_network(specs: Sequence[LayerSpec],
+                      images: Sequence[np.ndarray], *,
+                      margin: int = 1, saturate: bool = False
+                      ) -> Tuple[List[int], List[List[np.ndarray]]]:
+    """Static per-layer requant shifts from a calibration set (§4.2
+    discipline: shifts are fixed at compile time; the margin bit guards
+    unseen inputs against int8 wrap-around).  Model-agnostic: works for
+    any conv/fc chain with valid or same padding and avg/max pooling.
+
+    Layer k's input depends on shifts < k, so calibration is sequential,
+    and the images advance through each layer under the *device's*
+    requant semantics (:func:`repro_torch.core.layout.requant_int8` — wrap
+    by default, clip under ``saturate=True``), with pinned
+    ``spec.requant_shift`` values honoured exactly as :func:`compile_layer`
+    honours them.
+
+    Returns ``(shifts, traces)`` where ``traces[k][i]`` is layer ``k``'s
+    semantic output for calibration image ``i``.
+    """
+    from .conv_lowering import mat2tensor
+    from .layer_compiler import (choose_requant_shift, layer_matrices,
+                                 pool_divisor, pool_plan_for,
+                                 reference_layer_acc)
+    from .layout import requant_int8
+
+    shifts: List[int] = []
+    traces: List[List[np.ndarray]] = []
+    currents = [np.asarray(img, np.int8) for img in images]
+    for spec in specs:
+        pool_div = 0
+        accs = []
+        geos = []
+        for cur in currents:
+            A, B, geo = layer_matrices(spec, cur)
+            plan = pool_plan_for(spec, geo)
+            pool_div = pool_divisor(plan)
+            accs.append(reference_layer_acc(A, B, spec.bias, spec.relu, plan))
+            geos.append((geo, plan))
+        if spec.requant_shift is not None:
+            shift = spec.requant_shift
+        else:
+            stacked = np.concatenate([a.reshape(-1) for a in accs])
+            shift = choose_requant_shift(stacked,
+                                         already_shifted=pool_div) + margin
+        shifts.append(shift)
+        # advance every calibration image through this layer
+        nxt = []
+        for acc, (geo, plan) in zip(accs, geos):
+            out = requant_int8(acc >> (pool_div + shift), saturate=saturate)
+            if spec.kind == "conv":
+                oh = plan.out_h if plan else geo.out_h
+                ow = plan.out_w if plan else geo.out_w
+                nxt.append(mat2tensor(out, oh, ow))
+            else:
+                nxt.append(out)
+        currents = nxt
+        traces.append(list(currents))
+    return shifts, traces
+
+
+def calibrate_network_shifts(specs: Sequence[LayerSpec],
+                             images: Sequence[np.ndarray],
+                             margin: int = 1, *,
+                             saturate: bool = False) -> List[int]:
+    """Shift list only — see :func:`calibrate_network`."""
+    return calibrate_network(specs, images, margin=margin,
+                             saturate=saturate)[0]
+
+
+def compile_network(specs: Sequence[LayerSpec], input_tensor: np.ndarray, *,
+                    cfg: Optional[VTAConfig] = None,
+                    dram_offset: int = 0,
+                    schedule: str = "serialized") -> NetworkProgram:
+    """Compile a network: every layer against one shared DRAM allocation,
+    each layer's input taken from the previous layer's reference output."""
+    cfg = cfg or vta_default()
+    alloc = DramAllocator(offset=dram_offset, page_bytes=cfg.page_bytes)
+    layers: List[CompiledLayer] = []
+    current: np.ndarray = np.asarray(input_tensor, dtype=np.int8)
+    for spec in specs:
+        layer = compile_layer(spec, current, cfg=cfg, allocator=alloc,
+                              schedule=schedule)
+        layers.append(layer)
+        # Reference output becomes the next layer's input (semantic form).
+        ref = layer.ref_output_matrix
+        if spec.kind == "conv":
+            from .conv_lowering import mat2tensor
+            current = mat2tensor(ref, layer.out_h, layer.out_w)
+        else:
+            current = ref
+    return NetworkProgram(config=cfg, allocator=alloc, layers=layers,
+                          input_tensor=np.asarray(input_tensor))

@@ -1,0 +1,65 @@
+"""Public wrapper around the ``vta_gemm`` kernel.
+
+A CPU tensor goes to the plain torch version (``ref.vta_gemm_ref``); a
+CUDA tensor launches the hand-written kernel or raises — there is no
+fallback from one to the other.  ``launches`` counts kernel launches made
+through :func:`vta_matmul`, so a run can show that its main path went
+through the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.errors import CompileError
+
+from . import ref as _ref
+from . import vta_gemm as _vta_gemm
+
+_BACKENDS = ("auto", "cuda", "torch")
+
+launches = 0            # kernel launches made by vta_matmul
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in _BACKENDS:
+        raise ValueError(
+            f"kernel backend must be one of {_BACKENDS}, got {backend!r}")
+
+
+def vta_matmul(a: torch.Tensor, b: torch.Tensor,
+               bias: Optional[torch.Tensor] = None, *,
+               relu: bool = False, shift: int = 0, saturate: bool = True,
+               out_dtype: torch.dtype = torch.int8,
+               backend: str = "auto") -> torch.Tensor:
+    """Fused W8A8 GEMM ``epilogue(A @ B + bias)`` (the VTA datapath).
+
+    backend: ``"auto"`` picks by the tensors' device, ``"cuda"`` requires
+    CUDA tensors (kernel), ``"torch"`` requires CPU tensors (plain)."""
+    global launches
+    _check_backend(backend)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise CompileError(
+            f"incompatible GEMM operand shapes {tuple(a.shape)} @ "
+            f"{tuple(b.shape)}", constraint="kernel-gemm-shape")
+    if a.device.type == "cpu":
+        if backend == "cuda":
+            raise ValueError("backend='cuda' launches the kernel and needs "
+                             "CUDA tensors; got CPU tensors")
+        return _ref.vta_gemm_ref(a, b, bias, relu=relu, shift=shift,
+                                 saturate=saturate, out_dtype=out_dtype)
+    if backend == "torch":
+        raise ValueError("backend='torch' is the plain version for CPU "
+                         f"tensors; got {a.device} (call "
+                         f"ref.vta_gemm_ref directly to compare on the card)")
+    out = _vta_gemm.vta_gemm(a, b, bias, relu=relu, shift=shift,
+                             saturate=saturate, out_dtype=out_dtype)
+    launches += 1
+    return out
