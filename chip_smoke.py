@@ -8,10 +8,11 @@ Run from the root of a checkout on a machine with one CUDA card:
 In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the hand-written ``vta_gemm`` kernel from
-   ``src/repro_torch/kernels/csrc/vta_gemm.cu`` with ``nvcc`` and prints
-   the build time and ptxas's register/shared-memory report;
-3. holds the kernel against its plain torch version
+2. builds both hand-written kernels, ``vta_gemm`` and ``flash_attention``,
+   from ``src/repro_torch/kernels/csrc/`` with ``nvcc`` (the two builds run
+   at once) and prints the build times and ptxas's register/shared-memory
+   lines as nvcc wrote them;
+3. holds ``vta_gemm`` against its plain torch version
    (``kernels/ref.vta_gemm_ref``) on the card, exact equality, over
    LeNet-5's five GEMM shapes at batch 32, the reference package's kernel
    test shapes, the epilogue grid relu × shift {0, 3, 8} × saturate ×
@@ -24,14 +25,36 @@ In order it:
 5. times the kernel, its plain version and ``torch._int_mm`` (a yardstick
    only; the port never calls it) at LeNet-5's shapes — device time from
    CUDA-graph replay, and per-call time between CUDA events with the
-   host's launch cost — computes each shape's bound (bytes over 3.35 TB/s
-   or int8 operations over 1,979 TOP/s, whichever is larger) and prints
-   one JSON line ``{"kernels": [...]}`` before the last line;
+   host's launch cost — and computes each shape's bound (bytes over
+   3.35 TB/s or int8 operations over 1,979 TOP/s, whichever is larger);
 6. prints img/s for warmed batches of 8 and 32 (median of 20 serves) and a
    ``torch.profiler`` breakdown of one batch-32 serve: wall time, device
-   busy time, idle share and the top device operations.
+   busy time, idle share and the top device operations;
+7. holds ``flash_attention`` against its plain version
+   (``kernels/ref.attention_ref``) on the card over a grid: the reference's
+   kernel test shapes, causal and not, window, ``q_offset``, ragged
+   non-causal lengths, every head dim (16–256), ``Sq = 1`` and rows that
+   keep no key, in float32 (atol = rtol = 2e-5) and bfloat16 (compared in
+   bf16: atol = 4e-3 and rtol = 2**-7, one bf16 ulp relative, and at most
+   5 % of the elements may differ from the plain version's bf16 value);
+8. drives the attention op ``ops.attention`` once at each of six
+   full-width head geometries of ``src/repro/configs/`` (qwen2.5-3b
+   prefill, chunked prefill and decode; a gemma3-1b local layer; whisper-base
+   cross-attention; lm100m), with the launch counters set to 0 just before
+   and read just after, and holds every output against the plain version;
+   then shows that the bf16 check refuses two faults a kernel could have,
+   at the qwen2.5-3b decode case: the output rounded toward zero, and the
+   last 32-key tile (the kernel's tile at D = 128) dropped;
+9. times the kernel, its plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick only; with
+   ``is_causal`` where that is the same function, else with the boolean
+   mask of ``ref.attention_mask``) at those six cases, and computes each case's bound (bytes over 3.35 TB/s, or
+   4·D operations per kept query-key pair over 989 TFLOP/s for bf16
+   tensor cores or 67 TFLOP/s for float32 CUDA cores, whichever is
+   larger).
 
-Any failure raises and exits non-zero.  The last line is
+It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
+the last line.  Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -41,6 +64,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,6 +72,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
+F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 KERNEL_GRID = [(8, 128, 128), (100, 300, 200), (256, 256, 256),
                (1, 17, 5), (130, 200, 140), (512, 128, 384)]
 BATCH_SIZES = [8, 8, 8, 8, 32]     # 64 requests
@@ -171,6 +197,195 @@ def check_kernel_grid(ops, ref, dev) -> int:
     return worst
 
 
+# -- flash_attention --------------------------------------------------------
+
+# (b, h, hkv, sq, skv, d) of the reference's kernel tests
+ATTN_CASES = [(1, 4, 4, 64, 64, 32), (2, 4, 2, 64, 64, 32),
+              (1, 8, 1, 32, 32, 16), (1, 2, 2, 48, 96, 32)]
+# (atol, rtol).  bf16: one bf16 ulp relative (2**-7) plus 4e-3 for outputs
+# near 0, above the largest difference seen (0.0039, one ulp at 0.5-1).
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 2.0 ** -7)}
+# The kernel and the plain version both round a float32 result to bf16
+# (round to nearest), so their bf16 values differ only where the two float32
+# values straddle a rounding boundary; rounding toward zero would change
+# about half of them.
+BF16_MISMATCH_LIMIT = 0.05
+# SDPA rounds p to bf16 before P·V: it is held to the reference's kernel-test
+# tolerance, atol = rtol = 2e-2.
+SDPA_TOL = (2e-2, 2e-2)
+CONTROL_TILE = 32           # the kernel's KV tile at D = 128
+
+# Full-width head geometries of src/repro/configs/ (the attention op has
+# no weights: inputs are seeded normal draws).
+ATTN_FULL = [
+    dict(name="qwen2.5-3b prefill", config="qwen2_5_3b.py",
+         shape=(1, 16, 2, 4096, 4096, 128), dtype=torch.bfloat16,
+         causal=True, window=None, q_offset=0, sdpa_causal=True),
+    dict(name="qwen2.5-3b chunked prefill", config="qwen2_5_3b.py",
+         shape=(1, 16, 2, 512, 4096, 128), dtype=torch.bfloat16,
+         causal=True, window=None, q_offset=3584, sdpa_causal=None),
+    dict(name="qwen2.5-3b decode", config="qwen2_5_3b.py",
+         shape=(8, 16, 2, 1, 4096, 128), dtype=torch.bfloat16,
+         causal=True, window=None, q_offset=4095, sdpa_causal=False),
+    dict(name="gemma3-1b local layer", config="gemma3_1b.py",
+         shape=(1, 4, 1, 4096, 4096, 256), dtype=torch.bfloat16,
+         causal=True, window=512, q_offset=0, sdpa_causal=None),
+    dict(name="whisper-base cross-attention", config="whisper_base.py",
+         shape=(1, 8, 8, 448, 1500, 64), dtype=torch.float32,
+         causal=False, window=None, q_offset=0, sdpa_causal=False),
+    dict(name="lm100m", config="lm100m.py",
+         shape=(4, 10, 2, 1024, 1024, 64), dtype=torch.float32,
+         causal=True, window=None, q_offset=0, sdpa_causal=True),
+]
+
+
+def attention_inputs(rng, shape, dtype, dev):
+    b, h, hkv, sq, skv, d = shape
+    return tuple(torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                 .to(dev, dtype) for s in ((b, h, sq, d), (b, hkv, skv, d),
+                                           (b, hkv, skv, d)))
+
+
+def attention_stats(got, want, tol=None) -> dict:
+    """How two outputs of one dtype differ: the largest |got - want|, the
+    count of elements with |got - want| > atol + rtol * |want| (``tol``,
+    else ``ATTN_TOL`` of the dtype), and the share of elements whose value
+    differs (bf16 compared as bf16 values)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)} != "
+                             f"{want.dtype} {tuple(want.shape)}")
+    atol, rtol = tol or ATTN_TOL[want.dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return {"max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "n_beyond": int((diff > atol + rtol * w.abs()).sum()),
+            "mismatch_share": float((g != w).float().mean()),
+            "finite": bool(torch.isfinite(g).all())}
+
+
+def attention_err(got, want, tol=None) -> dict:
+    """``attention_stats``, raising if an element is not finite or beyond
+    the tolerance, or, for bf16 at ``ATTN_TOL``, if more than
+    ``BF16_MISMATCH_LIMIT`` of the elements differ."""
+    st = attention_stats(got, want, tol)
+    atol, rtol = tol or ATTN_TOL[want.dtype]
+    if not st["finite"]:
+        raise AssertionError("non-finite output")
+    if st["n_beyond"]:
+        raise AssertionError(f"{st['n_beyond']} elements beyond atol "
+                             f"{atol:.3g} + rtol {rtol:.3g}·|want| (max "
+                             f"|diff| {st['max_abs_err']:.3g})")
+    if (tol is None and want.dtype == torch.bfloat16
+            and st["mismatch_share"] > BF16_MISMATCH_LIMIT):
+        raise AssertionError(f"{st['mismatch_share']:.3f} of the bf16 values "
+                             f"differ (limit {BF16_MISMATCH_LIMIT})")
+    return st
+
+
+def attention_grid():
+    """Phase 7's cases: (shape, kwargs)."""
+    cases = []
+    for shape in ATTN_CASES:
+        for causal in (True, False):
+            sq, skv = shape[3], shape[4]
+            off = skv - sq if causal and skv > sq else 0
+            cases.append((shape, dict(causal=causal, q_offset=off)))
+    cases += [
+        ((1, 2, 2, 64, 64, 16), dict(causal=True, window=16)),
+        ((1, 4, 1, 300, 300, 256), dict(causal=True, window=64)),
+        ((1, 2, 2, 32, 64, 16), dict(causal=True, q_offset=32)),
+        ((1, 16, 2, 100, 700, 128), dict(causal=True, q_offset=600)),
+        ((1, 2, 2, 40, 40, 16), dict(causal=False)),
+        ((1, 2, 2, 32, 40, 16), dict(causal=False)),
+        ((1, 8, 8, 45, 150, 64), dict(causal=False)),
+        ((8, 16, 2, 1, 333, 128), dict(causal=True, q_offset=332)),
+        ((4, 4, 1, 1, 257, 256), dict(causal=True, q_offset=256)),
+        ((1, 2, 2, 10, 10, 16), dict(causal=True, q_offset=-5)),
+        ((1, 2, 2, 70, 90, 32), dict(causal=False, window=5)),
+    ]
+    for d in (16, 32, 64, 128, 256):
+        cases += [((2, 4, 2, 70, 130, d), dict(causal=True, q_offset=60)),
+                  ((2, 4, 2, 70, 130, d), dict(causal=False)),
+                  ((1, 4, 1, 129, 129, d), dict(causal=True, window=33))]
+    return cases
+
+
+def check_attention_grid(ops, ref, dev):
+    """Phase 7: the kernel against its plain version over the grid;
+    returns the largest |diff| per dtype."""
+    rng = np.random.default_rng(77)
+    worst, share = {}, {}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        worst[dtype], share[dtype] = 0.0, 0.0
+        for shape, kw in attention_grid():
+            q, k, v = attention_inputs(rng, shape, dtype, dev)
+            got = ops.attention(q, k, v, **kw)
+            want = ref.attention_ref(q, k, v, **kw)
+            try:
+                st = attention_err(got, want)
+            except AssertionError as exc:
+                raise AssertionError(f"flash_attention != plain at {shape} "
+                                     f"{dtype} {kw}: {exc}") from None
+            worst[dtype] = max(worst[dtype], st["max_abs_err"])
+            share[dtype] = max(share[dtype], st["mismatch_share"])
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"attention grid: {cases} cases within tolerance (max |diff| "
+          f"float32 {worst[torch.float32]:.3g}, bfloat16 "
+          f"{worst[torch.bfloat16]:.3g}; largest share of bf16 values that "
+          f"differ {share[torch.bfloat16]:.4f})")
+    return worst, share
+
+
+def tolerance_controls(ref, x, kw) -> dict:
+    """The bf16 check must refuse two faults a kernel could have, made from
+    the plain version at one bf16 case: its float32 result rounded toward
+    zero, and the result with the last ``CONTROL_TILE`` keys dropped.
+    Raises if either passes; returns how each differs."""
+    q, k, v = x
+    want = ref.attention_ref(q, k, v, **kw)
+    exact = ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+    toward_zero = (exact.view(torch.int32) & -65536).view(
+        torch.float32).to(torch.bfloat16)
+    keep = k.shape[2] - CONTROL_TILE
+    short = ref.attention_ref(q, k[:, :, :keep], v[:, :, :keep], **kw)
+    out = {}
+    for name, got in (("rounded toward zero", toward_zero),
+                      (f"last {CONTROL_TILE} keys dropped", short)):
+        try:
+            attention_err(got, want)
+        except AssertionError as exc:
+            out[name] = {**attention_stats(got, want), "refused": str(exc)}
+            print(f"control '{name}': refused ({exc})")
+            continue
+        raise AssertionError(f"control '{name}' passed the bf16 check")
+    return out
+
+
+def kept_pairs(sq, skv, causal, window, q_offset) -> int:
+    """Query-key pairs the masks keep, per (batch, head)."""
+    q_pos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv, q_pos + 1) if causal else np.full(sq, skv)
+    lo = (np.maximum(0, q_pos - window + 1) if window is not None
+          else np.zeros(sq, np.int64))
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def attention_bound(case):
+    """Least time (ms): q, k, v read once and o written once at the memory
+    rate, or 4·D operations per kept pair at the peak for the dtype."""
+    b, h, hkv, sq, skv, d = case["shape"]
+    elt = 2 if case["dtype"] == torch.bfloat16 else 4
+    nbytes = elt * d * (2 * b * h * sq + 2 * b * hkv * skv)
+    ops = 4 * b * h * d * kept_pairs(sq, skv, case["causal"], case["window"],
+                                     case["q_offset"])
+    peak = BF16_OPS_PER_S if case["dtype"] == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -178,6 +393,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.cuda_backend import plan_cuda
+    from repro_torch.kernels import flash_attention as attn_kernel
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import vta_gemm as kernel
     from repro_torch.lenet5_e2e import compile_lenet5, request_images
@@ -190,14 +406,21 @@ def main() -> int:
     record = {"card": card, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
 
-    # -- 2. build --------------------------------------------------------
-    t0 = time.perf_counter()
-    so = kernel.build()
-    record["build_s"] = time.perf_counter() - t0
-    print(f"built {so.name} in {record['build_s']:.2f}s")
-    for line in kernel.build_log.splitlines():
-        if "ptxas info" in line or "spill" in line:
-            print("  " + line.strip())
+    # -- 2. build both kernels at once ------------------------------------
+    def timed_build(module):
+        t0 = time.perf_counter()
+        so = module.build()
+        return so, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(timed_build, (kernel, attn_kernel)))
+    record["build_s"] = {}
+    for module, (so, seconds) in zip((kernel, attn_kernel), builds):
+        record["build_s"][so.name] = seconds
+        print(f"built {so.name} in {seconds:.2f}s")
+        for line in module.build_log.splitlines():
+            if "ptxas info" in line or "spill" in line:
+                print(f"  {line.strip()}")
 
     # -- 3. kernel vs plain ----------------------------------------------
     worst = check_kernel_grid(ops, ref, dev)
@@ -225,9 +448,10 @@ def main() -> int:
         outs.append(out)
         lo += bsz
     launches = ops.launches
-    if per_batch != [5] * len(BATCH_SIZES):
+    if per_batch != [5] * len(BATCH_SIZES) or ops.attention_launches:
         raise AssertionError(f"kernel launches per batch {per_batch}, "
-                             f"expected 5 each")
+                             f"expected 5 each; attention launches "
+                             f"{ops.attention_launches}, expected 0")
     logits = np.concatenate(outs)
     for r, img in enumerate(images):
         want, _ = reference_forward_int8(weights, img, shifts)
@@ -357,6 +581,118 @@ def main() -> int:
           f"events (idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f})")
     for k, c, t in top:
         print(f"  {t:10.1f} us  x{c:<4d} {k[:90]}")
+
+    # -- 7. flash_attention vs plain over the grid ------------------------
+    grid_worst, grid_share = check_attention_grid(ops, ref, dev)
+
+    # -- 8. attention path: the op at six full-width head geometries -------
+    rng = np.random.default_rng(8)
+    inputs = [attention_inputs(rng, c["shape"], c["dtype"], dev)
+              for c in ATTN_FULL]
+    kwargs = [dict(causal=c["causal"], window=c["window"],
+                   q_offset=c["q_offset"]) for c in ATTN_FULL]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    outs = [ops.attention(*x, **kw) for x, kw in zip(inputs, kwargs)]
+    torch.cuda.synchronize()
+    attn_launches, gemm_launches = ops.attention_launches, ops.launches
+    if attn_launches != len(ATTN_FULL) or gemm_launches:
+        raise AssertionError(f"attention launches {attn_launches} for "
+                             f"{len(ATTN_FULL)} calls (vta_gemm "
+                             f"{gemm_launches})")
+    stats = []
+    for case, x, kw, out in zip(ATTN_FULL, inputs, kwargs, outs):
+        try:
+            stats.append(attention_err(out, ref.attention_ref(*x, **kw)))
+        except AssertionError as exc:
+            raise AssertionError(f"{case['name']}: kernel != plain: "
+                                 f"{exc}") from None
+    del outs
+    print(f"attention path: {len(ATTN_FULL)} full-width calls, attention "
+          f"launches {attn_launches}, all within tolerance of the plain "
+          f"version")
+    controls = tolerance_controls(ref, inputs[2], kwargs[2])
+
+    # -- 9. times at the full-width cases, bound, SDPA yardstick ----------
+    import torch.nn.functional as F
+    rows = []
+    for case, (q, k, v), kw, st in zip(ATTN_FULL, inputs, kwargs, stats):
+        b, h, hkv, sq, skv, d = case["shape"]
+        err = st["max_abs_err"]
+        sm_scale = d ** -0.5
+        kernel_fn = lambda: ops.attention(q, k, v, **kw)
+        plain_fn = lambda: ref.attention_ref(q, k, v, **kw)
+        if case["sdpa_causal"] is None:     # the same function needs a mask
+            mask = ref.attention_mask(sq, skv, case["causal"], case["window"],
+                                      case["q_offset"], dev)
+            lib_fn = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=sm_scale, enable_gqa=True)
+        else:
+            lib_fn = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=case["sdpa_causal"], scale=sm_scale,
+                enable_gqa=True)
+        try:
+            lib_err = attention_err(lib_fn(), plain_fn(),
+                                    SDPA_TOL)["max_abs_err"]
+        except AssertionError as exc:
+            raise AssertionError(f"{case['name']}: SDPA != plain: "
+                                 f"{exc}") from None
+        t_bound, bound_by = attention_bound(case)
+        row = {"case": case["name"], "config": "src/repro/configs/"
+               + case["config"], "shape_b_h_hkv_sq_skv_d": list(case["shape"]),
+               "dtype": str(case["dtype"]).replace("torch.", ""),
+               "causal": case["causal"], "window": case["window"],
+               "q_offset": case["q_offset"], "max_abs_err": err,
+               "mismatch_share": st["mismatch_share"],
+               "sdpa_mask": ("explicit bool" if case["sdpa_causal"] is None
+                             else "is_causal" if case["sdpa_causal"]
+                             else "none"),
+               "kept_pairs_per_head": kept_pairs(
+                   sq, skv, case["causal"], case["window"], case["q_offset"]),
+               "kernel_ms": graph_ms(kernel_fn, 5, 5),
+               "call_ms": cuda_ms(kernel_fn, 10, 2),
+               "plain_ms": graph_ms(plain_fn, 5, 5),
+               "plain_call_ms": cuda_ms(plain_fn, 10, 2),
+               "library_ms": graph_ms(lib_fn, 5, 5),
+               "library_call_ms": cuda_ms(lib_fn, 10, 2),
+               "library_max_abs_err": lib_err,
+               "bound_ms": t_bound, "bound_by": bound_by}
+        row["share_of_bound"] = t_bound / row["kernel_ms"]
+        rows.append(row)
+        print(f"  {row['case']:30s} kernel {row['kernel_ms']:.4f} ms (per "
+              f"call {row['call_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+              f"SDPA {row['library_ms']:.4f} ms, bound {t_bound:.4f} ms "
+              f"({bound_by}), share {row['share_of_bound']:.4f}, max |diff| "
+              f"{err:.3g}, values that differ {st['mismatch_share']:.4f}")
+    ops_bound = sum(r["bound_ms"] for r in rows
+                    if r["bound_by"] == "operations")
+    attn_total = lambda key: sum(r[key] for r in rows)
+    record["kernels"].append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:34",
+        "launches": attn_launches,
+        "max_abs_err": max([*(st["max_abs_err"] for st in stats),
+                            *grid_worst.values()]),
+        "grid_max_abs_err_float32": grid_worst[torch.float32],
+        "grid_max_abs_err_bfloat16": grid_worst[torch.bfloat16],
+        "grid_max_mismatch_share_bfloat16": grid_share[torch.bfloat16],
+        "tolerance_controls": controls,
+        "ms": attn_total("kernel_ms"), "plain_ms": attn_total("plain_ms"),
+        "bound_ms": attn_total("bound_ms"),
+        "bound_by": ("operations" if 2 * ops_bound >= attn_total("bound_ms")
+                     else "bytes"),
+        "library_ms": attn_total("library_ms"),
+        "call_ms": attn_total("call_ms"),
+        "plain_call_ms": attn_total("plain_call_ms"),
+        "per": ("the attention path: one call at each of the six full-width "
+                "cases; ms = device time (CUDA-graph replay), call_ms = "
+                "back-to-back calls between CUDA events; library_ms is "
+                "SDPA, with the boolean mask built once before timing where "
+                "is_causal is not the same function; bound_by names the "
+                "larger share of the summed bound"),
+        "cases": rows,
+    })
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

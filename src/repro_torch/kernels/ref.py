@@ -1,7 +1,7 @@
 """Plain torch versions of the port's kernels (the kernel test contracts).
 
-They run on the CPU and on CUDA and are exact on both, which rules out
-the obvious spellings: on this torch ``int8 @ int8`` returns int8 and
+They run on the CPU and on CUDA.  ``vta_gemm_ref`` is exact on both, which
+rules out the obvious spellings: on this torch ``int8 @ int8`` returns int8 and
 wraps, and CUDA has no int32 or int64 matmul.  The product is therefore
 taken in float64 — every partial sum is an integer below ``K · 2**14``,
 exact while that stays under ``2**53`` — and everything after it is
@@ -54,3 +54,58 @@ def vta_gemm_ref(a: torch.Tensor, b: torch.Tensor,
     if out_dtype != torch.int32:
         raise ValueError(f"out_dtype must be int8 or int32, got {out_dtype}")
     return acc.to(torch.int32)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, sm_scale: Optional[float] = None,
+                  window: Optional[int] = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Plain version of ``kernels/csrc/flash_attention.cu``: float32
+    softmax attention of ``q`` (B, H, Sq, D) over ``k``/``v``
+    (B, Hkv, Skv, D), query head h reading KV head ``h // (H // Hkv)``.
+
+    Keeps the keys with ``q_pos >= k_pos`` (causal) and
+    ``q_pos - k_pos < window``, where ``q_pos = q_offset + i``; a row that
+    keeps no key returns 0.  Output in q's dtype.  On CUDA the float32
+    products run in full float32: ``torch.backends.cuda.matmul.allow_tf32``
+    is set to False for the call and restored after it (TF32 keeps about
+    three decimal digits, too few for the kernel's 2e-5 tolerance)."""
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _attention_f32(q, k, v, causal, sm_scale, window, q_offset)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+
+
+def attention_mask(sq: int, skv: int, causal: bool, window: Optional[int],
+                   q_offset: int, device) -> torch.Tensor:
+    """(Sq, Skv) bool, True where query i keeps key j."""
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    return mask
+
+
+def _attention_f32(q, k, v, causal, sm_scale, window, q_offset):
+    b, h, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = h // hkv
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    # repeat_interleave over heads, spelt as expand + reshape (no host sync,
+    # so the plain version can be captured in a CUDA graph for timing)
+    k = k[:, :, None].expand(b, hkv, group, skv, d).reshape(b, h, skv, d)
+    v = v[:, :, None].expand(b, hkv, group, skv, d).reshape(b, h, skv, d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    mask = attention_mask(sq, skv, causal, window, q_offset, q.device)
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    # rows with every position masked: softmax gives uniform; zero them
+    out = out.masked_fill(~mask.any(dim=-1)[:, None], 0.0)
+    return out.to(q.dtype)

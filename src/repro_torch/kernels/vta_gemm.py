@@ -1,12 +1,8 @@
 """Build, load and launch the hand-written ``vta_gemm`` CUDA kernel.
 
 The kernel (``csrc/vta_gemm.cu``) is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface and loaded with
-``ctypes``.  The build happens at first use, into ``build/repro_torch/`` at
-the root of the checkout, and is keyed by a hash of the source and the
-flags, so a fresh checkout builds it once and an edited source rebuilds.
-``nvcc`` is looked up in ``$CUDA_HOME/bin``, then on ``PATH``, then in
-``/usr/local/cuda/bin``; if none has it the build raises.
+``sm_90a`` at first use and loaded with ``ctypes``, as ``build.py``
+describes.
 
 Nothing here runs at import time: the CPU tests import this module on a
 host with no ``nvcc`` and no card.
@@ -15,87 +11,26 @@ host with no ``nvcc`` and no card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import threading
 from typing import Optional
 
 import torch
 
+from . import build as _build
+from .build import KernelBuildError, KernelLaunchError  # noqa: F401
+
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "vta_gemm.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-_SYSTEM_NVCC = pathlib.Path("/usr/local/cuda/bin/nvcc")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lock = threading.Lock()
-_fn = None
-build_log = ""          # nvcc's report (ptxas registers/smem) of the last build
+KERNEL = _build.Kernel(SOURCE, "vta_gemm_launch",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+build = KERNEL.build
+library_path = KERNEL.library_path
 
 
-class KernelBuildError(RuntimeError):
-    """``nvcc`` is missing or refused the kernel source."""
-
-
-class KernelLaunchError(RuntimeError):
-    """The CUDA launch was refused (non-zero ``cudaGetLastError``)."""
-
-
-def find_nvcc() -> str:
-    home = os.environ.get("CUDA_HOME")
-    candidates = [pathlib.Path(home) / "bin" / "nvcc"] if home else []
-    on_path = shutil.which("nvcc")
-    if on_path:
-        candidates.append(pathlib.Path(on_path))
-    candidates.append(_SYSTEM_NVCC)
-    for path in candidates:
-        if path.is_file():
-            return str(path)
-    raise KernelBuildError(
-        "nvcc not found (looked in $CUDA_HOME/bin, on PATH and in "
-        "/usr/local/cuda/bin); the vta_gemm kernel cannot be built")
-
-
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libvta_gemm_{digest}.so"
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel unless a library for this source exists."""
-    global build_log
-    so = library_path()
-    if so.exists():
-        return so
-    nvcc = find_nvcc()
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)             # atomic: concurrent builders agree
-    build_log = proc.stdout + proc.stderr
-    return so
-
-
-def _launcher():
-    global _fn
-    with _lock:
-        if _fn is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.vta_gemm_launch
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _fn = fn
-    return _fn
+def __getattr__(name: str):
+    if name == "build_log":     # nvcc's report of the last build
+        return KERNEL.build_log
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -140,7 +75,7 @@ def vta_gemm(a: torch.Tensor, b: torch.Tensor,
     if shift < 0:
         raise ValueError(f"shift must be >= 0, got {shift}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    fn = _launcher()
+    fn = KERNEL.launcher()
     args = (a.data_ptr(), b.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
             m, k, n, int(relu), min(shift, 31), int(saturate),

@@ -176,8 +176,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     not fall back to anything)."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
-    monkeypatch.setattr(tkernel, "_SYSTEM_NVCC", tmp_path / "nvcc")
-    monkeypatch.setattr(tkernel, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tkernel.KERNEL, "system_nvcc", tmp_path / "nvcc")
+    monkeypatch.setattr(tkernel.KERNEL, "build_dir", tmp_path / "build")
     with pytest.raises(tkernel.KernelBuildError, match="nvcc not found"):
         tkernel.build()
     assert not (tmp_path / "build").exists()
