@@ -8,10 +8,13 @@ Run from the root of a checkout on a machine with one CUDA card:
 In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds both hand-written kernels, ``vta_gemm`` and ``flash_attention``,
-   from ``src/repro_torch/kernels/csrc/`` with ``nvcc`` (the two builds run
-   at once) and prints the build times and ptxas's register/shared-memory
-   lines as nvcc wrote them;
+2. builds the hand-written kernels, ``vta_gemm`` and ``flash_attention``
+   (``flash_attention.cu`` for float32, ``flash_attention_bf16.cu`` for
+   bf16), from ``src/repro_torch/kernels/csrc/`` with ``nvcc`` (the three
+   builds run at once) and prints the build times, ptxas's register,
+   shared-memory and spill lines for every instantiation as nvcc wrote
+   them, and, where ``cuobjdump`` is found, whether the bf16 library's SASS
+   holds ``HGMMA`` (``wgmma``) instructions;
 3. holds ``vta_gemm`` against its plain torch version
    (``kernels/ref.vta_gemm_ref``) on the card, exact equality, over
    LeNet-5's five GEMM shapes at batch 32, the reference package's kernel
@@ -33,8 +36,10 @@ In order it:
 7. holds ``flash_attention`` against its plain version
    (``kernels/ref.attention_ref``) on the card over a grid: the reference's
    kernel test shapes, causal and not, window, ``q_offset``, ragged
-   non-causal lengths, every head dim (16–256), ``Sq = 1`` and rows that
-   keep no key, in float32 (atol = rtol = 2e-5) and bfloat16 (compared in
+   non-causal lengths, every head dim (16–256), ``Sq = 1``, rows that
+   keep no key, and cases that reach each bf16 path (``wgmma`` tiles, tiles
+   with a split KV range, the split-KV decode path at every head dim) and
+   both sides of the split path's threshold, in float32 (atol = rtol = 2e-5) and bfloat16 (compared in
    bf16: atol = 4e-3 and rtol = 2**-7, one bf16 ulp relative, and at most
    5 % of the elements may differ from the plain version's bf16 value);
 8. drives the attention op ``ops.attention`` once at each of six
@@ -42,16 +47,22 @@ In order it:
    prefill, chunked prefill and decode; a gemma3-1b local layer; whisper-base
    cross-attention; lm100m), with the launch counters set to 0 just before
    and read just after, and holds every output against the plain version;
-   then shows that the bf16 check refuses two faults a kernel could have,
-   at the qwen2.5-3b decode case: the output rounded toward zero, and the
-   last 32-key tile (the kernel's tile at D = 128) dropped;
+   the launch counter — the kernels the C entry points report they
+   launched — must rise by each call's planned launches (2 where a
+   combine kernel follows a split); then shows that the bf16 check refuses
+   three faults a kernel could have, at the qwen2.5-3b decode case: the
+   output rounded toward zero, the last 32 keys dropped, and P rounded to
+   bf16 before P·V (``ref.attention_rounded_p``);
 9. times the kernel, its plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; with
    ``is_causal`` where that is the same function, else with the boolean
    mask of ``ref.attention_mask``) at those six cases, and computes each case's bound (bytes over 3.35 TB/s, or
    4·D operations per kept query-key pair over 989 TFLOP/s for bf16
    tensor cores or 67 TFLOP/s for float32 CUDA cores, whichever is
-   larger).
+   larger), with each case's path, grid blocks, splits and launches; and
+   times the bf16 tiles path's KV split against another split count, in
+   alternating pairs, where the plan splits (the chunked prefill, 5 splits
+   against 1) and where it does not (gemma3's local layer, 1 against 2).
 
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
 the last line.  Any failure raises and exits non-zero.  The last line is
@@ -59,8 +70,11 @@ the last line.  Any failure raises and exits non-zero.  The last line is
 The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
 
+import dataclasses
+import functools
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -213,7 +227,8 @@ BF16_MISMATCH_LIMIT = 0.05
 # SDPA rounds p to bf16 before P·V: it is held to the reference's kernel-test
 # tolerance, atol = rtol = 2e-2.
 SDPA_TOL = (2e-2, 2e-2)
-CONTROL_TILE = 32           # the kernel's KV tile at D = 128
+CONTROL_TILE = 32           # keys dropped: the float32 kernel's KV tile at
+                            # D = 128, a quarter of the bf16 kernel's
 
 # Full-width head geometries of src/repro/configs/ (the attention op has
 # no weights: inputs are seeded normal draws).
@@ -302,23 +317,36 @@ def attention_grid():
         ((4, 4, 1, 1, 257, 256), dict(causal=True, q_offset=256)),
         ((1, 2, 2, 10, 10, 16), dict(causal=True, q_offset=-5)),
         ((1, 2, 2, 70, 90, 32), dict(causal=False, window=5)),
+        # the bf16 paths: the split path's threshold (group x Sq = 16, 24),
+        # a tiles grid small enough to split its KV range, window 9 and
+        # q_offset < 0 on the split path, non-causal ragged at D = 256
+        ((1, 8, 1, 2, 517, 128), dict(causal=True, q_offset=515)),
+        ((1, 8, 1, 3, 517, 128), dict(causal=True, q_offset=514)),
+        ((1, 2, 1, 300, 2000, 128), dict(causal=True, q_offset=1700)),
+        ((2, 4, 4, 1, 300, 64), dict(causal=True, window=9, q_offset=299)),
+        ((1, 8, 2, 4, 10, 32), dict(causal=True, q_offset=-2)),
+        ((1, 4, 4, 3, 91, 256), dict(causal=False)),
     ]
     for d in (16, 32, 64, 128, 256):
         cases += [((2, 4, 2, 70, 130, d), dict(causal=True, q_offset=60)),
                   ((2, 4, 2, 70, 130, d), dict(causal=False)),
-                  ((1, 4, 1, 129, 129, d), dict(causal=True, window=33))]
+                  ((1, 4, 1, 129, 129, d), dict(causal=True, window=33)),
+                  ((2, 8, 2, 3, 1000, d), dict(causal=True, q_offset=997))]
     return cases
 
 
-def check_attention_grid(ops, ref, dev):
+def check_attention_grid(ops, ref, plan, dev):
     """Phase 7: the kernel against its plain version over the grid;
-    returns the largest |diff| per dtype."""
+    returns the largest |diff| per dtype, the largest share of bf16 values
+    that differ, and the cases per path."""
     rng = np.random.default_rng(77)
-    worst, share = {}, {}
+    worst, share, paths = {}, {}, {}
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         worst[dtype], share[dtype] = 0.0, 0.0
         for shape, kw in attention_grid():
+            path = plan(*shape, dtype, **kw).path
+            paths[path] = paths.get(path, 0) + 1
             q, k, v = attention_inputs(rng, shape, dtype, dev)
             got = ops.attention(q, k, v, **kw)
             want = ref.attention_ref(q, k, v, **kw)
@@ -326,7 +354,7 @@ def check_attention_grid(ops, ref, dev):
                 st = attention_err(got, want)
             except AssertionError as exc:
                 raise AssertionError(f"flash_attention != plain at {shape} "
-                                     f"{dtype} {kw}: {exc}") from None
+                                     f"{dtype} {kw} ({path}): {exc}") from None
             worst[dtype] = max(worst[dtype], st["max_abs_err"])
             share[dtype] = max(share[dtype], st["mismatch_share"])
             cases += 1
@@ -334,15 +362,17 @@ def check_attention_grid(ops, ref, dev):
     print(f"attention grid: {cases} cases within tolerance (max |diff| "
           f"float32 {worst[torch.float32]:.3g}, bfloat16 "
           f"{worst[torch.bfloat16]:.3g}; largest share of bf16 values that "
-          f"differ {share[torch.bfloat16]:.4f})")
-    return worst, share
+          f"differ {share[torch.bfloat16]:.4f}; cases per path {paths})")
+    return worst, share, paths
 
 
 def tolerance_controls(ref, x, kw) -> dict:
-    """The bf16 check must refuse two faults a kernel could have, made from
-    the plain version at one bf16 case: its float32 result rounded toward
-    zero, and the result with the last ``CONTROL_TILE`` keys dropped.
-    Raises if either passes; returns how each differs."""
+    """The bf16 check must refuse three faults a kernel could have, made
+    from the plain version at one bf16 case: its float32 result rounded
+    toward zero, the result with the last ``CONTROL_TILE`` keys dropped,
+    and P rounded to bf16 before P·V (what a tensor-core kernel that keeps
+    P in one bf16 part computes).  Raises if one passes; returns how each
+    differs."""
     q, k, v = x
     want = ref.attention_ref(q, k, v, **kw)
     exact = ref.attention_ref(q.float(), k.float(), v.float(), **kw)
@@ -351,8 +381,10 @@ def tolerance_controls(ref, x, kw) -> dict:
     keep = k.shape[2] - CONTROL_TILE
     short = ref.attention_ref(q, k[:, :, :keep], v[:, :, :keep], **kw)
     out = {}
+    p_bf16 = ref.attention_rounded_p(q, k, v, p_split=False, **kw)
     for name, got in (("rounded toward zero", toward_zero),
-                      (f"last {CONTROL_TILE} keys dropped", short)):
+                      (f"last {CONTROL_TILE} keys dropped", short),
+                      ("P rounded to bf16", p_bf16)):
         try:
             attention_err(got, want)
         except AssertionError as exc:
@@ -361,6 +393,34 @@ def tolerance_controls(ref, x, kw) -> dict:
             continue
         raise AssertionError(f"control '{name}' passed the bf16 check")
     return out
+
+
+def split_ab(fa, x, kw, p, other: int, pairs: int = 10) -> dict:
+    """Device time of plan ``p`` (the tiles path) against the same case at
+    ``other`` KV splits, in ``pairs`` alternating pairs (a b, b a, ...),
+    both through the same launch with buffers made once; each arm is first
+    held against the plain version."""
+    from repro_torch.kernels import ref
+    q, k, v = x
+    want = ref.attention_ref(q, k, v, **kw)
+    arms = {}
+    for splits in (p.splits, other):
+        arm = dataclasses.replace(p, splits=splits)
+        out = torch.empty_like(q)
+        scratch = (torch.empty(arm.scratch_floats, dtype=torch.float32,
+                               device=q.device) if arm.scratch_floats
+                   else None)
+        fn = functools.partial(fa._launch, q, k, v, out, scratch, arm, **kw)
+        fn()
+        attention_err(out, want)
+        arms[splits] = (arm, fn, [])
+    order = [p.splits, other]
+    for i in range(pairs):
+        for splits in (order if i % 2 == 0 else order[::-1]):
+            arms[splits][2].append(graph_ms(arms[splits][1], 10, 10))
+    return {f"splits_{s}": {"blocks": arm.blocks, "launches": arm.launches,
+                            "kernel_ms": ms}
+            for s, (arm, _, ms) in arms.items()}
 
 
 def kept_pairs(sq, skv, causal, window, q_offset) -> int:
@@ -386,6 +446,32 @@ def attention_bound(case):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def find_cuobjdump():
+    """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
+    for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if path and pathlib.Path(path).is_file():
+            return path
+    try:
+        import triton
+    except ImportError:
+        return None
+    path = (pathlib.Path(triton.__file__).parent / "backends" / "nvidia"
+            / "bin" / "cuobjdump")
+    return str(path) if path.is_file() else None
+
+
+def sass_hgmma(so) -> dict:
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in a built
+    library's SASS, or None where no cuobjdump is found."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return {"cuobjdump": None}
+    out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    return {"cuobjdump": tool, "HGMMA": out.count("HGMMA"),
+            "HMMA": out.count("HMMA")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -406,21 +492,28 @@ def main() -> int:
     record = {"card": card, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
 
-    # -- 2. build both kernels at once ------------------------------------
-    def timed_build(module):
+    # -- 2. build every kernel at once -----------------------------------
+    def timed_build(k):
         t0 = time.perf_counter()
-        so = module.build()
+        so = k.build()
         return so, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(timed_build, (kernel, attn_kernel)))
-    record["build_s"] = {}
-    for module, (so, seconds) in zip((kernel, attn_kernel), builds):
+    kernels = (kernel.KERNEL, *attn_kernel.KERNELS)
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        builds = list(pool.map(timed_build, kernels))
+    record["build_s"], record["ptxas"] = {}, {}
+    for k, (so, seconds) in zip(kernels, builds):
         record["build_s"][so.name] = seconds
+        lines = [line.strip() for line in k.build_log.splitlines()
+                 if "ptxas" in line or "spill" in line]
+        record["ptxas"][so.name] = lines
         print(f"built {so.name} in {seconds:.2f}s")
-        for line in module.build_log.splitlines():
-            if "ptxas info" in line or "spill" in line:
-                print(f"  {line.strip()}")
+        for line in lines:
+            print(f"  {line}")
+    record["sass_bf16"] = sass_hgmma(builds[-1][0])
+    print(f"bf16 attention SASS: {record['sass_bf16']}")
+    if record["sass_bf16"].get("HGMMA") == 0:
+        raise AssertionError("the bf16 attention library holds no HGMMA")
 
     # -- 3. kernel vs plain ----------------------------------------------
     worst = check_kernel_grid(ops, ref, dev)
@@ -583,7 +676,10 @@ def main() -> int:
         print(f"  {t:10.1f} us  x{c:<4d} {k[:90]}")
 
     # -- 7. flash_attention vs plain over the grid ------------------------
-    grid_worst, grid_share = check_attention_grid(ops, ref, dev)
+    plan = functools.partial(attn_kernel.plan,
+                             sm_count=attn_kernel.device_sm_count(dev))
+    grid_worst, grid_share, grid_paths = check_attention_grid(
+        ops, ref, plan, dev)
 
     # -- 8. attention path: the op at six full-width head geometries -------
     rng = np.random.default_rng(8)
@@ -591,15 +687,22 @@ def main() -> int:
               for c in ATTN_FULL]
     kwargs = [dict(causal=c["causal"], window=c["window"],
                    q_offset=c["q_offset"]) for c in ATTN_FULL]
+    plans = [plan(*c["shape"], c["dtype"], **kw)
+             for c, kw in zip(ATTN_FULL, kwargs)]
+    planned = [p.launches for p in plans]
     torch.cuda.synchronize()
     ops.reset_launches()
-    outs = [ops.attention(*x, **kw) for x, kw in zip(inputs, kwargs)]
+    outs, case_launches = [], []
+    for x, kw in zip(inputs, kwargs):
+        before = ops.attention_launches
+        outs.append(ops.attention(*x, **kw))
+        case_launches.append(ops.attention_launches - before)
     torch.cuda.synchronize()
     attn_launches, gemm_launches = ops.attention_launches, ops.launches
-    if attn_launches != len(ATTN_FULL) or gemm_launches:
-        raise AssertionError(f"attention launches {attn_launches} for "
-                             f"{len(ATTN_FULL)} calls (vta_gemm "
-                             f"{gemm_launches})")
+    if case_launches != planned or gemm_launches:
+        raise AssertionError(f"attention launches {case_launches} for "
+                             f"{len(ATTN_FULL)} calls, planned {planned} "
+                             f"(vta_gemm {gemm_launches})")
     stats = []
     for case, x, kw, out in zip(ATTN_FULL, inputs, kwargs, outs):
         try:
@@ -609,14 +712,16 @@ def main() -> int:
                                  f"{exc}") from None
     del outs
     print(f"attention path: {len(ATTN_FULL)} full-width calls, attention "
-          f"launches {attn_launches}, all within tolerance of the plain "
-          f"version")
+          f"launches {attn_launches} {case_launches} (planned "
+          f"{planned}), all within "
+          f"tolerance of the plain version")
     controls = tolerance_controls(ref, inputs[2], kwargs[2])
 
     # -- 9. times at the full-width cases, bound, SDPA yardstick ----------
     import torch.nn.functional as F
     rows = []
-    for case, (q, k, v), kw, st in zip(ATTN_FULL, inputs, kwargs, stats):
+    for case, (q, k, v), kw, st, p, n in zip(ATTN_FULL, inputs, kwargs,
+                                             stats, plans, case_launches):
         b, h, hkv, sq, skv, d = case["shape"]
         err = st["max_abs_err"]
         sm_scale = d ** -0.5
@@ -642,7 +747,11 @@ def main() -> int:
                + case["config"], "shape_b_h_hkv_sq_skv_d": list(case["shape"]),
                "dtype": str(case["dtype"]).replace("torch.", ""),
                "causal": case["causal"], "window": case["window"],
-               "q_offset": case["q_offset"], "max_abs_err": err,
+               "q_offset": case["q_offset"], "path": p.path,
+               "grid": list(p.grid), "blocks": p.blocks, "splits": p.splits,
+               "chunk": p.chunk, "block_q": p.block_q,
+               "block_kv": p.block_kv, "smem_bytes": p.smem_bytes,
+               "launches": n, "max_abs_err": err,
                "mismatch_share": st["mismatch_share"],
                "sdpa_mask": ("explicit bool" if case["sdpa_causal"] is None
                              else "is_causal" if case["sdpa_causal"]
@@ -659,17 +768,31 @@ def main() -> int:
                "bound_ms": t_bound, "bound_by": bound_by}
         row["share_of_bound"] = t_bound / row["kernel_ms"]
         rows.append(row)
-        print(f"  {row['case']:30s} kernel {row['kernel_ms']:.4f} ms (per "
+        print(f"  {row['case']:30s} {p.path} blocks {p.blocks} splits "
+              f"{p.splits} launches {n}: "
+              f"kernel {row['kernel_ms']:.4f} ms (per "
               f"call {row['call_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
               f"SDPA {row['library_ms']:.4f} ms, bound {t_bound:.4f} ms "
               f"({bound_by}), share {row['share_of_bound']:.4f}, max |diff| "
               f"{err:.3g}, values that differ {st['mismatch_share']:.4f}")
+    by_name = {c["name"]: i for i, c in enumerate(ATTN_FULL)}
+    ab = {}
+    for name, other in (("qwen2.5-3b chunked prefill", 1),
+                        ("gemma3-1b local layer", 2)):
+        i = by_name[name]
+        ab[name] = split_ab(attn_kernel, inputs[i], kwargs[i], plans[i],
+                            other)
+        print(f"  KV split A/B, {name}: " + ", ".join(
+            f"{key} ({arm['blocks']} blocks) "
+            + " ".join(f"{t:.4f}" for t in arm["kernel_ms"]) + " ms"
+            for key, arm in ab[name].items()))
     ops_bound = sum(r["bound_ms"] for r in rows
                     if r["bound_by"] == "operations")
     attn_total = lambda key: sum(r[key] for r in rows)
     record["kernels"].append({
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": ("src/repro_torch/kernels/csrc/flash_attention_bf16.cu, "
+                   "src/repro_torch/kernels/csrc/flash_attention.cu"),
         "replaces": "src/repro/kernels/flash_attention.py:34",
         "launches": attn_launches,
         "max_abs_err": max([*(st["max_abs_err"] for st in stats),
@@ -677,6 +800,8 @@ def main() -> int:
         "grid_max_abs_err_float32": grid_worst[torch.float32],
         "grid_max_abs_err_bfloat16": grid_worst[torch.bfloat16],
         "grid_max_mismatch_share_bfloat16": grid_share[torch.bfloat16],
+        "grid_cases_per_path": grid_paths,
+        "sass_bf16": record["sass_bf16"],
         "tolerance_controls": controls,
         "ms": attn_total("kernel_ms"), "plain_ms": attn_total("plain_ms"),
         "bound_ms": attn_total("bound_ms"),
@@ -686,12 +811,15 @@ def main() -> int:
         "call_ms": attn_total("call_ms"),
         "plain_call_ms": attn_total("plain_call_ms"),
         "per": ("the attention path: one call at each of the six full-width "
-                "cases; ms = device time (CUDA-graph replay), call_ms = "
+                "cases (launches counts every kernel, the combine kernel "
+                "after a split too); ms = device time (CUDA-graph replay), "
+                "call_ms = "
                 "back-to-back calls between CUDA events; library_ms is "
                 "SDPA, with the boolean mask built once before timing where "
                 "is_causal is not the same function; bound_by names the "
                 "larger share of the summed bound"),
         "cases": rows,
+        "split_ab": ab,
     })
 
     out_dir = ROOT / "chiprun_out"

@@ -15,23 +15,24 @@
 // and o = 0 for a row that keeps no key.
 //
 //   q  (B, H, Sq, D), k and v (B, Hkv, Skv, D), o (B, H, Sq, D); row-major,
-//   contiguous, all float32 or all bfloat16; H % Hkv == 0, group = H / Hkv;
+//   contiguous, all float32; H % Hkv == 0, group = H / Hkv;
 //   D in {16, 32, 64, 128, 256}.
 //
-// Precision follows the TPU kernel: every input is converted to float32
-// (__bfloat162float), q is scaled by sm_scale before Q K^T, the running
-// max m, sum l and accumulator are float32, p stays float32 for P V, and
-// the result is rounded once to the output type (__float2bfloat16_rn).
+// This file takes float32 only.  bfloat16 inputs go to the tensor-core
+// kernels of csrc/flash_attention_bf16.cu (wgmma prefill, split-KV decode);
+// there is no bf16 instantiation here, so no bf16 tensor reaches this
+// CUDA-core kernel.
+//
+// Precision follows the TPU kernel: q is scaled by sm_scale before Q K^T,
+// the running max m, sum l and accumulator are float32, p stays float32
+// for P V.  The reference's float32 tolerance (2e-5) rules out TF32 and
+// bf16 tensor-core products, so the math stays on the CUDA cores.
 //
 // What bounds it on an H100.  Each query-key pair that the masks keep
 // costs 4 D operations (2 D for Q K^T, 2 D for P V); the bytes are q, k, v
 // read once and o written once.  A prefill at thousands of tokens does
 // hundreds to thousands of operations per byte, so it is bound by
-// operations; a decode step (Sq = 1) reads all of K and V for one row per
-// head and is bound by bytes.  This first kernel does its float32 math on
-// the CUDA cores (67 TFLOP/s), not on the tensor cores (989 TFLOP/s for
-// bf16): it is simple and right, and wgmma, TMA and a packed GQA group are
-// left to the PR that makes it fast.
+// operations: float32 on the CUDA cores (67 TFLOP/s).
 //
 // Design.
 //  * Grid (ceil(Sq / 64), H, B): one block of 256 threads per (b, h,
@@ -60,13 +61,14 @@
 //    holds: ptxas gives 80-124 registers a thread up to D = 128 (two
 //    blocks) and 179 at D = 256 (one block).
 //
-// Interface: a plain C function, loaded with ctypes.  It launches on the
-// caller's stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() after the launch (0 on success).
+// Interface: a plain C function, loaded with ctypes.  It takes the launch
+// geometry that kernels/flash_attention.py's plan chose and refuses one it
+// has no instantiation for; it launches on the caller's stream, does not
+// synchronise, allocates nothing, reports the kernels it launched, and
+// returns cudaGetLastError() after the launch (0 on success).
 
 #include <cmath>
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -76,13 +78,7 @@ constexpr int THREADS = 256;            // 16 x 16
 constexpr int RPT = BQ / 16;            // query rows per thread
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Shared-memory layout, in floats: Q tile, K tile, V tile, P tile.
 template <int D, int BK>
@@ -284,66 +280,80 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The launch geometry that flash_attention.plan chose (field order as
+// AttentionPlan.c_plan in kernels/flash_attention.py).  The library launches
+// a plan only when it has an instantiation with exactly that geometry, so
+// the plan and the kernels cannot drift apart unnoticed.
+struct Plan {
+  int path, block_q, block_kv, stages, splits, chunk, smem, gx, gy, gz;
+};
+
+bool same_grid(const Plan& p, dim3 g) {
+  return p.gx == static_cast<int>(g.x) && p.gy == static_cast<int>(g.y) &&
+         p.gz == static_cast<int>(g.z);
+}
+
 template <typename T, int D, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int h, int hkv, int sq, int skv, int causal,
                    int has_window, long long window, long long q_offset,
-                   float sm_scale, cudaStream_t stream) {
+                   float sm_scale, const Plan& p, int* launched,
+                   cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D, BK>;
   constexpr size_t smem = Tiles<D, BK>::BYTES;
+  const dim3 grid((sq + BQ - 1) / BQ, h, b);
+  if (p.path != 0 || p.block_q != BQ || p.block_kv != BK || p.stages != 1 ||
+      p.splits != 1 || p.smem != static_cast<int>(smem) || !same_grid(p, grid))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, h, b);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), h, hkv, sq, skv, causal,
       has_window, window, q_offset, sm_scale);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return err;
 }
 
+// The KV tile per head dim: 64 keys up to D = 64, then 32 and 16.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int b, int h, int hkv, int sq, int skv, int d,
                      int causal, int has_window, long long window,
-                     long long q_offset, float sm_scale,
-                     cudaStream_t stream) {
+                     long long q_offset, float sm_scale, const Plan& p,
+                     int* launched, cudaStream_t stream) {
+#define FA_LAUNCH(D, BK)                                                    \
+  launch<T, D, BK>(q, k, v, o, b, h, hkv, sq, skv, causal, has_window,      \
+                   window, q_offset, sm_scale, p, launched, stream)
   switch (d) {
-    case 16:
-      return launch<T, 16, 64>(q, k, v, o, b, h, hkv, sq, skv, causal,
-                               has_window, window, q_offset, sm_scale, stream);
-    case 32:
-      return launch<T, 32, 64>(q, k, v, o, b, h, hkv, sq, skv, causal,
-                               has_window, window, q_offset, sm_scale, stream);
-    case 64:
-      return launch<T, 64, 64>(q, k, v, o, b, h, hkv, sq, skv, causal,
-                               has_window, window, q_offset, sm_scale, stream);
-    case 128:
-      return launch<T, 128, 32>(q, k, v, o, b, h, hkv, sq, skv, causal,
-                                has_window, window, q_offset, sm_scale, stream);
-    case 256:
-      return launch<T, 256, 16>(q, k, v, o, b, h, hkv, sq, skv, causal,
-                                has_window, window, q_offset, sm_scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return FA_LAUNCH(16, 64);
+    case 32: return FA_LAUNCH(32, 64);
+    case 64: return FA_LAUNCH(64, 64);
+    case 128: return FA_LAUNCH(128, 32);
+    case 256: return FA_LAUNCH(256, 16);
+    default: return cudaErrorInvalidValue;
   }
+#undef FA_LAUNCH
 }
 
 }  // namespace
 
+// Launches the plan's one kernel on `stream`; *launched counts the kernels
+// this call launched (0 or 1).  Returns a cudaError_t, 0 on success.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int b, int h,
-    int hkv, int sq, int skv, int d, int is_bf16, int causal, int has_window,
-    long long window, long long q_offset, float sm_scale, void* stream) {
-  if (b <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 || skv < 0)
+    int hkv, int sq, int skv, int d, int causal, int has_window,
+    long long window, long long q_offset, float sm_scale, const void* plan,
+    int* launched, void* stream) {
+  *launched = 0;
+  if (b <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 || skv < 0 ||
+      plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, b, h, hkv, sq, skv, d,
-                                        causal, has_window, window, q_offset,
-                                        sm_scale, s)
-              : dispatch<float>(q, k, v, o, b, h, hkv, sq, skv, d, causal,
-                                has_window, window, q_offset, sm_scale, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch<float>(
+      q, k, v, o, b, h, hkv, sq, skv, d, causal, has_window, window,
+      q_offset, sm_scale, *static_cast<const Plan*>(plan), launched,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -1,10 +1,16 @@
-"""Build, load and launch the hand-written ``flash_attention`` CUDA kernel.
+"""Plan, build, load and launch the hand-written ``flash_attention`` kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the reference's Pallas
-``flash_attention``; it is compiled with ``nvcc`` for ``sm_90a`` at first
-use and loaded with ``ctypes``, as ``build.py`` describes.  Its plain torch
-version is ``ref.attention_ref``; ``ops.attention`` picks between them by
-the tensors' device.
+They replace the reference's Pallas ``flash_attention``: float32 inputs run
+on ``csrc/flash_attention.cu`` (CUDA cores), bfloat16 inputs on
+``csrc/flash_attention_bf16.cu`` (``wgmma`` prefill tiles, or a split-KV
+decode path that packs a GQA group, each followed where it splits by a
+combine kernel).  :func:`plan` names the path, tiles, grid, shared memory
+and launch count of a call; the C entry points launch exactly that
+geometry or refuse it, and report the kernels they launched, which
+``launches`` counts.  Both sources are compiled with ``nvcc`` for
+``sm_90a`` at first use and loaded with ``ctypes``, as ``build.py``
+describes.  The plain torch version is ``ref.attention_ref``;
+``ops.attention`` picks between them by the tensors' device.
 
 Nothing here runs at import time: the CPU tests import this module on a
 host with no ``nvcc`` and no card.
@@ -13,6 +19,8 @@ host with no ``nvcc`` and no card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import pathlib
 from typing import Optional, Tuple
 
@@ -24,17 +32,176 @@ from . import build as _build
 from .build import KernelBuildError, KernelLaunchError  # noqa: F401
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+SOURCE_BF16 = SOURCE.with_name("flash_attention_bf16.cu")
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 _GRID_LIMIT = 65535                 # gridDim.y (heads) and gridDim.z (batch)
 _POSITION_LIMIT = 1 << 62           # |window|, |q_offset|: no int64 overflow
 
+PATHS = ("f32", "bf16_tiles", "bf16_split")     # codes 0, 1, 2 in C
+
+
+class _CPlan(ctypes.Structure):
+    """An ``AttentionPlan`` as both C entry points take it (``struct Plan``
+    in ``csrc/*.cu``)."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "path", "block_q", "block_kv", "stages", "splits", "chunk", "smem",
+        "gx", "gy", "gz")]
+
+
+_COMMON_ARGS = ([ctypes.c_int] * 8 + [ctypes.c_longlong] * 2
+                + [ctypes.c_float, ctypes.POINTER(_CPlan),
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 KERNEL = _build.Kernel(SOURCE, "flash_attention_launch",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_float]
-                       + [ctypes.c_void_p])
+                       [ctypes.c_void_p] * 4 + _COMMON_ARGS)
+KERNEL_BF16 = _build.Kernel(SOURCE_BF16, "flash_attention_bf16_launch",
+                            [ctypes.c_void_p] * 5 + _COMMON_ARGS)
+KERNELS = (KERNEL, KERNEL_BF16)
 build = KERNEL.build
 library_path = KERNEL.library_path
+
+launches = 0    # kernels launched, as the C entry points report them
+
+# The tiles each path takes; the libraries hold one instantiation per head
+# dim and refuse any other geometry (csrc/*.cu, ``struct Plan``).
+SM_COUNT = 132                  # H100 SXM: plans made without a card
+SMEM_LIMIT = 232_448            # shared memory a block may use
+F32_BLOCK_Q, F32_BLOCK_KV = 64, {16: 64, 32: 64, 64: 64, 128: 32, 256: 16}
+TILE_Q = 128                    # bf16_tiles: two warpgroups of 64 rows
+TILE_KV = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
+SPLIT_ROWS = 16                 # bf16_split: one m16 tile of packed rows
+SPLIT_TILE = 64                 # keys a stage
+BF16_STAGES = {16: 3, 32: 3, 64: 3, 128: 3, 256: 2}     # K/V ring, both
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """How one call runs: the problem ``shape`` (B, H, Hkv, Sq, Skv, D),
+    its ``path`` (``"f32"``, ``"bf16_tiles"`` or ``"bf16_split"``), q rows
+    and keys per tile, K/V stages, KV splits and keys per split (``chunk``,
+    split path).  The grid, dynamic shared memory, kernels launched (a
+    combine kernel follows a split) and float32 scratch follow from these;
+    the C entry point launches exactly this geometry or refuses it."""
+    shape: Tuple[int, int, int, int, int, int]
+    path: str
+    block_q: int
+    block_kv: int
+    stages: int = 1
+    splits: int = 1
+    chunk: int = 0
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        b, h, hkv, sq, _, _ = self.shape
+        qtiles = -(-sq // self.block_q)
+        if self.path == "f32":
+            return (qtiles, h, b)
+        if self.path == "bf16_tiles":
+            return (qtiles * self.splits * h * b, 1, 1)
+        return (self.splits, hkv, b)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def smem_bytes(self) -> int:
+        d, bq, bk = self.shape[5], self.block_q, self.block_kv
+        if self.path == "f32":
+            return 4 * (bq * (d + 4) + bk * (d + 4) + bk * d + bq * (bk + 4))
+        if self.path == "bf16_tiles":       # 1 KB for the 1024-byte alignment
+            return 1024 + 2 * bq * d + self.stages * 2 * 2 * bk * d
+        return self.stages * 2 * bk * (d + 8) * 2
+
+    @property
+    def launches(self) -> int:
+        return 1 if self.path == "f32" or (self.path == "bf16_tiles"
+                                           and self.splits == 1) else 2
+
+    @property
+    def scratch_floats(self) -> int:
+        """Float32 partials (acc[D], m, l per row and split), 0 if none."""
+        b, h, _, sq, _, d = self.shape
+        return self.splits * b * h * sq * (d + 2) if self.launches == 2 else 0
+
+    def c_plan(self) -> _CPlan:
+        return _CPlan(PATHS.index(self.path), self.block_q, self.block_kv,
+                      self.stages, self.splits, self.chunk, self.smem_bytes,
+                      *self.grid)
+
+
+def kept_range(sq: int, skv: int, causal: bool, window: Optional[int],
+               q_offset: int) -> Tuple[int, int]:
+    """The keys [lo, hi) that some query row can keep (lo >= hi: none)."""
+    lo, hi = 0, skv
+    if causal:
+        hi = min(hi, q_offset + sq)
+    if window is not None:
+        lo = max(lo, q_offset - window + 1)
+    return lo, hi
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (``plan``'s ``sm_count``)."""
+    device = torch.device(device)
+    return _device_sms(torch.cuda.current_device() if device.index is None
+                       else device.index)
+
+
+def plan(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
+         dtype: torch.dtype, causal: bool = True,
+         window: Optional[int] = None, q_offset: int = 0,
+         sm_count: int = SM_COUNT) -> AttentionPlan:
+    """The path and launch geometry of one attention call on a card with
+    ``sm_count`` SMs (``flash_attention`` passes the operands' card's).
+
+    * float32 → ``f32``: the CUDA-core kernel, 64-row q tiles, grid
+      ``(ceil(Sq/64), H, B)``, one launch.
+    * bfloat16 whose packed rows ``group × Sq`` fit one 16-row tile →
+      ``bf16_split`` (decode): grid ``(splits, Hkv, B)``, each block reads
+      its KV chunk once for the whole GQA group.  The chunk is a multiple
+      of 64 keys, sized so the grid holds about two waves of the SMs over
+      the keys the masks can keep; splits are counted from key 0, so
+      splits before a window's first key are empty.  Two launches (the
+      split kernel and the combine).
+    * other bfloat16 → ``bf16_tiles``: 128-row q tiles (two ``wgmma``
+      warpgroups), a one-dimensional grid of ``ceil(Sq/128) × splits × H
+      × B`` blocks, heaviest causal q tiles first.  Where the q-tile grid
+      fills at most half of the SMs (the chunked prefill: 64 blocks), each
+      q tile's KV range is split so the grid holds about two waves, at
+      least two KV tiles a split; the combine then makes two launches.  A
+      grid between half and one wave (gemma3's local layer: 128 blocks) is
+      not split: one block an SM already runs, so a split adds no parallel
+      work, only a float32 round trip of the partials.
+    """
+    shape = (b, h, hkv, sq, skv, d)
+    if dtype == torch.float32:
+        return AttentionPlan(shape, "f32", F32_BLOCK_Q, F32_BLOCK_KV[d])
+    if dtype != torch.bfloat16:
+        raise ValueError(f"no attention path for {dtype}")
+    lo, hi = kept_range(sq, skv, causal, window, q_offset)
+    if (h // hkv) * sq <= SPLIT_ROWS:
+        span = max(0, hi - (max(lo, 0) // SPLIT_TILE) * SPLIT_TILE)
+        want = max(1, -(-2 * sm_count // (hkv * b)))
+        chunk = SPLIT_TILE * max(1, -(-span // (want * SPLIT_TILE)))
+        splits = max(1, -(-min(hi, skv) // chunk)) if hi > 0 else 1
+        return AttentionPlan(shape, "bf16_split", SPLIT_ROWS, SPLIT_TILE,
+                             BF16_STAGES[d], splits, chunk)
+    bk = TILE_KV[d]
+    base = -(-sq // TILE_Q) * h * b
+    splits = 1
+    if 2 * base <= sm_count and lo < hi:
+        kv_tiles = (hi - 1) // bk - lo // bk + 1
+        splits = max(1, min(-(-2 * sm_count // base), kv_tiles // 2))
+    if base * splits >= 2 ** 31:
+        raise ValueError(f"{base * splits} blocks exceed the grid limit")
+    return AttentionPlan(shape, "bf16_tiles", TILE_Q, bk, BF16_STAGES[d],
+                         splits)
 
 
 def __getattr__(name: str):
@@ -84,39 +251,89 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor,
     return b, h, hkv, sq, skv, d
 
 
+def check_alignment(*tensors: torch.Tensor) -> None:
+    """TMA and 16-byte loads need 16-byte aligned data; a contiguous view
+    can still start at an odd storage offset.  Raises ``ValueError``."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"tensor data at {t.data_ptr():#x} is not "
+                             f"16-byte aligned (storage offset "
+                             f"{t.storage_offset()})")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors: attention of ``q`` (B, H, Sq, D)
-    over ``k``/``v`` (B, Hkv, Skv, D), output in q's dtype.
+    """Launch the kernels of ``plan``'s path on CUDA tensors: attention of
+    ``q`` (B, H, Sq, D) over ``k``/``v`` (B, Hkv, Skv, D), output in q's
+    dtype.
 
     Ragged Sq and Skv need no padding.  Launches on the current stream and
-    does not synchronise."""
+    does not synchronise.  A path that splits the keys writes float32
+    partials to a ``torch.empty`` scratch on q's device; the caching
+    allocator keeps it from being reused before the launch on this stream
+    has read it."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention launches on CUDA tensors, got "
                          f"{q.device}")
     b, h, hkv, sq, skv, d = check_inputs(q, k, v)
-    if sm_scale is None:
-        sm_scale = d ** -0.5
     for name, val in (("window", window or 0), ("q_offset", q_offset)):
         if abs(int(val)) >= _POSITION_LIMIT:
             raise ValueError(f"{name}={val} is out of range")
+    p = plan(b, h, hkv, sq, skv, d, q.dtype, causal, window, q_offset,
+             device_sm_count(q.device))
     out = torch.empty_like(q)
-    fn = KERNEL.launcher()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, hkv, sq, skv, d, int(q.dtype == torch.bfloat16),
-            int(causal), int(window is not None), int(window or 0),
-            int(q_offset), float(sm_scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
+                           device=q.device) if p.scratch_floats else None)
+    _launch(q, k, v, out, scratch, p, causal=causal, sm_scale=sm_scale,
+            window=window, q_offset=q_offset)
+    return out
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, scratch: Optional[torch.Tensor],
+            p: AttentionPlan, *, causal: bool = True,
+            sm_scale: Optional[float] = None, window: Optional[int] = None,
+            q_offset: int = 0) -> None:
+    """Launch plan ``p`` for checked CUDA operands, writing ``out`` and, on
+    a path that splits the keys, the float32 partials to ``scratch`` (acc,
+    then (m, l) pairs, as ``csrc/flash_attention_bf16.cu`` lays them out).
+    Adds the kernels the library reports launched to ``launches``; raises
+    ``KernelLaunchError`` on a non-zero return."""
+    global launches
+    b, h, hkv, sq, skv, d = p.shape
+    if p.scratch_floats and (scratch is None
+                             or scratch.dtype != torch.float32
+                             or scratch.numel() < p.scratch_floats
+                             or not scratch.is_contiguous()):
+        raise ValueError(f"plan needs {p.scratch_floats} contiguous float32 "
+                         f"elements of scratch")
+    check_alignment(q, k, v, out, *([scratch] if p.scratch_floats else []))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (b, h, hkv, sq, skv, d, int(causal), int(window is not None),
+              int(window or 0), int(q_offset),
+              float(d ** -0.5 if sm_scale is None else sm_scale),
+              ctypes.byref(p.c_plan()))
+    done = ctypes.c_int(0)
+    if p.path == "f32":
+        fn = KERNEL.launcher()
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *common, ctypes.byref(done), stream)
+    else:
+        fn = KERNEL_BF16.launcher()
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                scratch.data_ptr() if p.scratch_floats else None, *common,
+                ctypes.byref(done), stream)
     if q.device.index == torch.cuda.current_device():
         err = fn(*args)
     else:                       # launch from the operands' device context
         with torch.cuda.device(q.device):
             err = fn(*args)
+    launches += done.value
     if err != 0:
         raise KernelLaunchError(
             f"flash_attention launch failed: cudaError {err} at "
-            f"(B, H, Hkv, Sq, Skv, D) = {(b, h, hkv, sq, skv, d)}, "
-            f"{q.dtype}")
-    return out
+            f"(B, H, Hkv, Sq, Skv, D) = {p.shape}, {q.dtype}, {p.path} "
+            f"(a plan the library has no instantiation for is refused "
+            f"with cudaErrorInvalidValue, 1)")

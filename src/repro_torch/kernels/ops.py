@@ -4,8 +4,9 @@ A CPU tensor goes to the plain torch version (``ref.vta_gemm_ref``,
 ``ref.attention_ref``); a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback from one to the other.  ``launches`` counts
 kernel launches made through :func:`vta_matmul` and ``attention_launches``
-those made through :func:`attention`, so a run can show that its main
-path went through the kernels.
+the attention kernels launched (``flash_attention.launches``: the count
+the C entry points report), so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -23,13 +24,18 @@ from . import vta_gemm as _vta_gemm
 _BACKENDS = ("auto", "cuda", "torch")
 
 launches = 0            # kernel launches made by vta_matmul
-attention_launches = 0  # kernel launches made by attention
 
 
 def reset_launches() -> None:
-    global launches, attention_launches
+    global launches
     launches = 0
-    attention_launches = 0
+    _flash.launches = 0
+
+
+def __getattr__(name: str):
+    if name == "attention_launches":    # counted where the kernels launch
+        return _flash.launches
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _check_backend(backend: str) -> None:
@@ -75,13 +81,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               backend: str = "auto") -> torch.Tensor:
     """Flash attention with GQA: ``q`` (B, H, Sq, D), ``k``/``v``
     (B, Hkv, Skv, D) with H % Hkv == 0; output (B, H, Sq, D) in q's dtype.
+    On CUDA tensors the path is ``flash_attention.plan``'s: float32 on the
+    CUDA-core kernel, bfloat16 on the ``wgmma`` tiles or the split-KV decode
+    path; ``attention_launches`` rises by every kernel the call launches
+    (2 where a combine kernel follows a split), as the library reports.
 
     ``q_offset`` is the absolute position of ``q[..., 0, :]`` (chunked
     prefill, decode); ``window`` keeps keys with ``q_pos - k_pos <
     window``.  backend: ``"auto"`` picks by the tensors' device, ``"cuda"``
     requires CUDA tensors (kernel), ``"torch"`` requires CPU tensors
     (plain)."""
-    global attention_launches
     _check_backend(backend)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"attention takes 4-D q and k, got "
@@ -101,7 +110,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("backend='torch' is the plain version for CPU "
                          f"tensors; got {q.device} (call "
                          f"ref.attention_ref directly to compare on the card)")
-    out = _flash.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                                 window=window, q_offset=q_offset)
-    attention_launches += 1
-    return out
+    return _flash.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                  window=window, q_offset=q_offset)

@@ -11,11 +11,13 @@ shifts (no out-of-range dtype casts).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 _INT32_SPAN = 1 << 32
+LOG2E = math.log2(math.e)
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -60,8 +62,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, sm_scale: Optional[float] = None,
                   window: Optional[int] = None,
                   q_offset: int = 0) -> torch.Tensor:
-    """Plain version of ``kernels/csrc/flash_attention.cu``: float32
-    softmax attention of ``q`` (B, H, Sq, D) over ``k``/``v``
+    """Plain version of ``kernels/csrc/flash_attention.cu`` (float32) and
+    ``flash_attention_bf16.cu`` (bfloat16): float32 softmax attention of
+    ``q`` (B, H, Sq, D) over ``k``/``v``
     (B, Hkv, Skv, D), query head h reading KV head ``h // (H // Hkv)``.
 
     Keeps the keys with ``q_pos >= k_pos`` (causal) and
@@ -93,14 +96,10 @@ def attention_mask(sq: int, skv: int, causal: bool, window: Optional[int],
 
 def _attention_f32(q, k, v, causal, sm_scale, window, q_offset):
     b, h, sq, d = q.shape
-    _, hkv, skv, _ = k.shape
-    group = h // hkv
+    skv = k.shape[2]
     if sm_scale is None:
         sm_scale = d ** -0.5
-    # repeat_interleave over heads, spelt as expand + reshape (no host sync,
-    # so the plain version can be captured in a CUDA graph for timing)
-    k = k[:, :, None].expand(b, hkv, group, skv, d).reshape(b, h, skv, d)
-    v = v[:, :, None].expand(b, hkv, group, skv, d).reshape(b, h, skv, d)
+    k, v = _expand_kv(k, v, h)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     mask = attention_mask(sq, skv, causal, window, q_offset, q.device)
     s = s.masked_fill(~mask, -1e30)
@@ -108,4 +107,110 @@ def _attention_f32(q, k, v, causal, sm_scale, window, q_offset):
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     # rows with every position masked: softmax gives uniform; zero them
     out = out.masked_fill(~mask.any(dim=-1)[:, None], 0.0)
+    return out.to(q.dtype)
+
+
+def _expand_kv(k, v, h):
+    """K and V for each query head: repeat_interleave over heads, spelt as
+    expand + reshape (no host sync, so the plain versions can be captured
+    in a CUDA graph for timing)."""
+    b, hkv, skv, d = k.shape
+    group = h // hkv
+    return (k[:, :, None].expand(b, hkv, group, skv, d).reshape(b, h, skv, d),
+            v[:, :, None].expand(b, hkv, group, skv, d).reshape(b, h, skv, d))
+
+
+def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        splits: int, chunk: Optional[int] = None,
+                        causal: bool = True, sm_scale: Optional[float] = None,
+                        window: Optional[int] = None, q_offset: int = 0,
+                        partials: bool = False):
+    """Plain version of the bf16 split path
+    (``csrc/flash_attention_bf16.cu``: split kernel, then combine).
+
+    The keys are cut into ``splits`` consecutive parts of ``chunk`` keys
+    from key 0 (default ``ceil(Skv / splits)``).  Each part gives float32
+    partials per row in base-2 units: ``m``, the largest kept score
+    ``s · log2(e)`` (``-inf`` where the part keeps no key), ``l = Σ
+    2^(s·log2 e − m)`` and ``acc = Σ 2^(s·log2 e − m) v`` (0 where none is
+    kept).  They are combined as the combine kernel does: a part with
+    ``m = -inf`` weighs 0, the rest weigh ``2^(m − max m)``, and a row that
+    keeps no key in any part is 0.  Returns the output in q's dtype, or with
+    ``partials`` ``(out, m, l, acc)``, ``m`` and ``l`` of shape
+    (splits, B, H, Sq) and ``acc`` (splits, B, H, Sq, D).  Used by the
+    tests and ``chip_smoke.py``; no main path calls it."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if chunk is None:
+        chunk = max(1, -(-skv // splits))
+    if splits < 1 or chunk < 1 or splits * chunk < skv:
+        raise ValueError(f"{splits} splits of {chunk} keys do not cover "
+                         f"Skv = {skv}")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        k, v = _expand_kv(k, v, h)
+        s2 = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
+            sm_scale * LOG2E)
+        mask = attention_mask(sq, skv, causal, window, q_offset, q.device)
+        s2 = s2.masked_fill(~mask, -math.inf)
+        ms, ls, accs = [], [], []
+        for i in range(splits):
+            part = s2[..., i * chunk:(i + 1) * chunk]
+            m = (part.amax(dim=-1) if part.shape[-1]
+                 else torch.full((b, h, sq), -math.inf, device=q.device))
+            base = torch.where(m == -math.inf, 0.0, m)
+            p = torch.exp2(part - base[..., None])
+            ms.append(m)
+            ls.append(p.sum(dim=-1))
+            accs.append(p @ v[:, :, i * chunk:(i + 1) * chunk].float())
+        m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+        top = m.amax(dim=0)
+        top = torch.where(top == -math.inf, 0.0, top)
+        w = torch.where(m == -math.inf, 0.0, torch.exp2(m - top))
+        den = (w * l).sum(dim=0)
+        num = (w[..., None] * acc).sum(dim=0)
+        out = torch.where(den[..., None] > 0, num / den[..., None], 0.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    out = out.to(q.dtype)
+    return (out, m, l, acc) if partials else out
+
+
+def attention_rounded_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        p_split: bool, causal: bool = True,
+                        sm_scale: Optional[float] = None,
+                        window: Optional[int] = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """The float32 softmax of ``attention_ref`` with P rounded for a bf16
+    product, as a tensor-core P·V sees it: ``p_split`` keeps about 16 bits
+    of P as ``hi``, p truncated to bf16, plus ``lo = bf16(p − hi)`` rounded
+    to nearest (the bf16 kernels' scheme); otherwise P is rounded to bf16
+    alone.  ``l`` sums the
+    unrounded p.  An emulation for the tests and the tolerance controls of
+    ``chip_smoke.py``; no main path calls it."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        k, v = _expand_kv(k, v, h)
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+        mask = attention_mask(sq, skv, causal, window, q_offset, q.device)
+        s = s.masked_fill(~mask, -math.inf)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - torch.where(m == -math.inf, 0.0, m))
+        l = p.sum(dim=-1, keepdim=True)
+        if p_split:
+            hi = (p.view(torch.int32) & -65536).view(torch.float32)
+            pr = hi + (p - hi).to(torch.bfloat16).float()
+        else:
+            pr = p.to(torch.bfloat16).float()
+        out = torch.where(l > 0, (pr @ v.float()) / l, 0.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     return out.to(q.dtype)

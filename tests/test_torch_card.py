@@ -42,9 +42,12 @@ def test_flash_attention_matches_plain(shape, kw, dtype, atol, rtol):
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
                .to(dev, dtype) for s in ((b, h, sq, d), (b, hkv, skv, d),
                                          (b, hkv, skv, d)))
+    from repro_torch.kernels import flash_attention as fa
+    launches = fa.plan(*shape, dtype, **kw,             # 2 after a split
+                       sm_count=fa.device_sm_count(dev)).launches
     before = ops.attention_launches
     got = ops.attention(q, k, v, **kw)
-    assert ops.attention_launches == before + 1
+    assert ops.attention_launches == before + launches
     want = ref.attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
     if dtype == torch.bfloat16:
@@ -64,3 +67,134 @@ def test_vta_gemm_matches_plain(m, k, n):
     for kw in (dict(relu=True, shift=3), dict(out_dtype=torch.int32)):
         assert torch.equal(ops.vta_matmul(a, b, bias, **kw),
                            ref.vta_gemm_ref(a, b, bias, **kw))
+
+
+def _attention_inputs(shape, dtype, dev, seed):
+    b, h, hkv, sq, skv, d = shape
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                 .to(dev, dtype) for s in ((b, h, sq, d), (b, hkv, skv, d),
+                                           (b, hkv, skv, d)))
+
+
+def _check_bf16(got, want):
+    torch.testing.assert_close(got, want, atol=4e-3, rtol=2 ** -7)
+    assert float((got != want).float().mean()) <= 0.05
+
+
+# (b, h, hkv, sq, skv, d), kwargs, path: both bf16 paths at every head dim,
+# ragged lengths, the split threshold (group x Sq = 16 and 24), a window of
+# 9, q_offset -5 (rows with no key) and non-causal at a ragged Skv.
+BF16_PATH_CASES = [
+    *[((1, 4, 2, 200, 333, d), dict(causal=True, q_offset=133), "bf16_tiles")
+      for d in (16, 32, 64, 128, 256)],
+    *[((2, 8, 2, 3, 1000, d), dict(causal=True, q_offset=997), "bf16_split")
+      for d in (16, 32, 64, 128, 256)],
+    ((1, 8, 1, 2, 517, 128), dict(causal=True, q_offset=515), "bf16_split"),
+    ((1, 8, 1, 3, 517, 128), dict(causal=True, q_offset=514), "bf16_tiles"),
+    ((1, 4, 2, 130, 130, 64), dict(causal=True, window=9), "bf16_tiles"),
+    ((2, 4, 4, 1, 300, 64), dict(causal=True, window=9, q_offset=299),
+     "bf16_split"),
+    ((1, 2, 1, 10, 10, 32), dict(causal=True, q_offset=-5), "bf16_tiles"),
+    ((1, 8, 2, 4, 10, 32), dict(causal=True, q_offset=-2), "bf16_split"),
+    ((1, 4, 2, 70, 91, 128), dict(causal=False), "bf16_tiles"),
+    ((1, 4, 4, 3, 91, 256), dict(causal=False), "bf16_split"),
+    ((1, 2, 1, 300, 2000, 128), dict(causal=True, q_offset=1700),
+     "bf16_tiles"),                                     # splits the KV range
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw,path", BF16_PATH_CASES)
+def test_bf16_paths_match_plain(shape, kw, path):
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    q, k, v = _attention_inputs(shape, torch.bfloat16, dev, sum(shape))
+    plan = fa.plan(*shape, torch.bfloat16, **kw,
+                   sm_count=fa.device_sm_count(dev))
+    assert plan.path == path
+    before = ops.attention_launches
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.attention_launches == before + plan.launches
+    _check_bf16(got, ref.attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 16, 2, 1, 1500, 128), dict(causal=True, q_offset=1499)),
+    ((1, 4, 1, 3, 700, 64), dict(causal=True, window=200, q_offset=697)),
+])
+def test_split_partials_match_plain(shape, kw):
+    """The split kernel's float32 partials (m, l, acc per split) against
+    ``ref.attention_split_ref``'s, then the combined output."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    b, h, hkv, sq, skv, d = shape
+    q, k, v = _attention_inputs(shape, torch.bfloat16, dev, 3)
+    plan = fa.plan(*shape, torch.bfloat16, **kw,
+                   sm_count=fa.device_sm_count(dev))
+    assert plan.path == "bf16_split" and plan.splits > 1
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=dev)
+    got = torch.empty_like(q)
+    fa._launch(q, k, v, got, scratch, plan, **kw)
+    torch.cuda.synchronize()
+    want, m, l, acc = ref.attention_split_ref(
+        q, k, v, splits=plan.splits, chunk=plan.chunk, partials=True, **kw)
+    n_acc = plan.splits * b * h * sq * d
+    got_acc = scratch[:n_acc].view(plan.splits, b, h, sq, d)
+    got_ml = scratch[n_acc:].view(plan.splits, b, h, sq, 2)
+    assert torch.equal(torch.isinf(got_ml[..., 0]), torch.isinf(m))
+    live = ~torch.isinf(m)
+    torch.testing.assert_close(got_ml[..., 0][live], m[live], atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(got_ml[..., 1], l, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(got_acc, acc, atol=1e-2, rtol=1e-3)
+    _check_bf16(got, want)
+    _check_bf16(got, ref.attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3])
+def test_tiles_split_count_matches_plain(splits):
+    """The tiles path at a KV split count other than the plan's (the
+    comparison ``chip_smoke.py`` times) is right too, and each launch is
+    counted as the library reports it."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    shape, kw = (1, 2, 1, 300, 2000, 128), dict(causal=True, q_offset=1700)
+    q, k, v = _attention_inputs(shape, torch.bfloat16, dev, 5)
+    plan = dataclasses.replace(fa.plan(*shape, torch.bfloat16, **kw),
+                               splits=splits)
+    scratch = (torch.empty(plan.scratch_floats, dtype=torch.float32,
+                           device=dev) if plan.scratch_floats else None)
+    got = torch.empty_like(q)
+    before = fa.launches
+    fa._launch(q, k, v, got, scratch, plan, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + plan.launches
+    _check_bf16(got, ref.attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,change", [
+    (torch.float32, dict(block_kv=128)),
+    (torch.bfloat16, dict(block_kv=64)),
+    (torch.bfloat16, dict(stages=2)),
+    (torch.bfloat16, dict(block_q=64)),
+])
+def test_plan_without_instantiation_is_refused(dtype, change):
+    """A geometry the library was not built for is refused before any
+    launch: nothing is counted and the call raises."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    shape, kw = (1, 4, 2, 200, 333, 128), dict(causal=True, q_offset=133)
+    q, k, v = _attention_inputs(shape, dtype, dev, 6)
+    plan = dataclasses.replace(fa.plan(*shape, dtype, **kw), **change)
+    before = fa.launches
+    with pytest.raises(fa.KernelLaunchError, match="cudaError 1 "):
+        fa._launch(q, k, v, torch.empty_like(q), None, plan, **kw)
+    assert fa.launches == before
