@@ -13,23 +13,35 @@ In order it:
    bf16), from ``src/repro_torch/kernels/csrc/`` with ``nvcc`` (the three
    builds run at once) and prints the build times, ptxas's register,
    shared-memory and spill lines for every instantiation as nvcc wrote
-   them, and, where ``cuobjdump`` is found, whether the bf16 library's SASS
-   holds ``HGMMA`` (``wgmma``) instructions;
+   them, one line per ``vta_gemm`` instantiation (registers, spills: any
+   spill fails), and, where ``cuobjdump`` is found, the count of ``IMMA``
+   (int8 ``mma.sync``) instructions in ``vta_gemm``'s SASS and whether the
+   bf16 library's SASS holds ``HGMMA`` (``wgmma``) instructions;
 3. holds ``vta_gemm`` against its plain torch version
    (``kernels/ref.vta_gemm_ref``) on the card, exact equality, over
    LeNet-5's five GEMM shapes at batch 32, the reference package's kernel
    test shapes, the epilogue grid relu × shift {0, 3, 8} × saturate ×
-   {int8, int32} × bias/no bias, and a case whose A·B + bias crosses 2**31;
+   {int8, int32} × bias/no bias, a case whose A·B + bias crosses 2**31,
+   the accumulator wrap case (M = 32, K = 139,264, N = 16, A = B = -128:
+   A·B wraps past 2**31, int32 and truncating int8 out, through the
+   wrapper's plan and with one warp summing all of K), every instantiation
+   of ``vta_gemm.INSTANTIATIONS`` forced at a shape that fits it, and
+   operands at an odd address (the bytes path);
 4. compiles LeNet-5 (random seeded weights, calibrated shifts) with the
    port's compiler and serves 64 seeded requests on the card — four
    batches of 8 and one of 32 — through ``NetworkProgram.serve``; every
    answer must be bit-exact against ``reference_forward_int8`` and the
    kernel launch counter must rise by exactly 5 per served batch;
-5. times the kernel, its plain version and ``torch._int_mm`` (a yardstick
-   only; the port never calls it) at LeNet-5's shapes — device time from
+5. prints ``vta_gemm.plan``'s geometry and times the kernel, its plain
+   version and ``torch._int_mm`` (a yardstick only; the port never calls
+   it) at LeNet-5's shapes and at resnet8's eleven GEMM shapes at batch 32
+   (``RESNET8_GEMMS``; no resnet8 path runs yet) — device time from
    CUDA-graph replay, and per-call time between CUDA events with the
    host's launch cost — and computes each shape's bound (bytes over
    3.35 TB/s or int8 operations over 1,979 TOP/s, whichever is larger);
+   then times, at each of those shapes, the plan's geometry against the
+   rule it was tuned from (``starting_rule``) and, where it splits K, the
+   same tile unsplit, in alternating rounds;
 6. prints img/s for warmed batches of 8 and 32 (median of 20 serves) and a
    ``torch.profiler`` breakdown of one batch-32 serve: wall time, device
    busy time, idle share and the top device operations;
@@ -74,6 +86,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -91,6 +104,20 @@ F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 KERNEL_GRID = [(8, 128, 128), (100, 300, 200), (256, 256, 256),
                (1, 17, 5), (130, 200, 140), (512, 128, 384)]
 BATCH_SIZES = [8, 8, 8, 8, 32]     # 64 requests
+# resnet8's GEMMs at batch 32, (layer, M, K, N, out): what the reference
+# compiler gives through plan_pallas (tests/test_torch_vta_gemm_plan.py).
+RESNET8_GEMMS = [("stem", 32768, 32, 16, "int8"),
+                 ("b1a", 32768, 144, 16, "int8"),
+                 ("b1b", 32768, 144, 16, "int32"),
+                 ("t2a", 8192, 144, 32, "int8"),
+                 ("t2p", 8192, 64, 32, "int8"),
+                 ("t2b", 8192, 288, 32, "int32"),
+                 ("t3a", 2048, 288, 64, "int8"),
+                 ("t3p", 2048, 128, 64, "int8"),
+                 ("t3b", 2048, 576, 64, "int32"),
+                 ("head", 2048, 64, 64, "int32"),
+                 ("fc", 32, 64, 16, "int8")]
+WRAP_K = 139_264                   # 32 · 16384 · K crosses 2**31
 
 
 def card_line() -> str:
@@ -156,6 +183,98 @@ def int_mm_allowed(m: int, k: int, n: int) -> bool:
     return m > 16 and k > 0 and k % 8 == 0 and n > 0 and n % 8 == 0
 
 
+def time_gemm(ops, ref, kernel, sms, rng, layer, m, k, n, kw, dev) -> dict:
+    """Phase 5: one GEMM shape, int8 out with a bias or int32 out without:
+    the kernel held against the plain version, then device time (CUDA-graph
+    replay) and per-call time of the kernel, the plain version and
+    ``torch._int_mm`` (A·B alone), its bound and ``vta_gemm.plan``'s
+    geometry."""
+    a = torch.from_numpy(rng.integers(0, 128, (m, k)).astype(np.int8)).to(dev)
+    b = torch.from_numpy(rng.integers(-16, 17, (k, n)).astype(np.int8)).to(
+        dev)
+    int8_out = kw["out_dtype"] == torch.int8
+    bias = (torch.from_numpy(rng.integers(-64, 65, (n,)).astype(np.int32))
+            .to(dev) if int8_out else None)
+    if not torch.equal(ops.vta_matmul(a, b, bias, **kw),
+                       ref.vta_gemm_ref(a, b, bias, **kw)):
+        raise AssertionError(f"{layer}: kernel != plain")
+    kernel_fn = lambda: ops.vta_matmul(a, b, bias, **kw)
+    plain_fn = lambda: ref.vta_gemm_ref(a, b, bias, **kw)
+    lib_fn = ((lambda: torch._int_mm(a, b)) if int_mm_allowed(m, k, n)
+              else None)
+    t_bound, bound_by = bound(m, k, n, bias is not None, 1 if int8_out else 4)
+    p = kernel.plan(m, k, n, out_dtype=kw["out_dtype"], sm_count=sms)
+    return {
+        "layer": layer, "m": m, "k": k, "n": n,
+        "out": "int8" if int8_out else "int32", "bias": bias is not None,
+        "kernel_ms": graph_ms(kernel_fn), "plain_ms": graph_ms(plain_fn),
+        "library_ms": graph_ms(lib_fn) if lib_fn else None,
+        "call_ms": cuda_ms(kernel_fn), "plain_call_ms": cuda_ms(plain_fn),
+        "library_call_ms": cuda_ms(lib_fn) if lib_fn else None,
+        "bound_ms": t_bound, "bound_by": bound_by,
+        "plan": {"bm": p.bm, "bn": p.bn, "k_split": p.k_split, "bk": p.bk,
+                 "stages": p.stages, "load": p.load, "blocks": p.blocks,
+                 "warps": p.warps, "smem_bytes": p.smem_bytes}}
+
+
+def starting_rule(m: int, k: int, n: int, sms: int):
+    """(bm, bn, k_split) by the rule ``vta_gemm.plan`` was tuned from: bn
+    the smallest tile covering N up to 64; bm the largest whose grid fills
+    a wave, else 16; under half a wave, K split over the most warps (up to
+    8) that each get a 32-byte step."""
+    bn = next((b for b in (16, 32, 64) if b >= n), 64)
+    gy = -(-n // bn)
+    bm = next((b for b in (128, 64, 32, 16) if -(-m // b) * gy >= sms), 16)
+    ks = 1
+    if 2 * -(-m // bm) * gy < sms:
+        ks = max(s for s in (1, 2, 4, 8) if s <= max(1, -(-k // 32)))
+    return bm, bn, ks
+
+
+def plan_ab(kernel, ref, sms, rng, rows, dev, pairs: int = 3) -> dict:
+    """Device time of ``vta_gemm.plan``'s geometry against the starting
+    rule's and, where the plan splits K, the same tile unsplit, in
+    ``pairs`` alternating rounds at each shape of ``rows`` (phase 5's
+    records); each arm is first held against the plain version."""
+    out = {}
+    for row in rows:
+        m, k, n = row["m"], row["k"], row["n"]
+        odt = torch.int8 if row["out"] == "int8" else torch.int32
+        a = torch.from_numpy(rng.integers(0, 128, (m, k)).astype(np.int8)).to(
+            dev)
+        b = torch.from_numpy(rng.integers(-16, 17, (k, n)).astype(np.int8)).to(
+            dev)
+        chosen = kernel.plan(m, k, n, out_dtype=odt, sm_count=sms)
+        geoms = {"plan": (chosen.bm, chosen.bn, chosen.k_split),
+                 "starting rule": starting_rule(m, k, n, sms)}
+        if chosen.k_split > 1:
+            geoms["unsplit"] = (chosen.bm, chosen.bn, 1)
+        want = ref.vta_gemm_ref(a, b, out_dtype=odt, saturate=False)
+        arms = {}
+        for name, (bm, bn, ks) in geoms.items():
+            p = kernel.make_plan(m, k, n, bm, bn, ks, chosen.load, odt)
+            o = torch.empty((m, n), dtype=odt, device=dev)
+            fn = functools.partial(kernel._launch, a, b, None, o, p,
+                                   saturate=False)
+            fn()
+            if not torch.equal(o, want):
+                raise AssertionError(f"{row['layer']} {name} {(bm, bn, ks)} "
+                                     f"!= plain")
+            arms[name] = (fn, [], (bm, bn, ks), p.blocks)
+        order = list(arms)
+        for i in range(pairs):
+            for name in (order if i % 2 == 0 else order[::-1]):
+                arms[name][1].append(graph_ms(arms[name][0]))
+        out[row["layer"]] = {name: {"bm_bn_ksplit": list(g), "blocks": nb,
+                                    "kernel_ms": ms}
+                             for name, (_, ms, g, nb) in arms.items()}
+        print(f"  A/B {row['layer']:7s} " + "; ".join(
+            f"{name} {g[0]}x{g[1]} k_split {g[2]} ({nb} blocks) "
+            f"{sorted(ms)[len(ms) // 2] * 1e3:.2f} us"
+            for name, (_, ms, g, nb) in arms.items()))
+    return out
+
+
 def check_kernel_grid(ops, ref, dev) -> int:
     """Phase 3: the kernel against its plain version, exact; returns the
     largest absolute difference seen (0 when all agree)."""
@@ -206,9 +325,84 @@ def check_kernel_grid(ops, ref, dev) -> int:
             and np.array_equal(got.cpu().numpy().astype(np.int64), expect)):
         raise AssertionError("int32 wrap case disagrees")
     cases += 1
+    cases += check_accumulator_wrap(ops, ref, dev)
+    cases += check_instantiations(ref, dev)
+    # operands at an odd address: plan takes the bytes path
+    buf = torch.from_numpy(rng.integers(-128, 128, 1 + 48 * 160 + 160 * 32)
+                           .astype(np.int8)).to(dev)
+    a = buf[1:1 + 48 * 160].view(48, 160)
+    b = buf[1 + 48 * 160:].view(160, 32)
+    for kw in (dict(relu=True, shift=5, saturate=False),
+               dict(out_dtype=torch.int32)):
+        if not torch.equal(ops.vta_matmul(a, b, **kw),
+                           ref.vta_gemm_ref(a, b, **kw)):
+            raise AssertionError(f"vta_gemm != plain at odd operand "
+                                 f"addresses {kw}")
+        cases += 1
     torch.cuda.synchronize()
     print(f"kernel grid: {cases} cases exact (max |diff| {worst})")
     return worst
+
+
+def check_accumulator_wrap(ops, ref, dev) -> int:
+    """M = 32, K = WRAP_K, N = 16, A = B = -128: A·B = 2,281,701,376 wraps
+    to -2,013,265,920.  Through the wrapper (its plan splits K over 8
+    warps) and with one warp summing all of K in the mma accumulator;
+    int32 out and truncating int8 out.  Returns the cases."""
+    from repro_torch.kernels import vta_gemm as vg
+    m, k, n = 32, WRAP_K, 16
+    a = torch.full((m, k), -128, dtype=torch.int8, device=dev)
+    b = torch.full((k, n), -128, dtype=torch.int8, device=dev)
+    one_warp = vg.make_plan(m, k, n, 16, 16, 1, "vec16")
+    cases = 0
+    for kw in (dict(out_dtype=torch.int32),
+               dict(out_dtype=torch.int8, saturate=False)):
+        want = ref.vta_gemm_ref(a, b, **kw)
+        forced = torch.empty((m, n), dtype=kw["out_dtype"], device=dev)
+        vg._launch(a, b, None, forced, one_warp,
+                   saturate=kw.get("saturate", True))
+        for name, got in (("plan", ops.vta_matmul(a, b, **kw)),
+                          ("one warp", forced)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"accumulator wrap case ({name}, {kw}) "
+                                     f"!= plain")
+            cases += 1
+    if int(ref.vta_gemm_ref(a, b, out_dtype=torch.int32)[0, 0]) != (
+            -2_013_265_920):
+        raise AssertionError("the wrap case's plain value is not the wrapped "
+                             "int32 sum")
+    return cases
+
+
+def check_instantiations(ref, dev) -> int:
+    """Every (bm, bn, k_split, load) the library holds, forced at a shape
+    that fits it (ragged M; ragged K and N on the bytes path), int8 out
+    with bias, relu, shift and truncation, and int32 out; exact.  Returns
+    the cases."""
+    from repro_torch.kernels import vta_gemm as vg
+    rng = np.random.default_rng(14)
+    cases = 0
+    for bm, bn, ks, load in vg.INSTANTIATIONS:
+        m, n = 2 * bm + 3, 2 * bn - (5 if load == "bytes" else 0)
+        k = 3 * 32 * ks + (7 if load == "bytes" else 16)
+        a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(
+            np.int8)).to(dev)
+        b = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(
+            np.int8)).to(dev)
+        bias = torch.from_numpy(rng.integers(-5000, 5000, (n,)).astype(
+            np.int32)).to(dev)
+        p = vg.make_plan(m, k, n, bm, bn, ks, load)
+        for out_dtype, bb, kw in (
+                (torch.int8, bias, dict(relu=True, shift=3, saturate=False)),
+                (torch.int32, None, {})):
+            out = torch.empty((m, n), dtype=out_dtype, device=dev)
+            vg._launch(a, b, bb, out, p, **kw)
+            if not torch.equal(out, ref.vta_gemm_ref(a, b, bb, **kw,
+                                                     out_dtype=out_dtype)):
+                raise AssertionError(f"instantiation {(bm, bn, ks, load)} "
+                                     f"!= plain at {(m, k, n)} {out_dtype}")
+            cases += 1
+    return cases
 
 
 # -- flash_attention --------------------------------------------------------
@@ -460,16 +654,38 @@ def find_cuobjdump():
     return str(path) if path.is_file() else None
 
 
-def sass_hgmma(so) -> dict:
-    """Counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in a built
-    library's SASS, or None where no cuobjdump is found."""
+def sass_counts(so) -> dict:
+    """Counts of HGMMA (wgmma), HMMA (float mma.sync) and IMMA (integer
+    mma.sync) instructions in a built library's SASS, or None where no
+    cuobjdump is found."""
     tool = find_cuobjdump()
     if tool is None:
         return {"cuobjdump": None}
     out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                          text=True, check=True, timeout=120).stdout
     return {"cuobjdump": tool, "HGMMA": out.count("HGMMA"),
-            "HMMA": out.count("HMMA")}
+            "HMMA": out.count("HMMA"), "IMMA": out.count("IMMA")}
+
+
+def vta_gemm_ptxas(log: str) -> list:
+    """ptxas's registers and spill bytes for each vta_gemm instantiation
+    (template arguments bm, bn, k_split, vec16) in a build log."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '\S*vta_gemm_kernel"
+                          r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])", line)
+        if found:
+            bm, bn, ks, vec = (int(x) for x in found.groups())
+            cur = {"bm": bm, "bn": bn, "k_split": ks,
+                   "load": "vec16" if vec else "bytes"}
+            rows.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur["spill_bytes"] = sum(int(x) for x in re.findall(
+                r"(\d+) bytes spill", line))
+        elif cur is not None and "Used" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+    return rows
 
 
 def main() -> int:
@@ -508,10 +724,28 @@ def main() -> int:
                  if "ptxas" in line or "spill" in line]
         record["ptxas"][so.name] = lines
         print(f"built {so.name} in {seconds:.2f}s")
+        if k is kernel.KERNEL:          # one line per instantiation
+            continue
         for line in lines:
             print(f"  {line}")
-    record["sass_bf16"] = sass_hgmma(builds[-1][0])
+    gemm_ptxas = vta_gemm_ptxas(kernel.KERNEL.build_log)
+    for row in gemm_ptxas:
+        print(f"  vta_gemm bm {row['bm']} bn {row['bn']} k_split "
+              f"{row['k_split']} {row['load']}: {row['registers']} registers, "
+              f"{row['spill_bytes']} spill bytes")
+    if not kernel.KERNEL.build_log:
+        print("  vta_gemm: library built by an earlier run; no ptxas lines")
+    elif len(gemm_ptxas) != len(kernel.INSTANTIATIONS) or any(
+            row["spill_bytes"] for row in gemm_ptxas):
+        raise AssertionError(f"vta_gemm: {len(gemm_ptxas)} instantiations "
+                             f"built, {len(kernel.INSTANTIATIONS)} declared, "
+                             f"or ptxas spills")
+    record["sass_vta_gemm"] = sass_counts(builds[0][0])
+    record["sass_bf16"] = sass_counts(builds[-1][0])
+    print(f"vta_gemm SASS: {record['sass_vta_gemm']}")
     print(f"bf16 attention SASS: {record['sass_bf16']}")
+    if record["sass_vta_gemm"].get("IMMA") == 0:
+        raise AssertionError("the vta_gemm library holds no IMMA")
     if record["sass_bf16"].get("HGMMA") == 0:
         raise AssertionError("the bf16 attention library holds no HGMMA")
 
@@ -556,43 +790,25 @@ def main() -> int:
           f"int32-out+TensorAlu {fused.count(False)}, fused int8 "
           f"{fused.count(True)})")
 
-    # -- 5. kernel timings at LeNet-5's shapes, batch 32 -----------------
+    # -- 5. kernel timings at LeNet-5's and resnet8's shapes, batch 32 ----
     rng = np.random.default_rng(5)
+    sms = attn_kernel.device_sm_count(dev)
     shapes = []
     for layer, p in zip(net.layers, plans):
         mp, np_ = p.padded_shape
         m, k, n = 32 * mp, p.lam * p.block_size, np_
-        a = torch.from_numpy(rng.integers(0, 128, (m, k)).astype(
-            np.int8)).to(dev)
-        b = torch.from_numpy(rng.integers(-16, 17, (k, n)).astype(
-            np.int8)).to(dev)
-        if p.fused:
-            bias = torch.from_numpy(rng.integers(-64, 65, (n,)).astype(
-                np.int32)).to(dev)
-            kw = dict(relu=p.relu, shift=p.shift, saturate=False,
-                      out_dtype=torch.int8)
-        else:
-            bias = None
-            kw = dict(relu=False, shift=0, saturate=False,
-                      out_dtype=torch.int32)
-        got = ops.vta_matmul(a, b, bias, **kw)
-        want = ref.vta_gemm_ref(a, b, bias, **kw)
-        if not torch.equal(got, want):
-            raise AssertionError(f"{layer.spec.name}: kernel != plain")
-        kernel_fn = lambda: ops.vta_matmul(a, b, bias, **kw)
-        plain_fn = lambda: ref.vta_gemm_ref(a, b, bias, **kw)
-        lib_fn = ((lambda: torch._int_mm(a, b))
-                  if int_mm_allowed(m, k, n) else None)
-        t_bound, bound_by = bound(m, k, n, bias is not None,
-                                  1 if kw["out_dtype"] == torch.int8 else 4)
-        shapes.append({
-            "layer": layer.spec.name, "m": m, "k": k, "n": n,
-            "out": "int8" if p.fused else "int32", "bias": bias is not None,
-            "kernel_ms": graph_ms(kernel_fn), "plain_ms": graph_ms(plain_fn),
-            "library_ms": graph_ms(lib_fn) if lib_fn else None,
-            "call_ms": cuda_ms(kernel_fn), "plain_call_ms": cuda_ms(plain_fn),
-            "library_call_ms": cuda_ms(lib_fn) if lib_fn else None,
-            "bound_ms": t_bound, "bound_by": bound_by})
+        kw = (dict(relu=p.relu, shift=p.shift, saturate=False,
+                   out_dtype=torch.int8) if p.fused else
+              dict(relu=False, shift=0, saturate=False,
+                   out_dtype=torch.int32))
+        shapes.append(time_gemm(ops, ref, kernel, sms, rng, layer.spec.name,
+                                m, k, n, kw, dev))
+    resnet8 = [time_gemm(ops, ref, kernel, sms, rng, name, m, k, n,
+                         dict(relu=True, shift=4, saturate=False,
+                              out_dtype=torch.int8) if out == "int8" else
+                         dict(relu=False, shift=0, saturate=False,
+                              out_dtype=torch.int32), dev)
+               for name, m, k, n, out in RESNET8_GEMMS]
     total = lambda key: (None if any(s[key] is None for s in shapes)
                          else sum(s[key] for s in shapes))
     entry = {
@@ -612,16 +828,31 @@ def main() -> int:
                 "device time (CUDA-graph replay), call_ms = back-to-back "
                 "calls between CUDA events, host launch cost included"),
         "shapes": shapes,
+        "resnet8_shapes": resnet8,
+        "sass": record["sass_vta_gemm"],
+        "ptxas": gemm_ptxas,
     }
     record["kernels"] = [entry]
-    for row in shapes:
-        lib = row["library_ms"]
-        print(f"  {row['layer']:8s} {row['m']}x{row['k']}x{row['n']} "
-              f"{row['out']}: kernel {row['kernel_ms'] * 1e3:.2f} us (per call "
-              f"{row['call_ms'] * 1e3:.2f}), plain "
-              f"{row['plain_ms'] * 1e3:.2f} us, _int_mm "
-              + (f"{lib * 1e3:.2f} us" if lib is not None else "n/a")
-              + f", bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    for title, rows in (("LeNet-5", shapes), ("resnet8", resnet8)):
+        us = lambda t: "n/a" if t is None else f"{t * 1e3:.2f} us"
+        libs = [r["library_ms"] for r in rows]
+        print(f"vta_gemm at {title}'s shapes, batch 32 (sum of kernel "
+              f"{us(sum(r['kernel_ms'] for r in rows))}, _int_mm "
+              f"{us(None if None in libs else sum(libs))}):")
+        for row in rows:
+            pl = row["plan"]
+            print(f"  {row['layer']:5s} {row['m']}x{row['k']}x{row['n']} "
+                  f"{row['out']}: kernel {us(row['kernel_ms'])} (per call "
+                  f"{us(row['call_ms'])}), plain {us(row['plain_ms'])}, "
+                  f"_int_mm {us(row['library_ms'])}, bound "
+                  f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}); plan "
+                  f"{pl['bm']}x{pl['bn']} k_split {pl['k_split']} bk "
+                  f"{pl['bk']} stages {pl['stages']} {pl['load']}, "
+                  f"{pl['blocks']} blocks of {pl['warps']} warps, "
+                  f"{pl['smem_bytes']} B shared")
+    print("vta_gemm: plan against the starting rule and the unsplit tile "
+          "(median of 3 alternating rounds):")
+    entry["plan_ab"] = plan_ab(kernel, ref, sms, rng, shapes + resnet8, dev)
 
     # -- 6. throughput and where a served batch's time goes --------------
     record["serve"] = {"main_path_batch_s": times}

@@ -9,11 +9,13 @@ silently measure the host instead.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
 
 DeviceLike = Union[None, str, torch.device]
+SM_COUNT = 132          # H100 SXM: what the kernels' plans assume without a card
 
 
 class NoDeviceError(RuntimeError):
@@ -37,3 +39,15 @@ def device_of(device: Optional[torch.device]) -> str:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return str(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (the kernels' plans size grids by it)."""
+    device = torch.device(device)
+    return _device_sms(torch.cuda.current_device() if device.index is None
+                       else device.index)

@@ -20,13 +20,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import pathlib
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.errors import CompileError
+from repro_torch.device import SM_COUNT, device_sm_count
 
 from . import build as _build
 from .build import KernelBuildError, KernelLaunchError  # noqa: F401
@@ -64,7 +64,6 @@ launches = 0    # kernels launched, as the C entry points report them
 
 # The tiles each path takes; the libraries hold one instantiation per head
 # dim and refuse any other geometry (csrc/*.cu, ``struct Plan``).
-SM_COUNT = 132                  # H100 SXM: plans made without a card
 SMEM_LIMIT = 232_448            # shared memory a block may use
 F32_BLOCK_Q, F32_BLOCK_KV = 64, {16: 64, 32: 64, 64: 64, 128: 32, 256: 16}
 TILE_Q = 128                    # bf16_tiles: two warpgroups of 64 rows
@@ -139,18 +138,6 @@ def kept_range(sq: int, skv: int, causal: bool, window: Optional[int],
     if window is not None:
         lo = max(lo, q_offset - window + 1)
     return lo, hi
-
-
-@functools.lru_cache(maxsize=None)
-def _device_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def device_sm_count(device: torch.device) -> int:
-    """The SMs of a CUDA device (``plan``'s ``sm_count``)."""
-    device = torch.device(device)
-    return _device_sms(torch.cuda.current_device() if device.index is None
-                       else device.index)
 
 
 def plan(b: int, h: int, hkv: int, sq: int, skv: int, d: int,

@@ -42,7 +42,11 @@ def vta_gemm_ref(a: torch.Tensor, b: torch.Tensor,
     if k * (1 << 14) >= (1 << 53):
         raise ValueError(f"K={k} too deep for an exact float64 product")
     acc = (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
-    acc = wrap_int32(acc)
+    return _epilogue(wrap_int32(acc), bias, relu, shift, saturate, out_dtype)
+
+
+def _epilogue(acc, bias, relu, shift, saturate, out_dtype):
+    """``vta_gemm_ref``'s tail on the wrapped int32 sum ``acc`` (int64)."""
     if bias is not None:
         acc = wrap_int32(acc + bias.to(torch.int64)[None, :])
     if relu:
@@ -56,6 +60,32 @@ def vta_gemm_ref(a: torch.Tensor, b: torch.Tensor,
     if out_dtype != torch.int32:
         raise ValueError(f"out_dtype must be int8 or int32, got {out_dtype}")
     return acc.to(torch.int32)
+
+
+def vta_gemm_split_ref(a: torch.Tensor, b: torch.Tensor,
+                       bias: Optional[torch.Tensor], plan, *,
+                       relu: bool = False, shift: int = 0,
+                       saturate: bool = True,
+                       out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """``vta_gemm_ref`` summed as the kernel sums it under ``plan`` (a
+    ``vta_gemm.GemmPlan``): each warp group's K slices
+    (``plan.k_slices()``) in wrapping int32, the groups added in order onto
+    the first, then the same epilogue.  Wrapping addition is associative,
+    so it must equal ``vta_gemm_ref``; the tests hold the plan's slicing to
+    that.  No main path calls it."""
+    k = a.shape[1]
+    if k * (1 << 14) >= (1 << 53):
+        raise ValueError(f"K={k} too deep for an exact float64 product")
+    a64, b64 = a.to(torch.float64), b.to(torch.float64)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int64,
+                      device=a.device)
+    for ranges in plan.k_slices():
+        part = torch.zeros_like(acc)
+        for lo, hi in ranges:
+            step = (a64[:, lo:hi] @ b64[lo:hi]).to(torch.int64)
+            part = wrap_int32(part + step)
+        acc = wrap_int32(acc + part)
+    return _epilogue(acc, bias, relu, shift, saturate, out_dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -69,6 +69,92 @@ def test_vta_gemm_matches_plain(m, k, n):
                            ref.vta_gemm_ref(a, b, bias, **kw))
 
 
+def _int8(rng, shape, dev, lo=-128, hi=128):
+    return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8)).to(
+        dev)
+
+
+# One case per plan class: tile rows 16/32/64/128, K split 1 or more (up to
+# 8 warps a block), vec16 or bytes; (bm, bn, k_split, load).
+PLAN_CLASSES = [(bm, bn, ks, load)
+                for load in ("vec16", "bytes")
+                for bm, bn, ks in ((16, 64, 1), (16, 16, 8), (32, 32, 1),
+                                   (32, 16, 4), (64, 16, 1), (64, 64, 2),
+                                   (128, 64, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn,k_split,load", PLAN_CLASSES)
+def test_vta_gemm_plan_classes_match_plain(bm, bn, k_split, load):
+    """Each plan class, forced at a shape with ragged M (and, on the bytes
+    path, ragged K and N), against the plain version, exact."""
+    from repro_torch.kernels import vta_gemm as vg
+    dev = _card()
+    m, n = 2 * bm + 3, 2 * bn - (5 if load == "bytes" else 0)
+    k = 3 * 32 * k_split + (7 if load == "bytes" else 16)
+    rng = np.random.default_rng(bm + bn + k_split)
+    a, b = _int8(rng, (m, k), dev), _int8(rng, (k, n), dev)
+    bias = torch.from_numpy(rng.integers(-5000, 5000, (n,)).astype(
+        np.int32)).to(dev)
+    plan = vg.make_plan(m, k, n, bm, bn, k_split, load)
+    assert (bm, bn, k_split, load) in vg.INSTANTIATIONS
+    for kw in (dict(relu=True, shift=3, saturate=False),
+               dict(out_dtype=torch.int32)):
+        out = torch.empty((m, n), dtype=kw.get("out_dtype", torch.int8),
+                          device=dev)
+        vg._launch(a, b, bias, out, plan,
+                   **{key: v for key, v in kw.items() if key != "out_dtype"})
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref.vta_gemm_ref(a, b, bias, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_split", [None, 1])
+def test_vta_gemm_accumulator_wraps(k_split):
+    """M = 32, K = 139,264, N = 16, A = B = -128: A·B is 2,281,701,376,
+    which wraps to -2,013,265,920 in int32.  Through the public wrapper
+    (its plan splits K over 8 warps, whose partials meet in uint32) and
+    with one warp summing all of K in the mma accumulator."""
+    from repro_torch.kernels import vta_gemm as vg
+    dev = _card()
+    m, k, n = 32, 139_264, 16
+    a = torch.full((m, k), -128, dtype=torch.int8, device=dev)
+    b = torch.full((k, n), -128, dtype=torch.int8, device=dev)
+    for kw in (dict(out_dtype=torch.int32),
+               dict(out_dtype=torch.int8, saturate=False)):
+        want = ref.vta_gemm_ref(a, b, **kw)
+        if k_split is None:
+            got = ops.vta_matmul(a, b, **kw)
+        else:
+            got = torch.empty((m, n), dtype=kw["out_dtype"], device=dev)
+            vg._launch(a, b, None, got,
+                       vg.make_plan(m, k, n, 16, 16, k_split, "vec16"),
+                       saturate=kw.get("saturate", True))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert int(ref.vta_gemm_ref(a, b, out_dtype=torch.int32)[0, 0]) == (
+        -2_013_265_920)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [dict(bm=48), dict(bm=32, k_split=8),
+                                    dict(bk=96), dict(stages=9),
+                                    dict(bn=128)])
+def test_vta_gemm_plan_without_instantiation_is_refused(change):
+    """A geometry the library has no instantiation for, or one that does
+    not fit the shape, is refused before any launch."""
+    import dataclasses
+    from repro_torch.kernels import vta_gemm as vg
+    dev = _card()
+    m, k, n = 64, 256, 64
+    rng = np.random.default_rng(9)
+    a, b = _int8(rng, (m, k), dev), _int8(rng, (k, n), dev)
+    plan = dataclasses.replace(vg.plan(m, k, n), **change)
+    with pytest.raises(vg.KernelLaunchError, match="cudaError 1 "):
+        vg._launch(a, b, None, torch.empty((m, n), dtype=torch.int8,
+                                           device=dev), plan)
+
+
 def _attention_inputs(shape, dtype, dev, seed):
     b, h, hkv, sq, skv, d = shape
     rng = np.random.default_rng(seed)
