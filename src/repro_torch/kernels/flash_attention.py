@@ -1,12 +1,13 @@
 """Plan, build, load and launch the hand-written ``flash_attention`` kernels.
 
 They replace the reference's Pallas ``flash_attention``: float32 inputs run
-on ``csrc/flash_attention.cu`` (CUDA cores), bfloat16 inputs on
+on ``csrc/flash_attention.cu`` (``f32``: split-TF32 ``mma.sync`` tensor-core
+products, a ``cp.async`` K/V ring), bfloat16 inputs on
 ``csrc/flash_attention_bf16.cu`` (``wgmma`` prefill tiles, or a split-KV
-decode path that packs a GQA group, each followed where it splits by a
-combine kernel).  :func:`plan` names the path, tiles, grid, shared memory
-and launch count of a call; the C entry points launch exactly that
-geometry or refuse it, and report the kernels they launched, which
+decode path that packs a GQA group); a path that splits the keys is
+followed by a combine kernel.  :func:`plan` names the path, tiles, grid,
+shared memory and launch count of a call; the C entry points launch exactly
+that geometry or refuse it, and report the kernels they launched, which
 ``launches`` counts.  Both sources are compiled with ``nvcc`` for
 ``sm_90a`` at first use and loaded with ``ctypes``, as ``build.py``
 describes.  The plain torch version is ``ref.attention_ref``;
@@ -49,23 +50,33 @@ class _CPlan(ctypes.Structure):
         "gx", "gy", "gz")]
 
 
-_COMMON_ARGS = ([ctypes.c_int] * 8 + [ctypes.c_longlong] * 2
-                + [ctypes.c_float, ctypes.POINTER(_CPlan),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-KERNEL = _build.Kernel(SOURCE, "flash_attention_launch",
-                       [ctypes.c_void_p] * 4 + _COMMON_ARGS)
+# Both entry points take (q, k, v, o, scratch, B, H, Hkv, Sq, Skv, D,
+# causal, has_window, window, q_offset, sm_scale, plan, launched, stream).
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+         + [ctypes.c_longlong] * 2
+         + [ctypes.c_float, ctypes.POINTER(_CPlan),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+KERNEL = _build.Kernel(SOURCE, "flash_attention_launch", _ARGS)
 KERNEL_BF16 = _build.Kernel(SOURCE_BF16, "flash_attention_bf16_launch",
-                            [ctypes.c_void_p] * 5 + _COMMON_ARGS)
+                            _ARGS)
 KERNELS = (KERNEL, KERNEL_BF16)
 build = KERNEL.build
 library_path = KERNEL.library_path
 
 launches = 0    # kernels launched, as the C entry points report them
 
-# The tiles each path takes; the libraries hold one instantiation per head
-# dim and refuse any other geometry (csrc/*.cu, ``struct Plan``).
+# The tiles each path takes; the libraries hold the instantiations below
+# (bf16: one per head dim) and refuse any other geometry (csrc/*.cu,
+# ``struct Plan``).
 SMEM_LIMIT = 232_448            # shared memory a block may use
-F32_BLOCK_Q, F32_BLOCK_KV = 64, {16: 64, 32: 64, 64: 64, 128: 32, 256: 16}
+# f32: the library's instantiations, one a head dim, (D, q rows = 16 a
+# warp, keys a tile, K/V stages) -> (Q fragments held in registers, blocks
+# an SM); and the tiles plan takes per head dim, D -> (q rows, keys, stages).
+F32_INSTANTIATIONS = {
+    (16, 64, 64, 2): (True, 2), (32, 64, 64, 2): (True, 2),
+    (64, 128, 64, 2): (True, 1), (128, 64, 32, 2): (False, 1),
+    (256, 64, 16, 2): (False, 1)}
+F32_TILES = {d: (bq, bk, st) for d, bq, bk, st in F32_INSTANTIATIONS}
 TILE_Q = 128                    # bf16_tiles: two warpgroups of 64 rows
 TILE_KV = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
 SPLIT_ROWS = 16                 # bf16_split: one m16 tile of packed rows
@@ -78,7 +89,7 @@ class AttentionPlan:
     """How one call runs: the problem ``shape`` (B, H, Hkv, Sq, Skv, D),
     its ``path`` (``"f32"``, ``"bf16_tiles"`` or ``"bf16_split"``), q rows
     and keys per tile, K/V stages, KV splits and keys per split (``chunk``,
-    split path).  The grid, dynamic shared memory, kernels launched (a
+    bf16_split path).  The grid, dynamic shared memory, kernels launched (a
     combine kernel follows a split) and float32 scratch follow from these;
     the C entry point launches exactly this geometry or refuses it."""
     shape: Tuple[int, int, int, int, int, int]
@@ -93,9 +104,7 @@ class AttentionPlan:
     def grid(self) -> Tuple[int, int, int]:
         b, h, hkv, sq, _, _ = self.shape
         qtiles = -(-sq // self.block_q)
-        if self.path == "f32":
-            return (qtiles, h, b)
-        if self.path == "bf16_tiles":
+        if self.path in ("f32", "bf16_tiles"):
             return (qtiles * self.splits * h * b, 1, 1)
         return (self.splits, hkv, b)
 
@@ -106,22 +115,31 @@ class AttentionPlan:
     @property
     def smem_bytes(self) -> int:
         d, bq, bk = self.shape[5], self.block_q, self.block_kv
-        if self.path == "f32":
-            return 4 * (bq * (d + 4) + bk * (d + 4) + bk * d + bq * (bk + 4))
+        if self.path == "f32":         # [Q] + ring of (K, V) + K lo, V lo
+            qreg = self.f32_instance[0]
+            return 4 * (d + 4) * ((0 if qreg else bq)
+                                  + (2 * self.stages + 2) * bk)
         if self.path == "bf16_tiles":       # 1 KB for the 1024-byte alignment
             return 1024 + 2 * bq * d + self.stages * 2 * 2 * bk * d
         return self.stages * 2 * bk * (d + 8) * 2
 
     @property
     def launches(self) -> int:
-        return 1 if self.path == "f32" or (self.path == "bf16_tiles"
-                                           and self.splits == 1) else 2
+        return 1 if self.path != "bf16_split" and self.splits == 1 else 2
 
     @property
     def scratch_floats(self) -> int:
         """Float32 partials (acc[D], m, l per row and split), 0 if none."""
         b, h, _, sq, _, d = self.shape
         return self.splits * b * h * sq * (d + 2) if self.launches == 2 else 0
+
+    @property
+    def f32_instance(self) -> Tuple[bool, int]:
+        """f32: (Q in registers, blocks an SM) of the library's
+        instantiation for this geometry (Q from shared memory and one block
+        where it has none: the library refuses the plan)."""
+        key = (self.shape[5], self.block_q, self.block_kv, self.stages)
+        return F32_INSTANTIATIONS.get(key, (False, 1))
 
     def c_plan(self) -> _CPlan:
         return _CPlan(PATHS.index(self.path), self.block_q, self.block_kv,
@@ -140,6 +158,25 @@ def kept_range(sq: int, skv: int, causal: bool, window: Optional[int],
     return lo, hi
 
 
+def _f32_splits(base: int, lo: int, hi: int, bk: int, slots: int) -> int:
+    """KV splits for a q-tile grid of ``base`` blocks over the keys [lo,
+    hi) on a card that holds ``slots`` blocks at once: 1 where the grid
+    fills the slots, else the fewest splits that minimise waves × KV tiles
+    a block (``ceil(blocks / slots) × ceil(tiles / splits)``), counting
+    only splits that get a tile."""
+    if base >= slots or lo >= hi:
+        return 1
+    tiles = (hi - 1) // bk - lo // bk + 1
+    best_cost, best = base * tiles + 1, 1
+    for s in range(1, tiles + 1):
+        per = -(-tiles // s)
+        used = -(-tiles // per)
+        cost = -(-base * used // slots) * per
+        if cost < best_cost:
+            best_cost, best = cost, used
+    return best
+
+
 def plan(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
          dtype: torch.dtype, causal: bool = True,
          window: Optional[int] = None, q_offset: int = 0,
@@ -147,8 +184,17 @@ def plan(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
     """The path and launch geometry of one attention call on a card with
     ``sm_count`` SMs (``flash_attention`` passes the operands' card's).
 
-    * float32 → ``f32``: the CUDA-core kernel, 64-row q tiles, grid
-      ``(ceil(Sq/64), H, B)``, one launch.
+    * float32 → ``f32``: split-TF32 products on ``mma.sync`` at every head
+      dim, tiles ``F32_TILES[d]``: 128 q rows (8 warps of 16) and 64-key
+      tiles at D = 64, 64 rows and 64, 32 or 16 keys at the other head dims
+      (at D = 256 the accumulator takes 128 registers a thread); a
+      one-dimensional grid of ``ceil(Sq/block_q) × splits × H × B`` blocks,
+      heaviest causal q tiles first.  Where the q-tile grid holds fewer
+      blocks than the card runs at once (SMs × the instantiation's blocks an
+      SM), the KV range is split by ``_f32_splits``: the fewest splits that
+      minimise waves × KV tiles a block (whisper-base's 448 × 1500
+      cross-attention: 32 q-tile blocks, 4 splits of 6 tiles, one wave).
+      One launch, two where it splits (the combine).
     * bfloat16 whose packed rows ``group × Sq`` fit one 16-row tile →
       ``bf16_split`` (decode): grid ``(splits, Hkv, B)``, each block reads
       its KV chunk once for the whole GQA group.  The chunk is a multiple
@@ -167,11 +213,17 @@ def plan(b: int, h: int, hkv: int, sq: int, skv: int, d: int,
       work, only a float32 round trip of the partials.
     """
     shape = (b, h, hkv, sq, skv, d)
+    lo, hi = kept_range(sq, skv, causal, window, q_offset)
     if dtype == torch.float32:
-        return AttentionPlan(shape, "f32", F32_BLOCK_Q, F32_BLOCK_KV[d])
+        bq, bk, stages = F32_TILES[d]
+        base = -(-sq // bq) * h * b
+        slots = sm_count * F32_INSTANTIATIONS[(d, bq, bk, stages)][1]
+        splits = _f32_splits(base, lo, hi, bk, slots)
+        if base * splits >= 2 ** 31:
+            raise ValueError(f"{base * splits} blocks exceed the grid limit")
+        return AttentionPlan(shape, "f32", bq, bk, stages, splits)
     if dtype != torch.bfloat16:
         raise ValueError(f"no attention path for {dtype}")
-    lo, hi = kept_range(sq, skv, causal, window, q_offset)
     if (h // hkv) * sq <= SPLIT_ROWS:
         span = max(0, hi - (max(lo, 0) // SPLIT_TILE) * SPLIT_TILE)
         want = max(1, -(-2 * sm_count // (hkv * b)))
@@ -285,7 +337,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q_offset: int = 0) -> None:
     """Launch plan ``p`` for checked CUDA operands, writing ``out`` and, on
     a path that splits the keys, the float32 partials to ``scratch`` (acc,
-    then (m, l) pairs, as ``csrc/flash_attention_bf16.cu`` lays them out).
+    then (m, l) pairs, as both ``csrc`` sources lay them out).
     Adds the kernels the library reports launched to ``launches``; raises
     ``KernelLaunchError`` on a non-zero return."""
     global launches
@@ -303,15 +355,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               float(d ** -0.5 if sm_scale is None else sm_scale),
               ctypes.byref(p.c_plan()))
     done = ctypes.c_int(0)
-    if p.path == "f32":
-        fn = KERNEL.launcher()
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *common, ctypes.byref(done), stream)
-    else:
-        fn = KERNEL_BF16.launcher()
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                scratch.data_ptr() if p.scratch_floats else None, *common,
-                ctypes.byref(done), stream)
+    fn = (KERNEL if p.path == "f32" else KERNEL_BF16).launcher()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if p.scratch_floats else None, *common,
+            ctypes.byref(done), stream)
     if q.device.index == torch.cuda.current_device():
         err = fn(*args)
     else:                       # launch from the operands' device context

@@ -81,9 +81,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               backend: str = "auto") -> torch.Tensor:
     """Flash attention with GQA: ``q`` (B, H, Sq, D), ``k``/``v``
     (B, Hkv, Skv, D) with H % Hkv == 0; output (B, H, Sq, D) in q's dtype.
-    On CUDA tensors the path is ``flash_attention.plan``'s: float32 on the
-    CUDA-core kernel, bfloat16 on the ``wgmma`` tiles or the split-KV decode
-    path; ``attention_launches`` rises by every kernel the call launches
+    On CUDA tensors the path is ``flash_attention.plan``'s: float32 on
+    split-TF32 ``mma.sync`` tensor-core products, bfloat16 on the ``wgmma``
+    tiles or the split-KV decode path; ``attention_launches`` rises by every kernel the call launches
     (2 where a combine kernel follows a split), as the library reports.
 
     ``q_offset`` is the absolute position of ``q[..., 0, :]`` (chunked

@@ -244,3 +244,61 @@ def attention_rounded_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     return out.to(q.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero: ``cvt.rna.tf32.f32``, low 13 bits then zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def attention_tf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       terms: int, causal: bool = True,
+                       sm_scale: Optional[float] = None,
+                       window: Optional[int] = None,
+                       q_offset: int = 0) -> torch.Tensor:
+    """The float32 kernel's precision scheme (``csrc/flash_attention.cu``)
+    spelt out on float32 tensors: q scaled by ``sm_scale · log2(e)``, every
+    operand of Q Kᵀ and P V rounded to TF32 as the tensor cores read it,
+    the softmax in base 2.  ``terms=3``: each operand split as ``hi =
+    rna(x)``, ``lo = rna(x − hi)`` and each product taken as
+    ``lo·hi + hi·lo + hi·hi`` (split-TF32, the kernel's); ``terms=1``: one
+    TF32 product ``rna(a)·rna(b)``, what a kernel with plain TF32 products
+    would compute.  ``l`` sums the unrounded p.  An emulation for the tests
+    and ``chip_smoke.py``'s float32 tolerance control; no main path calls
+    it."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    scale2 = (torch.tensor(sm_scale, dtype=torch.float32)
+              * torch.tensor(LOG2E, dtype=torch.float32)).to(q.device)
+
+    def parts(x):
+        hi = tf32_round(x)
+        return hi, tf32_round(x - hi)
+
+    def product(eq, x, y):
+        (xh, xl), (yh, yl) = parts(x), parts(y)
+        out = torch.einsum(eq, xh, yh)
+        if terms == 3:
+            out = (torch.einsum(eq, xl, yh) + torch.einsum(eq, xh, yl)) + out
+        return out
+
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        k, v = _expand_kv(k.float(), v.float(), h)
+        s2 = product("bhqd,bhkd->bhqk", q.float() * scale2, k)
+        mask = attention_mask(sq, skv, causal, window, q_offset, q.device)
+        s2 = s2.masked_fill(~mask, -math.inf)
+        m = s2.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s2 - torch.where(m == -math.inf, 0.0, m))
+        l = p.sum(dim=-1, keepdim=True)
+        out = torch.where(l > 0, product("bhqk,bhkd->bhqd", p, v) / l, 0.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    return out.to(q.dtype)

@@ -1,7 +1,8 @@
-"""The bf16 attention paths' plan and plain versions, on the CPU.
+"""The attention paths' plan and plain versions, on the CPU.
 
-``csrc/flash_attention_bf16.cu`` runs only on a card; what surrounds it is
-tested here on numpy-seeded inputs at small sizes:
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bf16.cu`` run only
+on a card; what surrounds them is tested here on numpy-seeded inputs at
+small sizes:
 
 * ``ref.attention_split_ref`` (the plain version of the split path: float32
   partials per KV split, merged as the combine kernel merges them) against
@@ -9,7 +10,8 @@ tested here on numpy-seeded inputs at small sizes:
   float32 and bf16, 1–7 splits: unequal splits, splits in which a row keeps
   no key, rows that keep none, windows narrower than a split;
 * ``flash_attention.plan``: the path, grid and shared memory of every case
-  ``chip_smoke.py`` runs;
+  ``chip_smoke.py`` runs, the float32 path's tiles per head dim and its KV
+  split rule;
 * the precision design: P kept as two bf16 parts passes the bf16 gate of
   ``chip_smoke.py`` at the qwen2.5-3b decode shape (batch and heads cut),
   and P rounded to bf16 alone does not.
@@ -134,14 +136,18 @@ def _all_cases():
 
 def test_plan_gives_every_case_a_path():
     """Every full-width and grid case of chip_smoke.py gets a path: float32
-    always ``f32``, bf16 always a bf16 path, shared memory within a
-    block's limit, the launches the path makes."""
+    always ``f32`` on an instantiation the library holds, bf16 always a
+    bf16 path, shared memory within a block's limit, the launches the path
+    makes (2 where a split adds the combine)."""
     seen = set()
     for shape, dtype, kw in _all_cases():
         p = fa.plan(*shape, dtype, **kw)
         seen.add(p.path)
         if dtype == torch.float32:
-            assert p.path == "f32" and p.launches == 1
+            assert p.path == "f32"
+            assert (shape[5], p.block_q, p.block_kv, p.stages) in \
+                fa.F32_INSTANTIATIONS
+            assert p.launches == (1 if p.splits == 1 else 2)
         else:
             assert p.path in ("bf16_tiles", "bf16_split")
             assert p.launches == (1 if p.path == "bf16_tiles"
@@ -177,8 +183,13 @@ def test_plan_full_width_cases():
     local = by_name["gemma3-1b local layer"]
     assert local.path == "bf16_tiles" and local.splits == 1
     assert local.block_kv == 64
-    for name in ("whisper-base cross-attention", "lm100m"):
-        assert by_name[name].path == "f32"
+    whisper = by_name["whisper-base cross-attention"]
+    assert whisper.path == "f32" and (whisper.block_q, whisper.block_kv) == (
+        128, 64)
+    assert (whisper.splits, whisper.blocks, whisper.launches) == (4, 128, 2)
+    lm = by_name["lm100m"]
+    assert lm.path == "f32" and lm.splits == 1 and lm.launches == 1
+    assert lm.grid == (8 * 10 * 4, 1, 1)
 
 
 def test_plan_split_threshold():
@@ -228,9 +239,10 @@ def test_c_plan_fields():
     assert [getattr(c, f) for f, _ in c._fields_] == [
         2, 16, 64, 3, 16, 256, p.smem_bytes, 16, 2, 8]
     f = fa.plan(1, 8, 8, 448, 1500, 64, torch.float32, causal=False).c_plan()
-    assert (f.path, f.block_q, f.block_kv, f.stages, f.splits) == (
-        0, 64, 64, 1, 1)
-    assert (f.gx, f.gy, f.gz) == (7, 8, 1)
+    assert (f.path, f.block_q, f.block_kv, f.stages, f.splits, f.chunk) == (
+        0, 128, 64, 2, 4, 0)
+    assert (f.gx, f.gy, f.gz) == (4 * 4 * 8, 1, 1)
+    assert f.smem == 4 * 68 * 6 * 64
 
 
 def test_plan_tiles_match_the_sources():
@@ -239,10 +251,13 @@ def test_plan_tiles_match_the_sources():
     on the CPU)."""
     f32 = fa.SOURCE.read_text()
     bf16 = fa.SOURCE_BF16.read_text()
-    assert {int(d): int(bk) for d, bk in re.findall(
-        r"case (\d+): return FA_LAUNCH\(\d+, (\d+)\)", f32)} == \
-        fa.F32_BLOCK_KV
-    assert re.search(rf"constexpr int BQ = {fa.F32_BLOCK_Q};", f32)
+    held = {(int(d), 16 * int(w), int(bk), int(st)): (q == "true", int(nb))
+            for d, w, bk, st, q, nb in re.findall(
+                r"^  FA_CASE\((\d+), (\d+), (\d+), (\d+), (true|false), "
+                r"(\d+)\)$", f32, re.M)}
+    assert held == fa.F32_INSTANTIATIONS
+    for d, tile in fa.F32_TILES.items():
+        assert (d, *tile) in held
     assert {int(d): int(bk) for d, bk in re.findall(
         r"launch_tiles<(\d+), (\d+)>", bf16)} == fa.TILE_KV
     assert re.search(rf"BQ = {fa.TILE_Q};", bf16)
@@ -294,3 +309,70 @@ def test_precision_emulation_in_float32():
     kw = dict(causal=True, q_offset=284)
     got = tref.attention_rounded_p(q, k, v, p_split=True, **kw)
     _close(got.numpy(), tref.attention_ref(q, k, v, **kw).numpy(), "float32")
+
+
+def test_f32_routing_per_head_dim():
+    """Every head dim goes to the tensor-core ``f32`` path on the tile of
+    ``F32_TILES``: Q fragments in registers up to D = 64, from shared
+    memory at D = 128 and 256 (the accumulator needs the registers); the
+    shared memory lets the instantiation's blocks share an SM."""
+    for d in fa.SUPPORTED_HEAD_DIMS:
+        p = fa.plan(2, 4, 2, 300, 300, d, torch.float32)
+        assert p.path == "f32"
+        assert (p.block_q, p.block_kv, p.stages) == fa.F32_TILES[d]
+        qreg, per_sm = p.f32_instance
+        assert qreg == (d <= 64)
+        assert per_sm * (p.smem_bytes + 1024) <= 233_472
+        assert p.smem_bytes == 4 * (d + 4) * (
+            (0 if qreg else p.block_q) + (2 * p.stages + 2) * p.block_kv)
+
+
+@pytest.mark.parametrize("base,tiles,slots,want", [
+    (320, 16, 132, 1),      # lm100m: the q tiles fill the card
+    (32, 24, 132, 4),       # whisper-base: 4 x 6 tiles, one wave
+    (56, 24, 264, 4),       # 64-row tiles, two blocks an SM: one wave
+    (56, 47, 396, 7),       # three blocks an SM
+    (1, 1, 132, 1),         # one tile: nothing to split
+    (2, 5, 132, 5),         # one tile a split fills no more than a wave
+    (100, 3, 132, 1),       # a second wave would cost more than it gains
+])
+def test_f32_split_rule(base, tiles, slots, want):
+    """The fewest splits that minimise waves x KV tiles a block, counting
+    only splits that get a tile."""
+    assert fa._f32_splits(base, 0, tiles * 64, 64, slots) == want
+
+
+def test_f32_split_plan_cases():
+    """whisper-base splits its 32 q-tile blocks into one wave that holds
+    nearly every SM; lm100m does not split; a grid over the keys that no
+    row keeps is never split; the scratch holds every split's partials."""
+    f32 = torch.float32
+    whisper = fa.plan(1, 8, 8, 448, 1500, 64, f32, causal=False)
+    slots = fa.SM_COUNT * whisper.f32_instance[1]
+    assert whisper.splits > 1 and 0.9 * slots <= whisper.blocks <= slots
+    assert whisper.scratch_floats == 4 * 8 * 448 * 66
+    lm = fa.plan(4, 10, 2, 1024, 1024, 64, f32)
+    assert lm.splits == 1 and lm.blocks >= fa.SM_COUNT
+    assert lm.scratch_floats == 0
+    empty = fa.plan(1, 2, 2, 10, 10, 64, f32, q_offset=-20)
+    assert empty.splits == 1 and empty.launches == 1
+    # fewer SMs: fewer splits for the same one-wave grid
+    assert fa.plan(1, 8, 8, 448, 1500, 64, f32, causal=False,
+                   sm_count=66).splits == 2
+
+
+@pytest.mark.parametrize("name,tensor_cores,cuda_cores", [
+    ("lm100m", 0.032569, 0.080208),
+    ("whisper-base cross-attention", 0.0083409, 0.020541),
+])
+def test_float32_bound_is_the_faster_scheme(name, tensor_cores, cuda_cores):
+    """chip_smoke.py's float32 bound is the least time of the faster of
+    the card's two ways to take float32 products: three TF32 products at
+    495 TFLOP/s beat 4·D operations at 67 TFLOP/s on the CUDA cores, which
+    stays beside it; both cases are bound by operations, not bytes."""
+    case = {c["name"]: c for c in smoke.ATTN_FULL}[name]
+    t, by = smoke.attention_bound(case)
+    assert by == "operations" and t == pytest.approx(tensor_cores, rel=1e-4)
+    t_cc, by_cc = smoke.attention_bound(case, cuda_cores=True)
+    assert by_cc == "operations" and t_cc == pytest.approx(cuda_cores,
+                                                           rel=1e-4)

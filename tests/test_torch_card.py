@@ -267,6 +267,9 @@ def test_tiles_split_count_matches_plain(splits):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,change", [
     (torch.float32, dict(block_kv=128)),
+    (torch.float32, dict(block_q=128)),
+    (torch.float32, dict(stages=3)),
+    (torch.float32, dict(chunk=64)),
     (torch.bfloat16, dict(block_kv=64)),
     (torch.bfloat16, dict(stages=2)),
     (torch.bfloat16, dict(block_q=64)),
@@ -280,7 +283,98 @@ def test_plan_without_instantiation_is_refused(dtype, change):
     shape, kw = (1, 4, 2, 200, 333, 128), dict(causal=True, q_offset=133)
     q, k, v = _attention_inputs(shape, dtype, dev, 6)
     plan = dataclasses.replace(fa.plan(*shape, dtype, **kw), **change)
+    scratch = torch.empty(max(1, plan.scratch_floats), dtype=torch.float32,
+                          device=dev)
     before = fa.launches
     with pytest.raises(fa.KernelLaunchError, match="cudaError 1 "):
-        fa._launch(q, k, v, torch.empty_like(q), None, plan, **kw)
+        fa._launch(q, k, v, torch.empty_like(q), scratch, plan, **kw)
     assert fa.launches == before
+
+
+def _f32_plan(shape, kw, dev, key, splits):
+    """The f32 plan of ``shape`` on instantiation ``key`` (D, block_q,
+    block_kv, stages) at ``splits`` KV splits."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    _, bq, bk, st = key
+    return dataclasses.replace(
+        fa.plan(*shape, torch.float32, **kw, sm_count=fa.device_sm_count(dev)),
+        block_q=bq, block_kv=bk, stages=st, splits=splits)
+
+
+F32_SHAPES = [
+    ((2, 4, 2, 70, 130), dict(causal=True, q_offset=60)),
+    ((1, 3, 1, 150, 301), dict(causal=False, window=40, q_offset=100)),
+    ((1, 2, 2, 10, 10), dict(causal=True, q_offset=-5)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", [(16, 64, 64, 2), (32, 64, 64, 2),
+                                 (64, 128, 64, 2), (128, 64, 32, 2),
+                                 (256, 64, 16, 2)])
+def test_f32_every_instantiation_matches_plain(key):
+    """Each float32 instantiation (every head dim) at ragged lengths,
+    causal with q_offset, a window, rows with no key, unsplit and split
+    into 3 (the combine), within 2e-5; launches counted as reported."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    assert key in fa.F32_INSTANTIATIONS
+    for dims, kw in F32_SHAPES:
+        shape = (*dims, key[0])
+        q, k, v = _attention_inputs(shape, torch.float32, dev, sum(shape))
+        want = ref.attention_ref(q, k, v, **kw)
+        for splits in (1, 3):
+            plan = _f32_plan(shape, kw, dev, key, splits)
+            scratch = torch.empty(max(1, plan.scratch_floats),
+                                  dtype=torch.float32, device=dev)
+            got = torch.empty_like(q)
+            before = fa.launches
+            fa._launch(q, k, v, got, scratch, plan, **kw)
+            torch.cuda.synchronize()
+            assert fa.launches == before + (1 if splits == 1 else 2)
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw,splits", [
+    ((1, 4, 2, 70, 700, 64), dict(causal=False), None),
+    ((1, 4, 2, 70, 700, 64), dict(causal=True, q_offset=699), 5),
+    ((1, 2, 1, 33, 300, 128), dict(causal=False), 4),
+])
+def test_f32_split_partials_match_plain(shape, kw, splits):
+    """The float32 kernel's partials (m, l, acc per split; every q tile
+    keeps every key here, so a split is ``per`` whole KV tiles from key 0,
+    and a split past the last tile keeps none) against
+    ``ref.attention_split_ref``'s, then the combined output."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    b, h, hkv, sq, skv, d = shape
+    q, k, v = _attention_inputs(shape, torch.float32, dev, 4)
+    plan = fa.plan(*shape, torch.float32, **kw,
+                   sm_count=fa.device_sm_count(dev))
+    if splits is not None:
+        plan = _f32_plan(shape, kw, dev, (d, plan.block_q, plan.block_kv,
+                                          plan.stages), splits)
+    per = -(-(-(-skv // plan.block_kv)) // plan.splits)     # tiles a split
+    assert plan.splits > 1          # 5 splits of 3 tiles: the last is empty
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=dev)
+    got = torch.empty_like(q)
+    fa._launch(q, k, v, got, scratch, plan, **kw)
+    torch.cuda.synchronize()
+    want, m, l, acc = ref.attention_split_ref(
+        q, k, v, splits=plan.splits, chunk=per * plan.block_kv,
+        partials=True, **kw)
+    n_acc = plan.splits * b * h * sq * d
+    got_acc = scratch[:n_acc].view(plan.splits, b, h, sq, d)
+    got_ml = scratch[n_acc:].view(plan.splits, b, h, sq, 2)
+    assert torch.equal(torch.isinf(got_ml[..., 0]), torch.isinf(m))
+    live = ~torch.isinf(m)
+    torch.testing.assert_close(got_ml[..., 0][live], m[live], atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(got_ml[..., 1], l, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_acc, acc, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, **kw),
+                               atol=2e-5, rtol=2e-5)
