@@ -36,32 +36,44 @@ In order it:
    batches of 8 and one of 32 — through ``NetworkProgram.serve``; every
    answer must be bit-exact against ``reference_forward_int8`` and the
    kernel launch counter must rise by exactly 5 per served batch;
+4b. compiles resnet8 and resnet_tiny (through the graph front end) and the
+   CIFAR CNN with the port's compiler at full width (random seeded
+   weights, calibrated shifts) and serves each on the card in a batch of 8
+   and one of 32 through ``NetworkProgram.serve``, the launch counters set
+   to 0 just before and read just after: every answer bit-exact against
+   the model's ``reference_forward_int8``, counted N/N, and the kernel
+   launch counter rising by exactly the layer count per batch (11, 7, 5);
 5. prints ``vta_gemm.plan``'s geometry and times the kernel, its plain
    version and ``torch._int_mm`` (a yardstick only; the port never calls
-   it) at LeNet-5's shapes and at resnet8's eleven GEMM shapes at batch 32
-   (``RESNET8_GEMMS``; no resnet8 path runs yet) — device time from
+   it) at LeNet-5's shapes and at the GEMM shapes of resnet8, the CIFAR
+   CNN and resnet_tiny at batch 32 (``RESNET8_GEMMS``, ``CIFAR_CNN_GEMMS``,
+   ``RESNET_TINY_GEMMS``, the reference compiler's) — device time from
    CUDA-graph replay, and per-call time between CUDA events with the
    host's launch cost — and computes each shape's bound (bytes over
    3.35 TB/s or int8 operations over 1,979 TOP/s, whichever is larger);
-   then times, at each of those shapes, the plan's geometry against the
-   rule it was tuned from (``starting_rule``) and, where it splits K, the
-   same tile unsplit, in alternating rounds;
-6. prints img/s for warmed batches of 8 and 32 (median of 20 serves) and a
-   ``torch.profiler`` breakdown of one batch-32 serve: wall time, device
-   busy time, idle share and the top device operations;
+   then times, at LeNet-5's and resnet8's shapes, the plan's geometry
+   against the rule it was tuned from (``starting_rule``) and, where it
+   splits K, the same tile unsplit, in alternating rounds;
+6. prints, for resnet8 and then LeNet-5, img/s for warmed batches of 8
+   and 32 (median of 20 serves) and a ``torch.profiler`` breakdown of one
+   batch-32 serve: wall time, device busy time, idle share (over the
+   traced wall and over the unprofiled median, since the profiler
+   stretches the serve it traces), device-to-host copies and the top
+   device operations;
 7. holds ``flash_attention`` against its plain version
    (``kernels/ref.attention_ref``) on the card over a grid: the reference's
    kernel test shapes, causal and not, window, ``q_offset``, ragged
-   non-causal lengths, every head dim (16–256), ``Sq = 1``, rows that
-   keep no key, and cases that reach each bf16 path (``wgmma`` tiles, tiles
+   non-causal lengths, every head dim (16–256, 192 included), ``Sq = 1``,
+   rows that keep no key, and cases that reach each bf16 path (``wgmma`` tiles, tiles
    with a split KV range, the split-KV decode path at every head dim) and
    both sides of the split path's threshold, in float32 (atol = rtol = 2e-5) and bfloat16 (compared in
    bf16: atol = 4e-3 and rtol = 2**-7, one bf16 ulp relative, and at most
    5 % of the elements may differ from the plain version's bf16 value);
-8. drives the attention op ``ops.attention`` once at each of six
+8. drives the attention op ``ops.attention`` once at each of eight
    full-width head geometries of ``src/repro/configs/`` (qwen2.5-3b
    prefill, chunked prefill and decode; a gemma3-1b local layer; whisper-base
-   cross-attention; lm100m), with the launch counters set to 0 just before
+   cross-attention; lm100m; nemotron-4-340b prefill and decode, D = 192),
+   with the launch counters set to 0 just before
    and read just after, and holds every output against the plain version;
    the launch counter — the kernels the C entry points report they
    launched — must rise by each call's planned launches (2 where a
@@ -75,7 +87,7 @@ In order it:
 9. times the kernel, its plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; with
    ``is_causal`` where that is the same function, else with the boolean
-   mask of ``ref.attention_mask``) at those six cases, each over the same
+   mask of ``ref.attention_mask``) at those eight cases, each over the same
    window of 200 calls (``ATTN_WINDOW``), and computes each case's bound
    (bytes over 3.35 TB/s, or 4·D operations per kept query-key pair at
    the card's peak for the dtype, whichever is larger: 989 TFLOP/s on the
@@ -133,6 +145,20 @@ RESNET8_GEMMS = [("stem", 32768, 32, 16, "int8"),
                  ("t3b", 2048, 576, 64, "int32"),
                  ("head", 2048, 64, 64, "int32"),
                  ("fc", 32, 64, 16, "int8")]
+# the CIFAR CNN's and resnet_tiny's, taken the same way
+CIFAR_CNN_GEMMS = [("c1_conv", 32768, 80, 64, "int32"),
+                   ("c2_conv", 8192, 576, 32, "int32"),
+                   ("c3_conv", 2048, 288, 64, "int32"),
+                   ("f4_fc", 32, 1024, 128, "int8"),
+                   ("f5_fc", 32, 128, 16, "int8")]
+RESNET_TINY_GEMMS = [("stem", 32768, 32, 16, "int32"),
+                     ("b1a", 8192, 144, 16, "int8"),
+                     ("b1b", 8192, 144, 16, "int32"),
+                     ("mid", 8192, 144, 32, "int32"),
+                     ("b2a", 2048, 288, 32, "int8"),
+                     ("b2b", 2048, 288, 32, "int32"),
+                     ("head", 32, 2048, 16, "int8")]
+CNN_BATCHES = (8, 32)              # phase 4b: a batch of each a model
 WRAP_K = 139_264                   # 32 · 16384 · K crosses 2**31
 ATTN_WINDOW = (20, 10)             # phase 9: 20 calls a graph, 10 replays
 
@@ -422,6 +448,147 @@ def check_instantiations(ref, dev) -> int:
     return cases
 
 
+def compile_cnns() -> list:
+    """resnet8, resnet_tiny and the CIFAR CNN compiled by the port at full
+    width (random seeded weights, calibrated shifts): (name, net, seeded
+    request images, reference(img) -> logits, layer count)."""
+    from repro_torch.models import cifar_cnn, resnet8, resnet_tiny
+    n = sum(CNN_BATCHES)
+    r8, g8 = resnet8.compile_resnet8()
+    rt, gt = resnet_tiny.compile_resnet_tiny()
+    cw, cs, cn = cifar_cnn.compile_cifar_cnn()
+    return [
+        ("resnet8", r8,
+         np.stack([resnet8.synthetic_image(100 + r) for r in range(n)]),
+         lambda img: resnet8.reference_forward_int8(g8, img), 11),
+        ("resnet_tiny", rt,
+         np.stack([resnet_tiny.synthetic_image(100 + r) for r in range(n)]),
+         lambda img: resnet_tiny.reference_forward_int8(gt, img), 7),
+        ("cifar_cnn", cn,
+         np.stack([cifar_cnn.synthetic_cifar_image(100 + r)
+                   for r in range(n)]),
+         lambda img: cifar_cnn.reference_forward_int8(cw, img, cs)[0], 5),
+    ]
+
+
+def serve_cnns(ops, cnns, dev) -> dict:
+    """Phase 4b: each CNN of ``compile_cnns`` served on the card through
+    ``NetworkProgram.serve`` in batches of ``CNN_BATCHES``, the launch
+    counters set to 0 just before and read just after.  Every answer must
+    be bit-exact against the model's integer reference, and ``vta_gemm``'s
+    counter must rise by exactly the layer count per batch (no attention
+    launch).  Returns the record, with the total launches."""
+    for _, net, images, _, _ in cnns:
+        net.serve(images[:2], device=dev)       # upload the image, warm up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    served = []
+    for name, net, images, _, layers in cnns:
+        per_batch, outs, lo = [], [], 0
+        for bsz in CNN_BATCHES:
+            before = ops.launches
+            out, _ = net.serve(images[lo:lo + bsz], device=dev)
+            per_batch.append(ops.launches - before)
+            outs.append(out)
+            lo += bsz
+        served.append((name, per_batch, np.concatenate(outs)))
+    launches, attn = ops.launches, ops.attention_launches
+    record = {"launches": launches, "models": {}}
+    for (name, net, images, reference, layers), (_, per_batch, logits) in \
+            zip(cnns, served):
+        if per_batch != [layers] * len(CNN_BATCHES) or attn:
+            raise AssertionError(f"{name}: kernel launches per batch "
+                                 f"{per_batch}, expected {layers} each; "
+                                 f"attention launches {attn}, expected 0")
+        for r, img in enumerate(images):
+            if not np.array_equal(logits[r], reference(img)):
+                raise AssertionError(f"{name} request {r}: logits differ "
+                                     f"from the integer reference")
+        if logits.shape != (len(images), 1, 10):
+            raise AssertionError(f"{name}: logits of shape {logits.shape}")
+        record["models"][name] = {
+            "layers": layers, "batches": list(CNN_BATCHES),
+            "launches_per_batch": per_batch,
+            "bit_exact": f"{len(images)}/{len(images)}",
+            "chunks_per_layer": net.chunks_per_layer(),
+            "input_sources": net.input_sources,
+            "residual_sources": net.residual_sources}
+        print(f"{name}: {len(images)}/{len(images)} requests bit-exact "
+              f"(batches {list(CNN_BATCHES)}); kernel launches {per_batch} "
+              f"per batch ({layers} layers); chunks per layer "
+              f"{net.chunks_per_layer()}")
+    return record
+
+
+def serve_timing(net, images, dev, title: str) -> dict:
+    """Phase 6: img/s for warmed batches of 8 and 32 (median of 20 serves,
+    host clock, each ending in the copy of the logits) and a
+    ``torch.profiler`` breakdown of one batch-32 serve: wall time, device
+    busy time, idle share (over the traced wall and over the unprofiled
+    median), device-to-host copies and the top device and host
+    operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rec = {}
+    for bsz in (8, 32):
+        batch = images[:bsz]
+        net.serve(batch, device=dev)                # allocator warm at size
+        reps = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            net.serve(batch, device=dev)
+            reps.append(time.perf_counter() - t0)
+        med = sorted(reps)[len(reps) // 2]
+        rec[f"batch{bsz}"] = {"median_s": med, "runs_s": reps,
+                              "img_per_s": bsz / med}
+        print(f"{title} serve batch {bsz}: median {med * 1e3:.2f} ms "
+              f"= {bsz / med:.1f} img/s (host clock, 20 runs, each ends "
+              f"in a device sync)")
+    batch = images[:32]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.serve(batch, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events (kernels, copies, fills) of the traced serve
+    per_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            count, us = per_name.get(evt.name, (0, 0.0))
+            per_name[evt.name] = (count + 1, us + evt.time_range.elapsed_us())
+    busy_us = sum(us for _, us in per_name.values())
+    top = sorted(((k, c, t) for k, (c, t) in per_name.items()),
+                 key=lambda r: -r[2])[:10]
+    d2h = sum(c for k, (c, _) in per_name.items() if "DtoH" in k)
+    # The profiler stretches the traced serve's wall time; its device busy
+    # time over the unprofiled median reads the idle share of a plain serve.
+    plain_ms = rec["batch32"]["median_s"] * 1e3
+    rec["profile_batch32"] = prof_rec = {
+        "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+        "idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
+        "unprofiled_median_ms": plain_ms,
+        "idle_share_unprofiled": 1 - busy_us / 1e3 / plain_ms,
+        "device_events": sum(c for c, _ in per_name.values()),
+        "device_to_host_copies": d2h,
+        "top_device": [{"name": k, "count": c, "device_us": t}
+                       for k, c, t in top],
+        "top_host": [{"name": e.key, "count": e.count,
+                      "self_cpu_us": e.self_cpu_time_total}
+                     for e in sorted(prof.key_averages(),
+                                     key=lambda e: -e.self_cpu_time_total)
+                     [:10]]}
+    print(f"{title} profiled batch-32 serve: wall {wall * 1e3:.2f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms in "
+          f"{prof_rec['device_events']} device events (idle share "
+          f"{prof_rec['idle_share']:.3f}; over the unprofiled median "
+          f"{plain_ms:.2f} ms {prof_rec['idle_share_unprofiled']:.3f}), "
+          f"{d2h} device-to-host copies")
+    for k, c, t in top:
+        print(f"  {t:10.1f} us  x{c:<4d} {k[:90]}")
+    return rec
+
+
 # -- flash_attention --------------------------------------------------------
 
 # (b, h, hkv, sq, skv, d) of the reference's kernel tests
@@ -462,6 +629,12 @@ ATTN_FULL = [
     dict(name="lm100m", config="lm100m.py",
          shape=(4, 10, 2, 1024, 1024, 64), dtype=torch.float32,
          causal=True, window=None, q_offset=0, sdpa_causal=True),
+    dict(name="nemotron-4-340b prefill", config="nemotron_4_340b.py",
+         shape=(1, 96, 8, 2048, 2048, 192), dtype=torch.bfloat16,
+         causal=True, window=None, q_offset=0, sdpa_causal=True),
+    dict(name="nemotron-4-340b decode", config="nemotron_4_340b.py",
+         shape=(8, 96, 8, 1, 4096, 192), dtype=torch.bfloat16,
+         causal=True, window=None, q_offset=4095, sdpa_causal=False),
 ]
 
 
@@ -538,7 +711,7 @@ def attention_grid():
         ((1, 8, 2, 4, 10, 32), dict(causal=True, q_offset=-2)),
         ((1, 4, 4, 3, 91, 256), dict(causal=False)),
     ]
-    for d in (16, 32, 64, 128, 256):
+    for d in (16, 32, 64, 128, 192, 256):
         cases += [((2, 4, 2, 70, 130, d), dict(causal=True, q_offset=60)),
                   ((2, 4, 2, 70, 130, d), dict(causal=False)),
                   ((1, 4, 1, 129, 129, d), dict(causal=True, window=33)),
@@ -967,6 +1140,10 @@ def main() -> int:
           f"int32-out+TensorAlu {fused.count(False)}, fused int8 "
           f"{fused.count(True)})")
 
+    # -- 4b. main path: resnet8, resnet_tiny, the CIFAR CNN on the card -----
+    cnns = compile_cnns()
+    record["cnn_serve"] = serve_cnns(ops, cnns, dev)
+
     # -- 5. kernel timings at LeNet-5's and resnet8's shapes, batch 32 ----
     rng = np.random.default_rng(5)
     sms = attn_kernel.device_sm_count(dev)
@@ -986,13 +1163,26 @@ def main() -> int:
                          dict(relu=False, shift=0, saturate=False,
                               out_dtype=torch.int32), dev)
                for name, m, k, n, out in RESNET8_GEMMS]
+    more = {title: [time_gemm(ops, ref, kernel, sms, rng, name, m, k, n,
+                              dict(relu=True, shift=4, saturate=False,
+                                   out_dtype=torch.int8) if out == "int8"
+                              else dict(relu=False, shift=0, saturate=False,
+                                        out_dtype=torch.int32), dev)
+                    for name, m, k, n, out in gemms]
+            for title, gemms in (("CIFAR CNN", CIFAR_CNN_GEMMS),
+                                 ("resnet_tiny", RESNET_TINY_GEMMS))}
     total = lambda key: (None if any(s[key] is None for s in shapes)
                          else sum(s[key] for s in shapes))
     entry = {
         "name": "vta_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/vta_gemm.cu",
         "replaces": "src/repro/kernels/vta_gemm.py:45",
-        "launches": launches, "launches_per_batch": 5,
+        "launches": launches + record["cnn_serve"]["launches"],
+        "launches_by_path": {
+            "lenet5": launches,
+            **{name: sum(m["launches_per_batch"]) for name, m in
+               record["cnn_serve"]["models"].items()}},
+        "launches_per_batch": 5,
         "max_abs_err": worst, "max_abs_diff": worst,
         "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
@@ -1006,11 +1196,14 @@ def main() -> int:
                 "calls between CUDA events, host launch cost included"),
         "shapes": shapes,
         "resnet8_shapes": resnet8,
+        "cifar_cnn_shapes": more["CIFAR CNN"],
+        "resnet_tiny_shapes": more["resnet_tiny"],
         "sass": record["sass_vta_gemm"],
         "ptxas": gemm_ptxas,
     }
     record["kernels"] = [entry]
-    for title, rows in (("LeNet-5", shapes), ("resnet8", resnet8)):
+    for title, rows in (("LeNet-5", shapes), ("resnet8", resnet8),
+                        *more.items()):
         us = lambda t: "n/a" if t is None else f"{t * 1e3:.2f} us"
         libs = [r["library_ms"] for r in rows]
         print(f"vta_gemm at {title}'s shapes, batch 32 (sum of kernel "
@@ -1033,55 +1226,10 @@ def main() -> int:
 
     # -- 6. throughput and where a served batch's time goes --------------
     record["serve"] = {"main_path_batch_s": times}
-    for bsz in (8, 32):
-        batch = images[:bsz]
-        net.serve(batch, device=dev)                # allocator warm at size
-        reps = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            net.serve(batch, device=dev)
-            reps.append(time.perf_counter() - t0)
-        med = sorted(reps)[len(reps) // 2]
-        record["serve"][f"batch{bsz}"] = {"median_s": med, "runs_s": reps,
-                                          "img_per_s": bsz / med}
-        print(f"LeNet-5 serve batch {bsz}: median {med * 1e3:.2f} ms "
-              f"= {bsz / med:.1f} img/s (host clock, 20 runs, each ends "
-              f"in a device sync)")
-    from torch.profiler import ProfilerActivity, profile
-    batch = images[:32]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        net.serve(batch, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events (kernels, copies, fills) of the traced serve
-    from torch.autograd import DeviceType
-    per_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            count, us = per_name.get(evt.name, (0, 0.0))
-            per_name[evt.name] = (count + 1, us + evt.time_range.elapsed_us())
-    busy_us = sum(us for _, us in per_name.values())
-    top = sorted(((k, c, t) for k, (c, t) in per_name.items()),
-                 key=lambda r: -r[2])[:10]
-    record["serve"]["profile_batch32"] = {
-        "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
-        "idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
-        "device_events": sum(c for c, _ in per_name.values()),
-        "top_device": [{"name": k, "count": c, "device_us": t}
-                       for k, c, t in top],
-        "top_host": [{"name": e.key, "count": e.count,
-                      "self_cpu_us": e.self_cpu_time_total}
-                     for e in sorted(prof.key_averages(),
-                                     key=lambda e: -e.self_cpu_time_total)
-                     [:10]]}
-    print(f"profiled batch-32 serve: wall {wall * 1e3:.2f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms in "
-          f"{record['serve']['profile_batch32']['device_events']} device "
-          f"events (idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f})")
-    for k, c, t in top:
-        print(f"  {t:10.1f} us  x{c:<4d} {k[:90]}")
+    r8_net, r8_images = cnns[0][1], cnns[0][2]
+    record["serve"]["resnet8"] = serve_timing(r8_net, r8_images, dev,
+                                              "resnet8")
+    record["serve"].update(serve_timing(net, images, dev, "LeNet-5"))
 
     # -- 7. flash_attention vs plain over the grid ------------------------
     plan = functools.partial(attn_kernel.plan,
@@ -1089,7 +1237,7 @@ def main() -> int:
     grid_worst, grid_share, grid_paths = check_attention_grid(
         ops, ref, plan, dev)
 
-    # -- 8. attention path: the op at six full-width head geometries -------
+    # -- 8. attention path: the op at eight full-width head geometries -----
     rng = np.random.default_rng(8)
     inputs = [attention_inputs(rng, c["shape"], c["dtype"], dev)
               for c in ATTN_FULL]
@@ -1247,7 +1395,7 @@ def main() -> int:
                                         r["library_ms"]) for r in rows),
         "call_ms": attn_total("call_ms"),
         "plain_call_ms": attn_total("plain_call_ms"),
-        "per": ("the attention path: one call at each of the six full-width "
+        "per": ("the attention path: one call at each of the eight full-width "
                 "cases (launches counts every kernel, the combine kernel "
                 "after a split too); ms = device time (CUDA-graph replay, "
                 "200 calls a case), call_ms = back-to-back calls between "

@@ -375,15 +375,65 @@ def _commit_int8(acc: torch.Tensor, saturate: bool) -> torch.Tensor:
     return truncate_int8(acc)
 
 
-def _execute_stack(prog, stack: torch.Tensor, *,
-                   saturate: bool) -> SimReport:
+@dataclasses.dataclass(frozen=True)
+class StackForm:
+    """The data-dependent answers :func:`_execute_stack` needs before it
+    picks a path: whether every row of the stack holds the same weights,
+    whether the ACC preload is a row-broadcast bias that fuses into the
+    kernel (its valid rows equal, its pad rows and A's pad rows zero), and
+    whether that bias is the same in every row."""
+
+    uniform_w: bool
+    fuse_bias: bool
+    uniform_bias: bool
+
+
+def stack_form(prog, stack: torch.Tensor) -> StackForm:
+    """Read :class:`StackForm` off ``stack`` for ``prog``.  Each check
+    reads a device value back to the host (one synchronisation each), so
+    a caller that serves one compiled image many times decides once
+    (``NetworkProgram`` caches it per device) and passes the answer in.
+
+    A row-broadcast preload (the bias form every compiled layer uses)
+    fuses into the kernel.  The kernel broadcasts the bias to *every* row
+    including the §3.2 padding rows, where the oracle adds the stored X
+    pad rows instead — fusing therefore also requires A's pad rows to be
+    zero (true for every compiled image and every staged input), so the
+    pad rows' oracle value is exactly 0 and can be committed directly.
+    Pad *columns* need no special-casing in either form: the kernel
+    computes them from the same decoded WGT/bias bytes the oracle
+    reads."""
+    p = plan_cuda(prog)
+    b = stack.shape[0]
+    m = p.valid_shape[0]
+    w = _decode_wgt(stack, p)
+    uniform_w = b == 1 or bool((w == w[0]).all())
+    if p.acc is None:
+        return StackForm(uniform_w, True, True)
+    if not p.fused:
+        return StackForm(uniform_w, False, True)
+    x = _decode_acc32(stack, p, p.acc)
+    a = _decode_inp(stack, p)
+    fuse_bias = (bool((x[:, :m] == x[:, :1]).all())
+                 and bool((x[:, m:] == 0).all())
+                 and bool((a[:, m:] == 0).all()))
+    uniform_bias = (not fuse_bias or b == 1
+                    or bool((x[:, 0] == x[:1, 0]).all()))
+    return StackForm(uniform_w, fuse_bias, uniform_bias)
+
+
+def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
+                   form: Optional[StackForm] = None) -> SimReport:
     """Run ``prog`` over every DRAM row of ``stack``, writing OUT bytes in
     place.  Weight-uniform batches collapse to a single stacked kernel
     launch; varied weights fall back to one launch per row.
 
-    The ``bool(...)`` checks below (uniform weights, fused-bias form) read
-    device values back to the host, one synchronisation each."""
+    ``form`` is the stack's :class:`StackForm`; a caller that passes none
+    (a simulator over an arbitrary stack, whose rows may differ) gets it
+    read off the stack, which synchronises with the device."""
     p = plan_cuda(prog)
+    if form is None:
+        form = stack_form(prog, stack)
     b = stack.shape[0]
     mp, np_ = p.padded_shape
     m, n = p.valid_shape
@@ -391,29 +441,13 @@ def _execute_stack(prog, stack: torch.Tensor, *,
     w = _decode_wgt(stack, p)                       # (B, Kp, Np)
     x = _decode_acc32(stack, p, p.acc) if p.acc else None
     res = _decode_acc32(stack, p, p.res) if p.res else None
-    uniform_w = b == 1 or bool((w == w[0]).all())
-
-    # A row-broadcast preload (the bias form every compiled layer uses)
-    # fuses into the kernel.  The kernel broadcasts the bias to *every*
-    # row including the §3.2 padding rows, where the oracle adds the
-    # stored X pad rows instead — fusing therefore also requires A's pad
-    # rows to be zero (true for every compiled image), so the pad rows'
-    # oracle value is exactly 0 and can be committed directly.  Pad
-    # *columns* need no special-casing in either form: the kernel computes
-    # them from the same decoded WGT/bias bytes the oracle reads.
-    bias = None
-    fuse_bias = x is None
-    if x is not None and p.fused:
-        rows_equal = bool((x[:, :m] == x[:, :1]).all())
-        x_pad_zero = bool((x[:, m:] == 0).all())
-        a_pad_zero = bool((a[:, m:] == 0).all())
-        if rows_equal and x_pad_zero and a_pad_zero:
-            bias, fuse_bias = x[:, 0], True
+    uniform_w = form.uniform_w
+    fuse_bias = form.fuse_bias
+    bias = x[:, 0] if x is not None and p.fused and fuse_bias else None
 
     if p.fused and fuse_bias:
         # -- whole program inside the kernel --------------------------------
-        if uniform_w and (bias is None or b == 1
-                          or bool((bias == bias[0]).all())):
+        if uniform_w and (bias is None or form.uniform_bias):
             out = _kernel_gemm(
                 a.reshape(b * mp, -1), w[0],
                 bias[0] if bias is not None else None,

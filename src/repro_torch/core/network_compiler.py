@@ -13,9 +13,20 @@ binarise (:mod:`repro_torch.core.staging`), its kernel launch and its
 TensorAlu epilogue (:mod:`repro_torch.core.cuda_backend`) and the OUT
 decode all run in torch on that device, and only the logits come back.
 
-This slice serves linear layer chains (layer k feeds layer k+1), which is
-every network ``compile_network`` builds; the graph front end's DAG
-schedules and residual staging arrive with resnet8.
+A program is a DAG schedule: layer k reads its input from the semantic
+output of layer ``input_sources[k]`` (``-1`` is the network input) and, for
+a residual layer, stages the output of ``residual_sources[k]`` into its
+``res`` region as the second ALU operand.  ``compile_network`` builds the
+linear chain (both lists ``None``: layer k feeds layer k+1); the graph
+front end (:func:`repro_torch.graph.compile_graph`) builds the DAG of the
+residual networks.  A layer's output stays on the device only while a
+later layer still reads it.
+
+The fused-path decision of every layer (:class:`~repro_torch.core.
+cuda_backend.StackForm`: uniform weights, a row-broadcast bias, zero pad
+rows) depends only on the compiled image, which serving never writes
+outside the INP and RES regions, so it is read once per device and cached
+here; serving a batch then reads nothing back but the logits.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ import torch
 from repro_torch.device import DeviceLike, device_of, resolve_device
 
 from . import staging
-from .cuda_backend import _execute_stack
+from .cuda_backend import StackForm, _execute_stack, stack_form
 from .cycle_model import CycleReport, analyze_programs
 from .dram import DramAllocator
 from .errors import CompileError
@@ -44,20 +55,52 @@ SERVE_ONE_BACKENDS = ("cuda",)
 
 @dataclasses.dataclass
 class NetworkProgram:
-    """Everything needed to run a compiled network (a linear layer chain)."""
+    """Everything needed to run a compiled network on a device.
+
+    ``input_sources``/``residual_sources`` generalise the chain to a DAG
+    schedule (graph lowering): layer *k* reads its input from the semantic
+    output of layer ``input_sources[k]`` (``-1`` = the network input) and —
+    when ``residual_sources[k]`` is not None — stages that layer's output
+    as its residual operand.  ``None`` for both fields keeps the classic
+    linear chain (layer k feeds layer k+1).
+    """
 
     config: VTAConfig
     allocator: DramAllocator
     layers: List[CompiledLayer]
     input_tensor: np.ndarray
+    input_sources: Optional[List[int]] = None
+    residual_sources: Optional[List[Optional[int]]] = None
     # the DRAM image, uploaded once per device (compile once, serve many)
     _device_images: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+    # every layer's StackForm over that image, read once per device
+    _stack_forms: Dict[str, List[StackForm]] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    def _sources(self) -> List[int]:
+        if self.input_sources is not None:
+            return self.input_sources
+        return list(range(-1, len(self.layers) - 1))
+
+    def _res_sources(self) -> List[Optional[int]]:
+        if self.residual_sources is not None:
+            return self.residual_sources
+        return [None] * len(self.layers)
 
     # ------------------------------------------------------------------
     def gemm_loops(self) -> int:
         """§5.1 metric over the whole network (LeNet-5: 2942)."""
         return sum(l.program.gemm_loops() for l in self.layers)
+
+    def gemm_loops_per_layer(self) -> List[int]:
+        return [l.program.gemm_loops() for l in self.layers]
+
+    def chunks_per_layer(self) -> List[int]:
+        """SRAM chunks per layer (§3.3 "steps 2 to 5 must be repeated") —
+        > 1 anywhere means the network genuinely exceeds a single SRAM
+        residency and exercises the multi-chunk compiler."""
+        return [l.n_chunks for l in self.layers]
 
     def cycle_report(self) -> CycleReport:
         return analyze_programs([l.program for l in self.layers])
@@ -75,6 +118,22 @@ class NetworkProgram:
             self._device_images[key] = torch.from_numpy(
                 self.dram_image()).to(device)
         return self._device_images[key]
+
+    def stack_forms(self, device: DeviceLike = None) -> List[StackForm]:
+        """Each layer's :class:`StackForm` over the compiled image on
+        ``device``, read once and cached.  A served stack is that image in
+        every row with only the INP and RES regions restaged (zero-padded
+        by :func:`staging.batch_matrix_to_binary`), so the image's answers
+        are the stack's for every batch.  Read off one row, ``uniform_w``
+        and ``uniform_bias`` are True by construction; only ``fuse_bias``
+        comes from the image's data."""
+        dev = resolve_device(device)
+        key = device_of(dev)
+        if key not in self._stack_forms:
+            image = self._device_image(dev).reshape(1, -1)
+            self._stack_forms[key] = [stack_form(l.program, image)
+                                      for l in self.layers]
+        return self._stack_forms[key]
 
     def _as_image_batch(self, images, device: torch.device) -> torch.Tensor:
         """Normalise a request batch to one ``(B,) + input_shape[1:]`` int8
@@ -134,29 +193,78 @@ class NetworkProgram:
         start = region.phys_addr - self.allocator.offset
         stack[:, start:start + raw.shape[1]] = raw
 
+    def _stage_residual_batch(self, stack: torch.Tensor,
+                              layer: CompiledLayer,
+                              sems: torch.Tensor) -> torch.Tensor:
+        """Batched residual staging on the device: the skip activations
+        ``sems`` → int32 ``(B, M, N)`` operands
+        (:func:`staging.residual_operand_batch`) → ACC-format binary in the
+        layer's ``res`` region.  Returns the staged operands."""
+        R = staging.residual_operand_batch(layer.spec, sems,
+                                           layer.residual_matrix.shape)
+        raw = staging.batch_matrix_to_binary(R, self.config.block_size,
+                                             torch.int32)
+        region = layer.program.regions["res"]
+        if raw.shape[1] != region.nbytes:
+            raise ValueError(
+                f"layer {layer.spec.name!r}: staged residual is "
+                f"{raw.shape[1]} bytes, RES region holds {region.nbytes}")
+        start = region.phys_addr - self.allocator.offset
+        stack[:, start:start + raw.shape[1]] = raw
+        return R
+
+    def _last_reads(self) -> Dict[int, int]:
+        """Layer index → the last layer that reads its output (the final
+        layer's output is the network's and is kept to the end)."""
+        last: Dict[int, int] = {len(self.layers) - 1: len(self.layers)}
+        for k, (src, res) in enumerate(zip(self._sources(),
+                                           self._res_sources())):
+            for j in (src, res):
+                if j is not None and j >= 0:
+                    last[j] = max(last.get(j, k), k)
+        return last
+
     def _run_chain(self, stack: torch.Tensor, first: torch.Tensor, *,
+                   forms: Optional[List[StackForm]] = None,
                    check_chaining: bool = False
                    ) -> Tuple[torch.Tensor, List[SimReport]]:
-        """Stage ``first`` into layer 0, then run every layer over the
-        stack in place; returns the last layer's semantic outputs (on the
-        device) and the per-layer batch-total reports.  ``check_chaining``
-        asserts each staged input equals the matrix the layer was compiled
-        against — a divergence is a compilation bug (the paper's
-        traceability)."""
+        """Run every layer over the stack in place, in schedule order: stage
+        its input from ``first`` (the network input) or an earlier layer's
+        semantic outputs, stage its residual operand if it has one, execute,
+        decode.  Returns the last layer's semantic outputs (on the device)
+        and the per-layer batch-total reports.  ``forms`` are the layers'
+        :class:`StackForm` (read off the stack per layer when None).
+        ``check_chaining`` asserts each staged input and residual equals the
+        matrix the layer was compiled against — a divergence is a
+        compilation bug (the paper's traceability)."""
         reports: List[SimReport] = []
-        sem = first
-        for layer in self.layers:
-            A = self._input_matrices(layer, sem)
+        sems: Dict[int, torch.Tensor] = {}
+        last = self._last_reads()
+        srcs, rsrcs = self._sources(), self._res_sources()
+        for k, layer in enumerate(self.layers):
+            sem_in = first if srcs[k] < 0 else sems[srcs[k]]
+            A = self._input_matrices(layer, sem_in)
             if check_chaining:
                 np.testing.assert_array_equal(
                     A[0].cpu().numpy(), layer.input_matrix,
-                    err_msg=f"layer {layer.spec.name!r}: reshaping mismatch")
+                    err_msg=f"layer {srcs[k]}->{k} reshaping mismatch")
             self._stage_layer_input_batch(stack, layer, A)
-            reports.append(_execute_stack(layer.program, stack,
-                                          saturate=False))
+            if rsrcs[k] is not None:
+                sem_res = first if rsrcs[k] < 0 else sems[rsrcs[k]]
+                R = self._stage_residual_batch(stack, layer, sem_res)
+                if check_chaining:
+                    np.testing.assert_array_equal(
+                        R[0].cpu().numpy(), layer.residual_matrix,
+                        err_msg=f"layer {layer.spec.name!r}: residual "
+                                f"operand mismatch")
+            reports.append(_execute_stack(
+                layer.program, stack, saturate=False,
+                form=forms[k] if forms is not None else None))
             out_mats = staging.decode_out_region_batch(layer.program, stack)
-            sem = staging.decode_layer_output_batch(layer, out_mats)
-        return sem, reports
+            sems[k] = staging.decode_layer_output_batch(layer, out_mats)
+            for j in [j for j in sems if last.get(j, k) <= k]:
+                del sems[j]             # no later layer reads it
+        return sems[len(self.layers) - 1], reports
 
     @staticmethod
     def _refuse(backend: str, allowed: Tuple[str, ...], what: str,
@@ -212,7 +320,8 @@ class NetworkProgram:
         batch = self._as_image_batch(images, dev)
         base = self._device_image(dev)
         stack = base.expand(batch.shape[0], -1).clone()
-        sem, reports = self._run_chain(stack, batch)
+        sem, reports = self._run_chain(stack, batch,
+                                       forms=self.stack_forms(dev))
         return self._outputs(sem), reports
 
     def serve_one(self, image, *, backend: str = "cuda",
@@ -239,6 +348,7 @@ class NetworkProgram:
         first = self._as_image_batch([self.input_tensor], dev)
         stack = self._device_image(dev).reshape(1, -1).clone()
         sem, reports = self._run_chain(stack, first,
+                                       forms=self.stack_forms(dev),
                                        check_chaining=check_chaining)
         return self._outputs(sem)[0], reports
 

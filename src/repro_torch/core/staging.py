@@ -7,7 +7,12 @@ torch, byte-identical to their numpy counterparts (pinned by
 ``tests/test_torch_lenet5.py``):
 
 * :func:`im2row_batch`          — ``conv_lowering.im2row_batch``
+* :func:`tensor2mat_batch`      — ``conv_lowering.tensor2mat`` over the
+  batch axis, and :func:`residual_operand_batch` —
+  ``layer_compiler.residual_operand_matrix`` over it (a residual layer's
+  skip operand, staged as int32 into its ``res`` region)
 * :func:`batch_matrix_to_binary` — ``layout.batch_matrix_to_binary``
+  (int8 INP structures and int32 ACC-format ones)
 * :func:`decode_out_region_batch` — ``simulator.decode_out_region_batch``
 * :func:`decode_layer_output_batch` — ``layer_compiler.decode_layer_output``
   (``keep_rows`` extraction + ``mat2tensor``) over the batch axis.
@@ -15,7 +20,7 @@ torch, byte-identical to their numpy counterparts (pinned by
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.device import device_of
 
 from .conv_lowering import ConvGeometry
+from .errors import CompileError
 from .layout import pad_to_multiple, should_pad_height
 
 
@@ -45,10 +51,38 @@ def im2row_batch(tensor: torch.Tensor, kh: int, kw: int, stride: int = 1,
     return win.permute(0, 2, 3, 1, 4, 5).reshape(b, oh * ow, geo.patch_len)
 
 
+def tensor2mat_batch(tensor: torch.Tensor) -> torch.Tensor:
+    """``(B, F, H, W)`` → ``(B, H·W, F)``: row ``b`` is
+    ``conv_lowering.tensor2mat`` of the ``(1, F, H, W)`` tensor ``b``."""
+    if tensor.dim() != 4:
+        raise ValueError(f"expected (B, F, H, W) tensor, got "
+                         f"{tuple(tensor.shape)}")
+    b, f, h, w = tensor.shape
+    return tensor.permute(0, 2, 3, 1).reshape(b, h * w, f)
+
+
+def residual_operand_batch(spec, sems: torch.Tensor,
+                           shape: Tuple[int, int]) -> torch.Tensor:
+    """Skip activations → the ``(B, M, N)`` int32 second ACC operands of a
+    residual layer: conv outputs ``(B, F, H, W)`` through
+    :func:`tensor2mat_batch`, matrices ``(B, M, N)`` as they are — the
+    geometry of ``layer_compiler.residual_operand_matrix``, with its
+    ``residual-shape`` refusal."""
+    mats = tensor2mat_batch(sems) if sems.dim() == 4 else sems
+    if mats.dim() != 3 or tuple(mats.shape[1:]) != tuple(shape):
+        raise CompileError(
+            f"residual operand (shape {tuple(sems.shape[1:])}) does not "
+            f"match the layer's {tuple(shape)} result", layer=spec.name,
+            constraint="residual-shape")
+    return mats.to(torch.int32)
+
+
 def batch_matrix_to_binary(mats: torch.Tensor, block_size: int,
                            dtype: torch.dtype) -> torch.Tensor:
     """Batched pad → split → binarise: ``(B, M, K)`` → ``(B, nbytes)``
-    uint8, little-endian, blocks in row-major block order (§3.2)."""
+    uint8, blocks in row-major block order (§3.2), each element ``dtype``
+    (int8 INP, int32 ACC) in little-endian bytes: the uint8 view of an
+    int32 tensor is its memory, little-endian on the host and the card."""
     if mats.dim() != 3:
         raise ValueError(f"expected a (B, M, K) stack, got "
                          f"{tuple(mats.shape)}")

@@ -18,7 +18,7 @@
 //
 //   q  (B, H, Sq, D), k and v (B, Hkv, Skv, D), o (B, H, Sq, D); row-major,
 //   contiguous, float32, 16-byte aligned; H % Hkv == 0, group = H / Hkv;
-//   D in {16, 32, 64, 128, 256}.
+//   D in {16, 32, 64, 128, 192, 256}.
 //
 // Precision: split-TF32 ("3xTF32").  A TF32 product keeps 10 bits of each
 // operand's mantissa, too few for the reference's float32 tolerance
@@ -59,7 +59,7 @@
 //    SM: 229 registers a thread; on an H100, 4 warps with 64 or 32 keys
 //    ran 3-5 % slower at whisper-base's split grid, and at lm100m 0.6 %
 //    faster with 64 keys, 4 % slower with 32); 4 warps and 64, 32 or 16
-//    keys elsewhere (D = 256 takes 255 registers).
+//    keys elsewhere (16 at D = 192 and 256; D = 256 takes 255 registers).
 //  * K and V tiles of BK keys arrive by 16-byte cp.async into a ring of
 //    STAGES slots, STAGES - 1 tiles ahead of the one being multiplied.  When
 //    a tile lands the block splits it once: hi in place, lo into one shared
@@ -544,6 +544,7 @@ cudaError_t dispatch(const Args& a, int d) {
   FA_CASE(32, 4, 64, 2, true, 2)
   FA_CASE(64, 8, 64, 2, true, 1)
   FA_CASE(128, 4, 32, 2, false, 1)
+  FA_CASE(192, 4, 16, 2, false, 1)
   FA_CASE(256, 4, 16, 2, false, 1)
 #undef FA_CASE
   return cudaErrorInvalidValue;

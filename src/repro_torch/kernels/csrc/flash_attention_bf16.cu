@@ -12,7 +12,7 @@
 // q_pos - k_pos < window), with q_pos = q_offset + i, k_pos = j, and o = 0
 // for a row that keeps no key.  q (B, H, Sq, D), k and v (B, Hkv, Skv, D),
 // o (B, H, Sq, D): row-major, contiguous, bf16, 16-byte aligned; H % Hkv ==
-// 0; D in {16, 32, 64, 128, 256}.
+// 0; D in {16, 32, 64, 128, 192, 256}.
 //
 // Precision.  Q K^T multiplies bf16 inputs exactly and sums in float32;
 // sm_scale (times log2 e, for exp2) is applied to S in float32.  The running
@@ -40,8 +40,9 @@
 //    there next, so copies run while earlier tiles are multiplied.  The
 //    warpgroups take turns to issue their products (named barriers).  The
 //    swizzle follows the row bytes of D (32 B at D = 16, 64 B at D = 32,
-//    128 B from D = 64); at 128 B a row of D = 128 or 256 loads as 2 or 4
-//    boxes of 64.  One conversion per pair of scores (hi is a byte
+//    128 B from D = 64); at 128 B a row of D = 128, 192 or 256 loads as 2,
+//    3 or 4 boxes of 64, and P V runs in N parts that each start on a box
+//    (one of D up to 128, three of 64 at D = 192, two of 128 at D = 256).  One conversion per pair of scores (hi is a byte
 //    permute) and ex2 with the scale folded into one FFMA keep the
 //    softmax, which shares the SM with the products, short.
 //    The causal and window bounds choose the first and last KV tile; only
@@ -362,15 +363,17 @@ template <int D, int BK>
 struct TileCfg {
   static constexpr int BQ = 128;                 // q rows: 2 warpgroups x 64
   static constexpr int THREADS = 256;
-  static constexpr int STAGES = D <= 128 ? 3 : 2;   // K/V ring
+  static constexpr int STAGES = D <= 192 ? 3 : 2;   // K/V ring
   static constexpr int SW = D >= 64 ? 128 : 2 * D;   // swizzle = row bytes
   static constexpr int E = SW / 2;               // bf16 per box row
   static constexpr int BOXES = D / E;            // boxes per row of D
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;    // one K or one V tile
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES;
-  static constexpr int HALVES = D > 128 ? 2 : 1; // P V in N <= 128 parts
+  // P V in N <= 128 parts, each a whole number of boxes
+  static constexpr int HALVES = D == 192 ? 3 : D > 128 ? 2 : 1;
   static constexpr int ON = D / HALVES;
+  static_assert(ON % E == 0 && ON <= 128, "P V parts");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
@@ -625,7 +628,7 @@ constexpr int SPLIT_THREADS = 128;
 
 template <int D>
 struct SplitCfg {
-  static constexpr int STAGES = D <= 128 ? 3 : 2;
+  static constexpr int STAGES = D <= 192 ? 3 : 2;
   static constexpr int PITCH = D + 8;            // bf16; ldmatrix rows in
                                                  // distinct banks
   static constexpr int TILE_BYTES = SPLIT_TILE * PITCH * 2;
@@ -1037,8 +1040,9 @@ cudaError_t launch_split(const Args& a) {
   return combine(a, D);
 }
 
-// The KV tile of the tiles path: 128 keys, 64 at D = 256 (registers and
-// shared memory).
+// The KV tile of the tiles path: 128 keys, 64 at D = 192 and 256 (registers
+// and shared memory: 128 keys in three stages would need 288 KB of ring at
+// D = 192).
 cudaError_t dispatch(const Args& a, int d) {
   const bool split = a.p.path == 2;
   switch (d) {
@@ -1046,6 +1050,7 @@ cudaError_t dispatch(const Args& a, int d) {
     case 32: return split ? launch_split<32>(a) : launch_tiles<32, 128>(a);
     case 64: return split ? launch_split<64>(a) : launch_tiles<64, 128>(a);
     case 128: return split ? launch_split<128>(a) : launch_tiles<128, 128>(a);
+    case 192: return split ? launch_split<192>(a) : launch_tiles<192, 64>(a);
     case 256: return split ? launch_split<256>(a) : launch_tiles<256, 64>(a);
     default: return cudaErrorInvalidValue;
   }

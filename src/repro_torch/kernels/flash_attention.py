@@ -34,7 +34,7 @@ from .build import KernelBuildError, KernelLaunchError  # noqa: F401
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SOURCE_BF16 = SOURCE.with_name("flash_attention_bf16.cu")
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 _GRID_LIMIT = 65535                 # gridDim.y (heads) and gridDim.z (batch)
 _POSITION_LIMIT = 1 << 62           # |window|, |q_offset|: no int64 overflow
@@ -75,13 +75,13 @@ SMEM_LIMIT = 232_448            # shared memory a block may use
 F32_INSTANTIATIONS = {
     (16, 64, 64, 2): (True, 2), (32, 64, 64, 2): (True, 2),
     (64, 128, 64, 2): (True, 1), (128, 64, 32, 2): (False, 1),
-    (256, 64, 16, 2): (False, 1)}
+    (192, 64, 16, 2): (False, 1), (256, 64, 16, 2): (False, 1)}
 F32_TILES = {d: (bq, bk, st) for d, bq, bk, st in F32_INSTANTIATIONS}
 TILE_Q = 128                    # bf16_tiles: two warpgroups of 64 rows
-TILE_KV = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
+TILE_KV = {16: 128, 32: 128, 64: 128, 128: 128, 192: 64, 256: 64}
 SPLIT_ROWS = 16                 # bf16_split: one m16 tile of packed rows
 SPLIT_TILE = 64                 # keys a stage
-BF16_STAGES = {16: 3, 32: 3, 64: 3, 128: 3, 256: 2}     # K/V ring, both
+BF16_STAGES = {16: 3, 32: 3, 64: 3, 128: 3, 192: 3, 256: 2}  # K/V ring, both
 
 
 @dataclasses.dataclass(frozen=True)

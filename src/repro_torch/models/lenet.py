@@ -37,6 +37,8 @@ from repro_torch.core.conv_lowering import conv2d_reference
 from repro_torch.core.layer_compiler import LayerSpec
 from repro_torch.core.layout import truncate_int8
 
+from .weights import WeightsError, checked_arrays  # noqa: F401
+
 
 @dataclasses.dataclass
 class LeNetWeights:
@@ -61,46 +63,13 @@ LENET5_SHAPES: Dict[str, Tuple[int, ...]] = {
 }
 
 
-class WeightsError(ValueError):
-    """A weights mapping does not fit LeNet-5.  ``name`` is the offending
-    entry (None for a set-level fault); ``constraint`` one of
-    ``weights-missing``, ``weights-unexpected``, ``weights-shape``,
-    ``weights-dtype``."""
-
-    def __init__(self, message: str, *, name: Optional[str],
-                 constraint: str):
-        self.name = name
-        self.constraint = constraint
-        super().__init__(f"{message} [constraint: {constraint}]")
-
-
 def lenet_weights_from_arrays(arrays: Mapping[str, np.ndarray]
                               ) -> LeNetWeights:
     """Checked :class:`LeNetWeights` from named arrays: every name of
     :data:`LENET5_SHAPES` present and no other, each of its shape, ``*_w``
-    int8 and ``*_b`` int32."""
-    missing = sorted(set(LENET5_SHAPES) - set(arrays))
-    if missing:
-        raise WeightsError(f"missing LeNet-5 weights {missing}",
-                           name=missing[0], constraint="weights-missing")
-    extra = sorted(set(arrays) - set(LENET5_SHAPES))
-    if extra:
-        raise WeightsError(f"unexpected weights {extra}", name=extra[0],
-                           constraint="weights-unexpected")
-    checked = {}
-    for name, shape in LENET5_SHAPES.items():
-        arr = np.asarray(arrays[name])
-        if arr.shape != shape:
-            raise WeightsError(f"{name} has shape {arr.shape}, LeNet-5 "
-                               f"needs {shape}", name=name,
-                               constraint="weights-shape")
-        want = np.int8 if name.endswith("_w") else np.int32
-        if arr.dtype != want:
-            raise WeightsError(f"{name} is {arr.dtype}, LeNet-5 needs "
-                               f"{np.dtype(want)}", name=name,
-                               constraint="weights-dtype")
-        checked[name] = arr
-    return LeNetWeights(**checked)
+    int8 and ``*_b`` int32 (:func:`~repro_torch.models.weights.
+    checked_arrays`)."""
+    return LeNetWeights(**checked_arrays(arrays, LENET5_SHAPES, "LeNet-5"))
 
 
 def lenet5_random_weights(seed: int = 0, scale: int = 16) -> LeNetWeights:

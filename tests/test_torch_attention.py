@@ -124,7 +124,7 @@ def test_decode_single_query(b, h, hkv, skv, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 192, 256])
 def test_head_dims(d, dtype):
     """Every head dim the kernel takes, GQA 2:1, window and offset."""
     q, k, v = _inputs(d, 1, 4, 2, 24, 40, d)
@@ -132,6 +132,20 @@ def test_head_dims(d, dtype):
                dict(causal=True, window=7, q_offset=16)):
         got = _port(q, k, v, dtype, **kw)
         _close(got, _jax(jref.attention_ref, q, k, v, dtype, **kw), dtype)
+
+
+def test_nemotron_head_set_matches_reference_op():
+    """nemotron-4-340b's heads: 96 query heads over 8 KV heads at D = 192
+    (18432 / 96), which the reference's op takes at any D.  The port's
+    checks accept it and its op on the CPU matches the reference's op at
+    the float32 tolerance, prefill and decode."""
+    for sq, skv, off in ((24, 40, 16), (1, 40, 39)):
+        q, k, v = _inputs(192 + sq, 1, 96, 8, sq, skv, 192)
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+        assert tkernel.check_inputs(tq, tk, tv) == (1, 96, 8, sq, skv, 192)
+        kw = dict(causal=True, q_offset=off)
+        _close(_port(q, k, v, **kw), _jax(jops.attention, q, k, v, **kw),
+               "float32")
 
 
 @pytest.mark.parametrize("sq,skv", [(40, 40), (32, 40), (7, 23)])

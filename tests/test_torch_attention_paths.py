@@ -157,13 +157,29 @@ def test_plan_gives_every_case_a_path():
     assert seen == {"f32", "bf16_tiles", "bf16_split"}
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 192, 256])
 def test_plan_shared_memory_per_head_dim(d):
     for dtype, shape in ((torch.float32, (1, 4, 2, 300, 300, d)),
                          (torch.bfloat16, (1, 4, 2, 300, 300, d)),
                          (torch.bfloat16, (4, 8, 1, 1, 300, d))):
         p = fa.plan(*shape, dtype)
         assert p.smem_bytes <= fa.SMEM_LIMIT, (p, d)
+
+
+def test_plan_nemotron_head_dim_192():
+    """nemotron-4-340b (H 96, Hkv 8, D 192) gets each path on the
+    instantiation its sources hold: f32 on (192, 64, 16, 2), bf16 prefill
+    on 64-key tiles, decode on the split path, all within a block's shared
+    memory."""
+    f32 = fa.plan(1, 96, 8, 2048, 2048, 192, torch.float32)
+    assert f32.path == "f32" and (192, f32.block_q, f32.block_kv,
+                                  f32.stages) in fa.F32_INSTANTIATIONS
+    pre = fa.plan(1, 96, 8, 2048, 2048, 192, torch.bfloat16)
+    assert (pre.path, pre.block_kv, pre.stages) == ("bf16_tiles", 64, 3)
+    dec = fa.plan(8, 96, 8, 1, 4096, 192, torch.bfloat16, q_offset=4095)
+    assert dec.path == "bf16_split" and dec.launches == 2
+    for p in (f32, pre, dec):
+        assert 0 < p.smem_bytes <= fa.SMEM_LIMIT, p
 
 
 def test_plan_full_width_cases():

@@ -32,6 +32,9 @@ def _card() -> torch.device:
     ((1, 2, 2, 64, 64, 16), dict(causal=True, window=9)),
     ((4, 8, 2, 1, 77, 128), dict(causal=True, q_offset=76)),
     ((1, 2, 2, 10, 10, 32), dict(causal=True, q_offset=-5)),
+    # nemotron-4-340b's head set (96 query heads over 8, D = 192)
+    ((1, 96, 8, 40, 70, 192), dict(causal=True, q_offset=30)),
+    ((2, 96, 8, 1, 300, 192), dict(causal=True, q_offset=299)),
 ])
 def test_flash_attention_matches_plain(shape, kw, dtype, atol, rtol):
     """bf16: one ulp relative plus 4e-3 near 0, and at most 5 % of the
@@ -173,9 +176,9 @@ def _check_bf16(got, want):
 # 9, q_offset -5 (rows with no key) and non-causal at a ragged Skv.
 BF16_PATH_CASES = [
     *[((1, 4, 2, 200, 333, d), dict(causal=True, q_offset=133), "bf16_tiles")
-      for d in (16, 32, 64, 128, 256)],
+      for d in (16, 32, 64, 128, 192, 256)],
     *[((2, 8, 2, 3, 1000, d), dict(causal=True, q_offset=997), "bf16_split")
-      for d in (16, 32, 64, 128, 256)],
+      for d in (16, 32, 64, 128, 192, 256)],
     ((1, 8, 1, 2, 517, 128), dict(causal=True, q_offset=515), "bf16_split"),
     ((1, 8, 1, 3, 517, 128), dict(causal=True, q_offset=514), "bf16_tiles"),
     ((1, 4, 2, 130, 130, 64), dict(causal=True, window=9), "bf16_tiles"),
@@ -312,7 +315,7 @@ F32_SHAPES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("key", [(16, 64, 64, 2), (32, 64, 64, 2),
                                  (64, 128, 64, 2), (128, 64, 32, 2),
-                                 (256, 64, 16, 2)])
+                                 (192, 64, 16, 2), (256, 64, 16, 2)])
 def test_f32_every_instantiation_matches_plain(key):
     """Each float32 instantiation (every head dim) at ragged lengths,
     causal with q_offset, a window, rows with no key, unsplit and split

@@ -18,12 +18,18 @@ import repro.core.gemm_compiler as jgc                           # noqa: E402
 import repro.core.hwconfig as jhw                                # noqa: E402
 import repro.core.isa as jisa                                    # noqa: E402
 import repro.core.network_compiler as jnc                        # noqa: E402
+import repro.models.cifar_cnn as jcifar                          # noqa: E402
 import repro.models.lenet as jlenet                              # noqa: E402
+import repro.models.resnet8 as j8                                # noqa: E402
+import repro.models.resnet_tiny as jtiny                         # noqa: E402
 import repro_torch.core.gemm_compiler as tgc                     # noqa: E402
 import repro_torch.core.hwconfig as thw                          # noqa: E402
 import repro_torch.core.isa as tisa                              # noqa: E402
 import repro_torch.core.network_compiler as tnc                  # noqa: E402
+import repro_torch.models.cifar_cnn as tcifar                    # noqa: E402
 import repro_torch.models.lenet as tlenet                        # noqa: E402
+import repro_torch.models.resnet8 as t8                          # noqa: E402
+import repro_torch.models.resnet_tiny as ttiny                   # noqa: E402
 
 
 def _cal_images(n=8):
@@ -147,3 +153,63 @@ def test_backend_programs_compile_identically(name):
     if name == "multi_chunk":
         assert tprog.chunk_plan.n_chunks > 1
         assert tprog.chunk_plan.n_chunks == jprog.chunk_plan.n_chunks
+
+
+def compile_cifar_reference():
+    """The reference's CIFAR CNN as ``examples/cifar10_cnn_e2e.py`` builds
+    it: ``(weights, shifts, net)``, the counterpart of the port's
+    ``compile_cifar_cnn``."""
+    w = jcifar.cifar_cnn_random_weights(seed=0)
+    shifts = jcifar.calibrate_shifts(
+        w, [jcifar.synthetic_cifar_image(s) for s in range(1, 9)])
+    return w, shifts, jnc.compile_network(jcifar.cifar_cnn_specs(w, shifts),
+                                          jcifar.synthetic_cifar_image(0))
+
+
+CNNS = {
+    "resnet8-serialized": (lambda: t8.compile_resnet8()[0],
+                           lambda: j8.compile_resnet8()[0]),
+    "resnet8-pipelined": (
+        lambda: t8.compile_resnet8(schedule="pipelined")[0],
+        lambda: j8.compile_resnet8(schedule="pipelined")[0]),
+    "resnet_tiny": (lambda: ttiny.compile_resnet_tiny()[0],
+                    lambda: jtiny.compile_resnet_tiny()[0]),
+    "cifar_cnn": (lambda: tcifar.compile_cifar_cnn()[2],
+                  lambda: compile_cifar_reference()[2]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CNNS))
+def test_cnn_compiles_identically(name):
+    """resnet8 (both schedules), resnet_tiny and the CIFAR CNN: every
+    layer's program byte-identical, the same DAG schedule (input and
+    residual sources), the same DRAM image."""
+    tnet, jnet = CNNS[name][0](), CNNS[name][1]()
+    assert (tnet.input_sources, tnet.residual_sources) == \
+        (jnet.input_sources, jnet.residual_sources)
+    assert len(tnet.layers) == len(jnet.layers)
+    for tl, jl in zip(tnet.layers, jnet.layers):
+        assert_programs_identical(tl.program, jl.program)
+        assert tl.keep_rows == jl.keep_rows
+        assert (tl.out_h, tl.out_w, tl.n_chunks) == \
+            (jl.out_h, jl.out_w, jl.n_chunks)
+        np.testing.assert_array_equal(tl.input_matrix, jl.input_matrix)
+        np.testing.assert_array_equal(tl.ref_output_matrix,
+                                      jl.ref_output_matrix)
+        if jl.residual_matrix is None:
+            assert tl.residual_matrix is None
+        else:
+            np.testing.assert_array_equal(tl.residual_matrix,
+                                          jl.residual_matrix)
+    np.testing.assert_array_equal(tnet.dram_image(), jnet.dram_image())
+    assert tnet.gemm_loops_per_layer() == jnet.gemm_loops_per_layer()
+    assert tnet.chunks_per_layer() == jnet.chunks_per_layer()
+    assert dataclasses.asdict(tnet.cycle_report()) == \
+        dataclasses.asdict(jnet.cycle_report())
+    if name.startswith("resnet8"):
+        assert len(tnet.layers) == 11
+        assert sum(s is not None for s in tnet.residual_sources) == 3
+
+
+def test_cifar_shifts_identical():
+    assert tcifar.compile_cifar_cnn()[1] == compile_cifar_reference()[1]

@@ -4,7 +4,8 @@
   ``chip_smoke.py``) finds no import of ``jax`` or ``repro``, at module
   level or inside a function;
 * a subprocess with ``jax`` and ``repro`` blocked in ``sys.modules``
-  compiles and serves LeNet-5 on ``device="cpu"``;
+  compiles and serves LeNet-5, and resnet8 through the graph front end,
+  on ``device="cpu"``;
 * with no CUDA card, entry points called without a device raise
   :class:`~repro_torch.device.NoDeviceError` before any work runs.
 """
@@ -68,10 +69,18 @@ shifts = [l.requant_shift for l in net.layers]
 for img, logits in zip(images, out):
     want, _ = reference_forward_int8(weights, img, shifts)
     assert np.array_equal(logits, want)
+from repro_torch.resnet8_e2e import request_images as resnet8_images
+from repro_torch.models.resnet8 import (compile_resnet8,
+                                        reference_forward_int8 as r8_ref)
+r8, graph = compile_resnet8()
+r8_imgs = resnet8_images(2)
+r8_out, _ = r8.serve(r8_imgs, device="cpu")
+for img, logits in zip(r8_imgs, r8_out):
+    assert np.array_equal(logits, r8_ref(graph, img))
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
-print("served", len(out), net.gemm_loops())
+print("served", len(out), net.gemm_loops(), len(r8_out), r8.gemm_loops())
 """
 
 
@@ -80,7 +89,7 @@ def test_runs_with_jax_and_repro_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "served 3 2942"
+    assert proc.stdout.strip() == "served 3 2942 2 53252"
 
 
 def test_no_device_raises_and_runs_nothing(monkeypatch):

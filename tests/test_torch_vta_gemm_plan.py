@@ -1,8 +1,9 @@
 """``vta_gemm.plan`` — the kernel's geometry — and the K split it implies.
 
 ``plan`` runs on the host, so its choices are checked here at the shapes
-the kernel serves: LeNet-5's five GEMMs and resnet8's eleven at batch 32,
-and ``chip_smoke.KERNEL_GRID``.  ``ref.vta_gemm_split_ref`` sums each
+the kernel serves: LeNet-5's five GEMMs, resnet8's eleven, the CIFAR
+CNN's five and resnet_tiny's seven at batch 32, and
+``chip_smoke.KERNEL_GRID``.  ``ref.vta_gemm_split_ref`` sums each
 plan's K slices as the kernel does (each warp group's slices in wrapping
 int32, the groups added in order); it must equal ``ref.vta_gemm_ref`` and
 the JAX package's ``vta_matmul_pallas`` (interpret mode).  The kernel
@@ -40,7 +41,13 @@ LENET5 = [("l1_conv", 25088, 32, 16, "int32"),
           ("l2_conv", 3584, 160, 16, "int32"),
           ("l3_conv", 32, 400, 128, "int8"), ("l4_fc", 32, 128, 96, "int8"),
           ("l5_fc", 32, 96, 16, "int8")]
-SHAPES = ([(m, k, n, out) for _, m, k, n, out in LENET5 + _SMOKE.RESNET8_GEMMS]
+CNN_GEMMS = (_SMOKE.RESNET8_GEMMS + _SMOKE.CIFAR_CNN_GEMMS
+             + _SMOKE.RESNET_TINY_GEMMS)
+# the CIFAR CNN's c2 (K = 576 at 128-row tiles) fills the ring budget
+# before it holds all of K; every other shape with K <= 576 holds it all
+RING_BOUND_SHAPES = {(m, k, n, out) for name, m, k, n, out in
+                     _SMOKE.CIFAR_CNN_GEMMS if name == "c2_conv"}
+SHAPES = ([(m, k, n, out) for _, m, k, n, out in LENET5 + CNN_GEMMS]
           + [(m, k, n, "int8") for m, k, n in _SMOKE.KERNEL_GRID]
           + [(32, _SMOKE.WRAP_K, 16, "int32")])
 _DTYPE = {"int8": torch.int8, "int32": torch.int32}
@@ -72,8 +79,11 @@ def test_plan_geometry(m, k, n, out, sm_count):
     assert p.k_split == 1 or p.k_split <= steps
     if not full:                         # a smaller grid only from 16 x 16
         assert (p.bm, p.bn) == (16, 16)
-    if k <= 576:                         # LeNet-5, resnet8: all K in flight
-        assert p.stages * p.bk >= k
+    # the ring: as many stages as K needs, within MAX_STAGES and the budget
+    assert p.stages == max(1, min(-(-k // p.bk), vg.MAX_STAGES,
+                                  vg.RING_BUDGET // p.stage_bytes))
+    if k <= 576 and (m, k, n, out) not in RING_BOUND_SHAPES:
+        assert p.stages * p.bk >= k      # all K in flight
 
 
 @pytest.mark.parametrize("m,k,n", [(25088, 32, 16), (1, 17, 5),
@@ -204,6 +214,35 @@ def test_resnet8_shapes_are_the_reference_compilers():
         got.append((layer.spec.name, 32 * mp, p.lam * p.block_size, np_,
                     "int8" if p.fused else "int32"))
     assert got == _SMOKE.RESNET8_GEMMS
+
+
+def _reference_gemms(net):
+    from repro.core.pallas_backend import plan_pallas
+    got = []
+    for layer in net.layers:
+        p = plan_pallas(layer.program)
+        mp, np_ = p.padded_shape
+        got.append((layer.spec.name, 32 * mp, p.lam * p.block_size, np_,
+                    "int8" if p.fused else "int32"))
+    return got
+
+
+def test_cifar_cnn_and_resnet_tiny_shapes_are_the_reference_compilers():
+    """``chip_smoke.CIFAR_CNN_GEMMS`` and ``RESNET_TINY_GEMMS`` are what
+    the reference compiler gives through ``plan_pallas`` at batch 32 (the
+    CIFAR CNN compiled as ``examples/cifar10_cnn_e2e.py`` does): K = 80
+    (75 padded) at M = 1024 rows an image, K = 1024 and 2048 fc layers."""
+    from repro.core.network_compiler import compile_network
+    from repro.models import cifar_cnn
+    from repro.models.resnet_tiny import compile_resnet_tiny
+    w = cifar_cnn.cifar_cnn_random_weights(seed=0)
+    shifts = cifar_cnn.calibrate_shifts(
+        w, [cifar_cnn.synthetic_cifar_image(s) for s in range(1, 9)])
+    net = compile_network(cifar_cnn.cifar_cnn_specs(w, shifts),
+                          cifar_cnn.synthetic_cifar_image(0))
+    assert _reference_gemms(net) == _SMOKE.CIFAR_CNN_GEMMS
+    assert _reference_gemms(compile_resnet_tiny()[0]) == \
+        _SMOKE.RESNET_TINY_GEMMS
 
 
 def test_lenet5_shapes_are_the_ports():
