@@ -60,6 +60,21 @@ In order it:
    traced wall and over the unprofiled median, since the profiler
    stretches the serve it traces), device-to-host copies and the top
    device operations;
+6b. drives the async serving engine (``repro_torch.serving.vta``) on the
+   card for LeNet-5 and resnet8 with ``BatchPolicy(max_batch=32,
+   max_wait_s=0.002, max_depth=1024)``: serves every padding-ladder rung
+   twice (the first-use cost of a rung), replays an unmeasured warm-up
+   trace, then ``serve_all`` of 512 seeded requests with one and with two
+   ``cuda`` workers (img/s beside phase 6's direct batch-32 img/s) and a
+   seeded Poisson trace of 512 requests at half that direct rate, with one
+   and two workers (p50/p95/p99 latency, mean formed and padded batch,
+   violations of a 50 ms SLO).  Each run sets the launch counters to 0
+   just before and reads them just after: every answer bit-exact against
+   a direct serve and the integer reference (N/N), ``metrics.audit()``
+   empty, and ``vta_gemm``'s counter equal to the layer count (5, 11)
+   times the batches the run executed.  Then ``calibrate_service_model``
+   on the card at batch 32 and ``simulate`` of the same trace with it,
+   its p50/p99 beside the engine's;
 7. holds ``flash_attention`` against its plain version
    (``kernels/ref.attention_ref``) on the card over a grid: the reference's
    kernel test shapes, causal and not, window, ``q_offset``, ragged
@@ -586,6 +601,154 @@ def serve_timing(net, images, dev, title: str) -> dict:
           f"{d2h} device-to-host copies")
     for k, c, t in top:
         print(f"  {t:10.1f} us  x{c:<4d} {k[:90]}")
+    return rec
+
+
+# -- the serving engine -----------------------------------------------------
+
+ENGINE_POLICY = dict(max_batch=32, max_wait_s=0.002, max_depth=1024)
+ENGINE_REQUESTS = 512
+ENGINE_SLO_S = 0.05
+ENGINE_LOAD = 0.5                  # the trace's rate over direct batch-32's
+
+
+def _batches(tickets) -> list:
+    """The executed batches of an engine run, one (formed, padded) pair
+    each: a batch is a worker's dispatch."""
+    seen = {}
+    for t in tickets:
+        r = t.record
+        seen[(r.worker, r.dispatch_t)] = (r.batch_size, r.padded_size)
+    return list(seen.values())
+
+
+def _engine_run(ops, vta, net, images, dev, workers, layers, arrivals=None):
+    """One measured engine run, the launch counters set to 0 just before it
+    and read just after: ``serve_all`` of ``images`` (saturation) or, with
+    ``arrivals``, their seeded trace replayed on the wall clock.  Fails
+    unless the audit is clean, no request failed and ``vta_gemm`` launched
+    exactly ``layers`` times per executed batch."""
+    engine = vta.VTAServingEngine(
+        net, policy=vta.BatchPolicy(**ENGINE_POLICY),
+        backends=("cuda",) * workers, device=dev, slo_s=ENGINE_SLO_S)
+    engine.start()                                   # warm-up probe serve
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        if arrivals is None:
+            outs, tickets = vta.serve_all(engine, images)
+        else:
+            clock, tickets = vta.WallClock(), []
+            start = clock.now()
+            for img, t_rel in zip(images, arrivals):
+                clock.sleep_until(start + t_rel)
+                tickets.append(engine.submit(img))
+            outs = np.stack([t.result(timeout=120.0) for t in tickets])
+        wall = time.perf_counter() - t0
+    finally:
+        engine.shutdown()
+    launches, attn = ops.launches, ops.attention_launches
+    batches = _batches(tickets)
+    audit = engine.metrics.audit()
+    summary = engine.metrics.summary()
+    if audit or summary["failed"] or summary["completed"] != len(images):
+        raise AssertionError(f"engine run: audit {audit}, summary {summary}")
+    if launches != layers * len(batches) or attn:
+        raise AssertionError(f"engine run: {launches} kernel launches for "
+                             f"{len(batches)} batches of {layers} layers; "
+                             f"attention launches {attn}")
+    return outs, {
+        "workers": workers, "wall_s": wall,
+        "img_per_s": len(images) / wall, "launches": launches,
+        "batches": len(batches),
+        "mean_formed_batch": sum(b for b, _ in batches) / len(batches),
+        "mean_padded_batch": sum(p for _, p in batches) / len(batches),
+        "summary": summary, "audit": audit}
+
+
+def engine_phase(ops, name, net, layers, reference, direct_img_s, dev):
+    """Phase 6b: the async serving engine on the card, one model.
+
+    With ``BatchPolicy(max_batch=32, max_wait_s=0.002, max_depth=1024)``:
+    every ladder rung served twice first (its first-use cost: the rung's
+    ``vta_gemm.plan`` entries and the allocator's growth), an unmeasured
+    warm-up trace, then ``serve_all`` of 512 seeded requests with one and
+    with two ``cuda`` workers (saturation), and a seeded Poisson trace of
+    512 requests at half of phase 6's direct batch-32 rate with one and
+    two workers.  Every answer is held bit-exactly against a direct serve
+    and the integer reference; ``calibrate_service_model`` fits the
+    card's service model, and ``simulate`` replays the same trace with it
+    beside the engine's latencies."""
+    from repro_torch.serving import vta
+    images = vta.request_images(net, ENGINE_REQUESTS, seed=17)
+    stacked = np.stack(images)
+    direct = np.concatenate([net.serve(stacked[lo:lo + 32], device=dev)[0]
+                             for lo in range(0, len(images), 32)])
+    for r, img in enumerate(images):
+        if not np.array_equal(direct[r], reference(img)):
+            raise AssertionError(f"{name} engine request {r}: direct serve "
+                                 f"differs from the integer reference")
+    rec = {"direct_batch32_img_per_s": direct_img_s, "first_use_ms": {}}
+    for rung in net.padded_batch_sizes(ENGINE_POLICY["max_batch"]):
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            net.serve(stacked[:rung], device=dev)
+            times.append(time.perf_counter() - t0)
+        rec["first_use_ms"][rung] = [t * 1e3 for t in times]
+    rate = ENGINE_LOAD * direct_img_s
+    arrivals = vta.poisson_arrival_times(rate, ENGINE_REQUESTS, seed=23)
+    _engine_run(ops, vta, net, images[:128], dev, 2, layers,
+                arrivals=arrivals[:128])             # warm-up trace
+    runs = []
+    for mode in ("saturation", "trace"):
+        for workers in (1, 2):
+            outs, run = _engine_run(
+                ops, vta, net, images, dev, workers, layers,
+                arrivals=arrivals if mode == "trace" else None)
+            if not np.array_equal(outs, direct):
+                bad = [r for r in range(len(images))
+                       if not np.array_equal(outs[r], direct[r])]
+                raise AssertionError(f"{name} engine {mode} x{workers}: "
+                                     f"requests {bad[:8]} differ")
+            run.update(mode=mode, bit_exact=f"{len(images)}/{len(images)}")
+            runs.append(run)
+            s = run["summary"]
+            print(f"{name} engine {mode}, {workers} worker(s): "
+                  f"{run['img_per_s']:.1f} img/s (direct batch 32 "
+                  f"{direct_img_s:.1f}); p50/p95/p99 {s['p50_ms']:.2f}/"
+                  f"{s['p95_ms']:.2f}/{s['p99_ms']:.2f} ms; {run['batches']} "
+                  f"batches, mean formed {run['mean_formed_batch']:.2f}, "
+                  f"padded {run['mean_padded_batch']:.2f}; SLO "
+                  f"{ENGINE_SLO_S * 1e3:.0f} ms violations "
+                  f"{s['slo_violations']}; {len(images)}/{len(images)} "
+                  f"bit-exact; audit clean; {run['launches']} launches = "
+                  f"{layers} x {run['batches']}")
+    model = vta.calibrate_service_model(net, batch=32, device=dev)
+    sims = {}
+    for workers in (1, 2):
+        sim = vta.simulate(vta.PoissonSource(rate, ENGINE_REQUESTS, seed=23),
+                           vta.BatchPolicy(**ENGINE_POLICY), model,
+                           workers=workers, slo_s=ENGINE_SLO_S)
+        sims[workers] = sim.metrics.summary()
+    print(f"{name} service model ({dev}): base {model.base_s * 1e3:.3f} ms + "
+          f"{model.per_image_s * 1e3:.4f} ms/image; trace at "
+          f"{rate:.0f} req/s simulated p50/p99 "
+          + ", ".join(f"x{w} {sims[w]['p50_ms']:.2f}/{sims[w]['p99_ms']:.2f}"
+                      for w in sims)
+          + " ms against the engine's "
+          + ", ".join(f"x{r['workers']} {r['summary']['p50_ms']:.2f}/"
+                      f"{r['summary']['p99_ms']:.2f}"
+                      for r in runs if r["mode"] == "trace") + " ms")
+    print(f"{name} first use of each ladder rung (first / second serve, ms): "
+          + ", ".join(f"{rung}: {a:.2f}/{b:.2f}"
+                      for rung, (a, b) in rec["first_use_ms"].items()))
+    rec.update(trace_rate_rps=rate, runs=runs,
+               service_model={"base_s": model.base_s,
+                              "per_image_s": model.per_image_s},
+               simulated=sims,
+               launches=sum(r["launches"] for r in runs))
     return rec
 
 
@@ -1230,6 +1393,20 @@ def main() -> int:
     record["serve"]["resnet8"] = serve_timing(r8_net, r8_images, dev,
                                               "resnet8")
     record["serve"].update(serve_timing(net, images, dev, "LeNet-5"))
+
+    # -- 6b. main path: the async serving engine on the card ---------------
+    record["engine"] = {
+        "lenet5": engine_phase(
+            ops, "LeNet-5", net, 5,
+            lambda img: reference_forward_int8(weights, img, shifts)[0],
+            record["serve"]["batch32"]["img_per_s"], dev),
+        "resnet8": engine_phase(
+            ops, "resnet8", r8_net, 11, cnns[0][3],
+            record["serve"]["resnet8"]["batch32"]["img_per_s"], dev)}
+    entry["launches"] += sum(e["launches"]
+                             for e in record["engine"].values())
+    entry["launches_by_path"].update(
+        {f"engine_{k}": e["launches"] for k, e in record["engine"].items()})
 
     # -- 7. flash_attention vs plain over the grid ------------------------
     plan = functools.partial(attn_kernel.plan,

@@ -100,7 +100,8 @@ def _fused_form(alu_ops) -> Optional[Tuple[bool, int]]:
 
 def plan_cuda(prog) -> CudaPlan:
     """Lower ``prog`` for the cuda backend; cached on the program (the
-    compile-once/serve-many contract)."""
+    compile-once/serve-many contract).  The plan is stored only once
+    complete, so threads that race here build it twice, never half."""
     plan = getattr(prog, "_cuda_plan", None)
     if plan is not None:
         return plan
@@ -314,7 +315,9 @@ def lower_alu(alu_ops, device: torch.device) -> List[object]:
 
 def _lowered_alu(prog, p: CudaPlan, device: torch.device) -> List[object]:
     """:func:`lower_alu` of ``prog``, built once per program and device so
-    a served batch copies no indices to the device."""
+    a served batch copies no indices to the device.  Racing threads may
+    both build the list; each stores it whole, so the race only duplicates
+    work."""
     cache: Dict[str, List[object]] = prog.__dict__.setdefault(
         "_cuda_alu", {})
     key = device_of(device)

@@ -71,6 +71,10 @@ class NetworkProgram:
     input_tensor: np.ndarray
     input_sources: Optional[List[int]] = None
     residual_sources: Optional[List[Optional[int]]] = None
+    # The two caches below are filled on first use per device.  Serving
+    # threads may both miss and both build an entry; each stores a complete
+    # value in one dict assignment, so the race only duplicates work (the
+    # engine's warm-up fills both before its workers start).
     # the DRAM image, uploaded once per device (compile once, serve many)
     _device_images: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
@@ -104,6 +108,51 @@ class NetworkProgram:
 
     def cycle_report(self) -> CycleReport:
         return analyze_programs([l.program for l in self.layers])
+
+    def input_signature(self) -> Tuple[Tuple[int, ...], np.dtype]:
+        """(shape, dtype) one request image must have — the admission
+        contract the serving engine (:mod:`repro_torch.serving.vta`)
+        validates at submit time instead of failing layers deep into
+        staging."""
+        return tuple(self.input_tensor.shape), np.dtype(np.int8)
+
+    def plan_shapes(self) -> List[Dict[str, int]]:
+        """Per-layer compiled geometry the serving layer batches against:
+        INP/OUT (and residual) region sizes plus chunk counts.  Purely
+        introspective — reading it never compiles or invalidates plans."""
+        shapes: List[Dict[str, int]] = []
+        for layer in self.layers:
+            regions = layer.program.regions
+            shapes.append({
+                "name": layer.spec.name,
+                "inp_nbytes": regions["inp"].nbytes,
+                "out_nbytes": regions["out"].nbytes,
+                "res_nbytes": (regions["res"].nbytes
+                               if "res" in regions else 0),
+                "n_chunks": layer.n_chunks,
+            })
+        return shapes
+
+    def padded_batch_sizes(self, max_batch: int) -> Tuple[int, ...]:
+        """The closed set of stack shapes the engine serves at: powers of
+        two up to ``max_batch`` (plus ``max_batch`` itself when it is not
+        a power of two).  Padding a formed batch up to the next rung
+        keeps the compile-once contract — the device sees a small fixed
+        family of ``(B, nbytes)`` stacks (and ``vta_gemm`` plans) instead
+        of one shape per occupancy."""
+        if max_batch < 1:
+            raise CompileError(
+                f"padding ladder needs max_batch >= 1, got {max_batch} "
+                f"(a degenerate ladder would defer the failure to "
+                f"padded_size deep inside a worker)",
+                constraint="ladder-max-batch")
+        sizes = []
+        b = 1
+        while b < max_batch:
+            sizes.append(b)
+            b *= 2
+        sizes.append(max_batch)
+        return tuple(sizes)
 
     def dram_image(self) -> np.ndarray:
         image = np.zeros(self.allocator.image_size(), dtype=np.uint8)
@@ -292,7 +341,12 @@ class NetworkProgram:
 
     def _outputs(self, sem: torch.Tensor) -> np.ndarray:
         """Device semantic outputs → the reference's stacked host form:
-        ``(B, rows, F)`` for fc, ``(B, 1, F, H, W)`` for conv."""
+        ``(B, rows, F)`` for fc, ``(B, 1, F, H, W)`` for conv.
+
+        The copy to the host waits for the device, so ``serve`` returns
+        only once the batch's work is done.  The serving engine's
+        ``complete_t`` and ``calibrate_service_model``'s timings rely on
+        that: keep the synchronising copy here."""
         host = sem.cpu().numpy()
         if self.layers[-1].spec.kind == "conv":
             host = host[:, None]

@@ -120,6 +120,7 @@ def decode_out_region_batch(prog, dram_stack: torch.Tensor) -> torch.Tensor:
 
 
 def _keep_index(layer, device: torch.device) -> torch.Tensor:
+    # racing threads may both build the index; each stores it whole
     cache: Dict[str, torch.Tensor] = layer.__dict__.setdefault(
         "_keep_rows_t", {})
     key = device_of(device)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import pathlib
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -64,6 +65,15 @@ build = KERNEL.build
 library_path = KERNEL.library_path
 
 launches = 0    # kernels launched, as the C entry points report them
+# serving workers launch from several threads at once: ``launches += n``
+# is a read-modify-write, so it is taken under this lock
+launches_lock = threading.Lock()
+
+
+def _count_launches(n: int) -> None:
+    global launches
+    with launches_lock:
+        launches += n
 
 # The tiles each path takes; the libraries hold the instantiations below
 # (bf16: one per head dim) and refuse any other geometry (csrc/*.cu,
@@ -340,7 +350,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     then (m, l) pairs, as both ``csrc`` sources lay them out).
     Adds the kernels the library reports launched to ``launches``; raises
     ``KernelLaunchError`` on a non-zero return."""
-    global launches
     b, h, hkv, sq, skv, d = p.shape
     if p.scratch_floats and (scratch is None
                              or scratch.dtype != torch.float32
@@ -364,7 +373,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:                       # launch from the operands' device context
         with torch.cuda.device(q.device):
             err = fn(*args)
-    launches += done.value
+    _count_launches(done.value)
     if err != 0:
         raise KernelLaunchError(
             f"flash_attention launch failed: cudaError {err} at "

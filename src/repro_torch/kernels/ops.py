@@ -11,6 +11,7 @@ through the kernels.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -24,12 +25,22 @@ from . import vta_gemm as _vta_gemm
 _BACKENDS = ("auto", "cuda", "torch")
 
 launches = 0            # kernel launches made by vta_matmul
+# serving workers launch from several threads at once: ``launches += 1`` is
+# a read-modify-write, so it is taken under this lock
+_launches_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    global launches
+    with _launches_lock:
+        launches += 1
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
-    _flash.launches = 0
+    with _launches_lock, _flash.launches_lock:
+        launches = 0
+        _flash.launches = 0
 
 
 def __getattr__(name: str):
@@ -53,7 +64,6 @@ def vta_matmul(a: torch.Tensor, b: torch.Tensor,
 
     backend: ``"auto"`` picks by the tensors' device, ``"cuda"`` requires
     CUDA tensors (kernel), ``"torch"`` requires CPU tensors (plain)."""
-    global launches
     _check_backend(backend)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise CompileError(
@@ -71,7 +81,7 @@ def vta_matmul(a: torch.Tensor, b: torch.Tensor,
                          f"ref.vta_gemm_ref directly to compare on the card)")
     out = _vta_gemm.vta_gemm(a, b, bias, relu=relu, shift=shift,
                              saturate=saturate, out_dtype=out_dtype)
-    launches += 1
+    _count_launch()
     return out
 
 

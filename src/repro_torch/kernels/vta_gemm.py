@@ -144,6 +144,8 @@ def make_plan(m: int, k: int, n: int, bm: int, bn: int, k_split: int,
     return dataclasses.replace(p, stages=stages)
 
 
+# lru_cache is thread-safe: two threads that miss together both compute
+# the same plan, and one is kept
 @functools.lru_cache(maxsize=1024)     # a plan costs ~15 us of host time
 def plan(m: int, k: int, n: int, *, out_dtype: torch.dtype = torch.int8,
          sm_count: int = SM_COUNT, aligned: bool = True) -> GemmPlan:

@@ -55,8 +55,9 @@ def request_images(n: int, seed: int = 100) -> np.ndarray:
     return np.stack([synthetic_image(seed + r) for r in range(n)])
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
+def cnn_args(description: str) -> argparse.Namespace:
+    """The CNN drivers' flags: ``--requests``, ``--batch``, ``--device``."""
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=8,
                     help="requests per served batch (default: 8)")
@@ -65,6 +66,39 @@ def main() -> None:
     args = ap.parse_args()
     if args.batch < 1:
         ap.error("--batch must be >= 1")
+    return args
+
+
+def serve_and_check(net, images: np.ndarray, reference, batch: int,
+                    device: torch.device) -> None:
+    """Serve ``images`` in batches of ``batch`` on ``device`` (after a
+    warm-up that builds the kernel and uploads the image), hold every
+    answer bit-exactly against ``reference(img)`` and print img/s and the
+    N/N line; exits non-zero on a mismatch."""
+    net.serve(images[:1], device=device)            # warm-up: build, upload
+    logits_all = []
+    serve_s = 0.0
+    for lo in range(0, len(images), batch):
+        t0 = time.perf_counter()
+        outs, _ = net.serve(images[lo:lo + batch], device=device)
+        serve_s += time.perf_counter() - t0
+        logits_all.extend(outs)
+    for r, (img, logits) in enumerate(zip(images, logits_all)):
+        if not np.array_equal(logits, reference(img)):
+            raise SystemExit(f"request {r}: mismatch against the integer "
+                             f"reference")
+    n = len(images)
+    if n:
+        print(f"\nserved {n} requests in {serve_s:.4f}s "
+              f"({n / serve_s:.1f} img/s, batch {batch} on {device}"
+              + (f" [{torch.cuda.get_device_name(device)}]"
+                 if device.type == "cuda" else "")
+              + "; verification excluded)")
+        print(f"bit-exact vs integer reference: {n}/{n}")
+
+
+def main() -> None:
+    args = cnn_args("resnet8 served on the port's cuda backend")
     device = resolve_device(args.device)
 
     print("calibrating weight scales + requant shifts, compiling the "
@@ -84,28 +118,9 @@ def main() -> None:
     print("  compile-time input: every staged input and residual matches "
           "the compiled matrices")
 
-    images = request_images(args.requests)
-    net.serve(images[:1], device=device)            # warm-up: build, upload
-    logits_all = []
-    serve_s = 0.0
-    for lo in range(0, len(images), args.batch):
-        t0 = time.perf_counter()
-        outs, _ = net.serve(images[lo:lo + args.batch], device=device)
-        serve_s += time.perf_counter() - t0
-        logits_all.extend(outs)
-    for r, (img, logits) in enumerate(zip(images, logits_all)):
-        if not np.array_equal(logits, reference_forward_int8(graph, img)):
-            raise SystemExit(f"request {r}: mismatch against the integer "
-                             f"reference")
-    if args.requests:
-        print(f"\nserved {args.requests} requests in {serve_s:.4f}s "
-              f"({args.requests / serve_s:.1f} img/s, batch {args.batch} "
-              f"on {device}"
-              + (f" [{torch.cuda.get_device_name(device)}]"
-                 if device.type == "cuda" else "")
-              + "; verification excluded)")
-        print(f"bit-exact vs integer reference: "
-              f"{args.requests}/{args.requests}")
+    serve_and_check(net, request_images(args.requests),
+                    lambda img: reference_forward_int8(graph, img),
+                    args.batch, device)
 
 
 if __name__ == "__main__":

@@ -381,3 +381,30 @@ def test_f32_split_partials_match_plain(shape, kw, splits):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(got, ref.attention_ref(q, k, v, **kw),
                                atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_engine_two_workers_match_direct_serve():
+    """Two ``cuda`` workers drain one queue on the card: every answer equals
+    a direct serve of the same image, the audit is clean, and ``vta_gemm``
+    launches exactly 5 times (LeNet-5's layers) per executed batch."""
+    dev = _card()
+    from repro_torch.lenet5_e2e import compile_lenet5
+    from repro_torch.serving import vta
+    _, net = compile_lenet5()
+    images = vta.request_images(net, 40, seed=3)
+    engine = vta.VTAServingEngine(
+        net, policy=vta.BatchPolicy(max_batch=8, max_wait_s=0.002),
+        backends=("cuda", "cuda"), device=dev).start()   # warm-up serve
+    ops.reset_launches()
+    try:
+        outs, tickets = vta.serve_all(engine, images)
+    finally:
+        engine.shutdown()
+    launches = ops.launches
+    direct, _ = net.serve(images, device=dev)
+    np.testing.assert_array_equal(outs, direct)
+    assert engine.metrics.audit() == [] and engine.metrics.drained()
+    batches = {(t.record.worker, t.record.dispatch_t) for t in tickets}
+    assert launches == 5 * len(batches)
+    assert ops.attention_launches == 0

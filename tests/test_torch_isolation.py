@@ -5,9 +5,11 @@
   level or inside a function;
 * a subprocess with ``jax`` and ``repro`` blocked in ``sys.modules``
   compiles and serves LeNet-5, and resnet8 through the graph front end,
-  on ``device="cpu"``;
+  on ``device="cpu"``, and replays a short trace through the serving
+  engine;
 * with no CUDA card, entry points called without a device raise
-  :class:`~repro_torch.device.NoDeviceError` before any work runs.
+  :class:`~repro_torch.device.NoDeviceError` before any work runs (the
+  serving engine before any thread starts).
 """
 
 import ast
@@ -49,6 +51,9 @@ def _imports(path: pathlib.Path):
 def test_no_module_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    names = {str(f.relative_to(PORT)) for f in files[:-1]}
+    assert {"serving/vta/engine.py", "serving/vta/simulate.py",
+            "serve_vta.py", "resnet_e2e.py", "cifar10_cnn_e2e.py"} <= names
     bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
            for path in files for line, name in _imports(path)
            if _forbidden(name)]
@@ -77,10 +82,23 @@ r8_imgs = resnet8_images(2)
 r8_out, _ = r8.serve(r8_imgs, device="cpu")
 for img, logits in zip(r8_imgs, r8_out):
     assert np.array_equal(logits, r8_ref(graph, img))
+from repro_torch.serving.vta import (BatchPolicy, PoissonSource,
+                                     ServiceModel, VTAServingEngine,
+                                     serve_all, simulate)
+with VTAServingEngine(net, policy=BatchPolicy(max_batch=4, max_wait_s=0.002),
+                      backends=("cuda", "cuda"), device="cpu") as engine:
+    served, _ = serve_all(engine, list(images) * 3)
+assert np.array_equal(served, np.concatenate([out] * 3))
+assert engine.metrics.audit() == []
+sim = simulate(PoissonSource(400.0, 9, seed=1, images=list(images)),
+               BatchPolicy(max_batch=4), ServiceModel(0.004, 0.001),
+               workers=2, net=net, device="cpu")
+assert len(sim.records) == 9 and sim.metrics.audit() == []
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
-print("served", len(out), net.gemm_loops(), len(r8_out), r8.gemm_loops())
+print("served", len(out), net.gemm_loops(), len(r8_out), r8.gemm_loops(),
+      len(served))
 """
 
 
@@ -89,7 +107,7 @@ def test_runs_with_jax_and_repro_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "served 3 2942 2 53252"
+    assert proc.stdout.strip() == "served 3 2942 2 53252 9"
 
 
 def test_no_device_raises_and_runs_nothing(monkeypatch):
@@ -128,3 +146,44 @@ def test_no_device_raises_and_runs_nothing(monkeypatch):
     # naming the CPU is the one way onto it
     out, _ = net.serve(images, device="cpu")
     assert calls and out.shape == (2, 1, 10)
+
+
+def test_engine_without_card_raises_before_any_thread(monkeypatch):
+    """No card and no device named: the engine, the calibration and a
+    simulation that executes batches raise :class:`NoDeviceError`, and no
+    worker thread starts."""
+    import threading
+
+    from repro_torch import device as tdevice
+    from repro_torch.lenet5_e2e import compile_lenet5
+    from repro_torch.serving import vta
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, net = compile_lenet5()
+    threads = threading.active_count()
+    with pytest.raises(tdevice.NoDeviceError):
+        vta.VTAServingEngine(net, backends=("cuda", "cuda"))
+    with pytest.raises(tdevice.NoDeviceError):
+        vta.calibrate_service_model(net, batch=2, repeats=1)
+    with pytest.raises(tdevice.NoDeviceError):
+        vta.simulate(vta.PoissonSource(100.0, 2, seed=0,
+                                       images=vta.request_images(net, 2, 0)),
+                     vta.BatchPolicy(), vta.ServiceModel(0.001, 0.0),
+                     net=net)
+    assert threading.active_count() == threads
+    assert not net._device_images
+
+
+@pytest.mark.parametrize("module", ["serve_vta", "resnet_e2e",
+                                    "cifar10_cnn_e2e"])
+def test_drivers_without_card_raise(monkeypatch, module):
+    """The drivers run on the card unless ``--device`` names another."""
+    import importlib
+
+    from repro_torch import device as tdevice
+
+    driver = importlib.import_module(f"repro_torch.{module}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", [module, "--requests", "2"])
+    with pytest.raises(tdevice.NoDeviceError):
+        driver.main()
