@@ -116,7 +116,32 @@ In order it:
    fastest backend within 2e-5; times the KV split against another split
    count, in alternating pairs, where the plan splits (the chunked
    prefill, 5 splits against 1; whisper-base, float32, the plan's against
-   1) and where it does not (gemma3's local layer, 1 against 2).
+   1) and where it does not (gemma3's local layer, 1 against 2);
+10. drives the float front door (``repro_torch.quantize``) for LeNet-5 and
+   then resnet8 at the reference's full scale (``FRONT_DOOR``: train 4000,
+   eval 2000, calib 64, 6 epochs, batch 64, seed 0; 372 Adam steps a net):
+   draws the digit splits, trains the float net on the card
+   (``train_float``, TF32 off), measures float top-1 on the card, holds
+   the float forward on the card against the CPU's on 64 test images
+   (atol = rtol = 1e-4), quantises (``quantize_network``, margin 0),
+   compiles, holds the card's int8 logits on the first 64 test images
+   against the ``device="cpu"`` serve's (bit for bit), then serves the
+   2000-image test split through ``int8_top1`` on the card with the launch
+   counters set to 0 just before and read just after (launches = layers ×
+   32 stacks); prints the seconds of each step, each epoch's mean loss,
+   float and int8 top-1, the delta and eval img/s, with the JAX package's
+   recorded CPU figures beside them; fails unless the delta is within 2.00
+   points and float top-1 within 2 points of the JAX package's figure;
+   trains LeNet-5 a second time from the same seed and reports whether the
+   parameters are bit-identical; and times the kernel, its plain version
+   and ``torch._int_mm`` at each net's GEMM shapes for a stack of 64;
+11. runs the GQA projection (64×96×64) of ``repro_torch.vta_lm_projection``
+   on the VTA functional simulator (the oracle, ``run_program``), on
+   ``vta_gemm`` on the card (one launch, counted as in phase 10) and on the
+   plain version, byte for byte, and three more ``compile_matmul`` GEMMs
+   (K = 75 and 200, not multiples of 16; K = 64 with shift 0) on the
+   oracle, the kernel and the plain version with truncating int8,
+   saturating int8 and int32 out.
 
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
 the last line.  Any failure raises and exits non-zero.  The last line is
@@ -1111,6 +1136,205 @@ def attention_bound(case, cuda_cores: bool = False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Phase 10: the float front door at the reference's full scale
+# (EXPERIMENTS.md §Accuracy: train 4000, eval 2000, calib 64, 6 epochs).
+FRONT_DOOR = dict(train_n=4000, eval_n=2000, calib_n=64, epochs=6, batch=64,
+                  seed=0)
+# EXPERIMENTS.md §Accuracy: the JAX package's run on a CPU at those sizes
+JAX_CPU_RECORDED = {"lenet5": (0.9950, 0.9850), "resnet8": (1.0000, 0.9910)}
+SPOTCHECK_N = 64                   # first test images served on both devices
+FLOAT_TOL = 1e-4                   # float forward, card against CPU
+
+
+def program_gemms(prog, batch: int) -> list:
+    """The ``vta_gemm`` launches of one served stack of ``batch`` images:
+    ``(layer, M, K, N, kwargs)`` from each layer's ``plan_cuda`` (fused
+    layers int8 out with their relu and shift, others int32 out)."""
+    from repro_torch.core.cuda_backend import plan_cuda
+    rows = []
+    for layer in prog.layers:
+        p = plan_cuda(layer.program)
+        mp, np_ = p.padded_shape
+        kw = (dict(relu=p.relu, shift=p.shift, saturate=False,
+                   out_dtype=torch.int8) if p.fused else
+              dict(relu=False, shift=0, saturate=False,
+                   out_dtype=torch.int32))
+        rows.append((layer.spec.name, batch * mp, p.lam * p.block_size, np_,
+                     kw))
+    return rows
+
+
+def front_door_phase(ops, ref, kernel, sms, rng, net, dev,
+                     retrain: bool = False) -> dict:
+    """Phase 10, one net: draw the digit splits, train the float net on the
+    card (``train_float``, TF32 off), float top-1 on the card, the float
+    forward on the card against the CPU's, PTQ (``quantize_network``,
+    margin 0), compile, the spot-check (the card's int8 logits on the first
+    ``SPOTCHECK_N`` test images against the ``device="cpu"`` serve), then
+    the held-out split through ``int8_top1`` on the card with the launch
+    counters set to 0 just before and read just after.  Fails unless the
+    delta is within ``quantize.GATE_POINTS``, float top-1 is within it of
+    the JAX package's recorded figure, the spot-check is bit-identical,
+    the launches equal layers × stacks and the float forwards agree within
+    ``FLOAT_TOL``.  ``retrain`` trains a second time from the same seed and
+    reports whether the parameters are bit-identical."""
+    from repro_torch.device import strict_float32
+    # GATE_POINTS: int8 within it of float, and (here) float within it of
+    # the JAX package's recorded top-1
+    from repro_torch.quantize import (GATE_POINTS, backend_agreement,
+                                      digit_dataset, float_model, float_net,
+                                      float_top1, int8_top1,
+                                      quantize_network, train_float)
+    from repro_torch.quantize.train import NET_CHANNELS
+    c, ch = FRONT_DOOR, NET_CHANNELS[net]
+    t0 = time.perf_counter()
+    split = lambda n, name: digit_dataset(n, seed=c["seed"], split=name,
+                                          channels=ch)
+    train_x, train_y = split(c["train_n"], "train")
+    test_x, test_y = split(c["eval_n"], "test")
+    calib_x, _ = split(c["calib_n"], "calib")
+    rec = {"net": net, **c, "data_s": time.perf_counter() - t0,
+           "train_device_mb": (train_x.nbytes + train_y.nbytes) / 1e6}
+
+    def train():
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = train_float(net, train_x, train_y, epochs=c["epochs"],
+                             batch=c["batch"], seed=c["seed"], device=dev,
+                             losses=losses)
+        return params, losses, time.perf_counter() - t0
+
+    params, losses, rec["train_s"] = train()
+    per_epoch = c["train_n"] // c["batch"]
+    if len(losses) != c["epochs"] * per_epoch:
+        raise AssertionError(f"{net}: {len(losses)} Adam steps")
+    epoch_loss = torch.stack(losses).reshape(c["epochs"], per_epoch).mean(1)
+    rec["steps"] = len(losses)
+    rec["epoch_mean_loss"] = epoch_loss.tolist()
+    if retrain:
+        again, _, rec["retrain_s"] = train()
+        rec["retrain_bit_identical"] = all(np.array_equal(again[k], params[k])
+                                           for k in params)
+    t0 = time.perf_counter()
+    facc = float_top1(net, params, test_x, test_y, device=dev)
+    rec["float_top1_s"] = time.perf_counter() - t0
+    x = torch.from_numpy(test_x[:SPOTCHECK_N])
+    with torch.no_grad(), strict_float32():
+        card = float_net(net, params, device=dev)(x.to(dev)).cpu()
+        host = float_net(net, params, device="cpu")(x)
+    rec["float_card_vs_cpu_max_abs_err"] = (card - host).abs().max().item()
+    if not torch.allclose(card, host, atol=FLOAT_TOL, rtol=FLOAT_TOL):
+        raise AssertionError(f"{net}: float forward on the card differs "
+                             f"from the CPU's by "
+                             f"{rec['float_card_vs_cpu_max_abs_err']}")
+    t0 = time.perf_counter()
+    qm = quantize_network(float_model(net, params), calib_x, margin=0)
+    rec["ptq_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog = qm.compile()
+    rec["compile_s"] = time.perf_counter() - t0
+    layers, stacks = len(prog.layers), -(-c["eval_n"] // c["batch"])
+    t0 = time.perf_counter()
+    rec["spotcheck_bit_identical"] = backend_agreement(
+        prog, test_x[:SPOTCHECK_N], input_exp=qm.input_exp, device=dev)
+    rec["spotcheck_s"] = time.perf_counter() - t0
+    if not rec["spotcheck_bit_identical"]:
+        raise AssertionError(f"{net}: int8 logits on the card differ from "
+                             f"the CPU serve's")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    iacc = int8_top1(prog, test_x, test_y, input_exp=qm.input_exp,
+                     batch=c["batch"], device=dev)
+    rec["eval_s"] = time.perf_counter() - t0
+    launches = ops.launches
+    rec.update(layers=layers, stacks=stacks, launches=launches,
+               eval_img_per_s=c["eval_n"] / rec["eval_s"],
+               float_top1=facc, int8_top1=iacc,
+               delta_points=(facc - iacc) * 100.0,
+               weight_exps=dict(qm.weight_exps), shifts=dict(qm.shifts))
+    jf, ji = JAX_CPU_RECORDED[net]
+    rec["jax_cpu_recorded"] = {"float_top1": jf, "int8_top1": ji,
+                               "delta_points": round((jf - ji) * 100, 2)}
+    print(f"front door, {net}: data {rec['data_s']:.2f} s, train "
+          f"{rec['train_s']:.2f} s ({rec['steps']} Adam steps, TF32 off; "
+          f"epoch mean loss "
+          + " ".join(f"{v:.4f}" for v in rec["epoch_mean_loss"])
+          + f"), PTQ {rec['ptq_s']:.2f} s, compile {rec['compile_s']:.2f} s, "
+          f"eval {rec['eval_s']:.3f} s ({rec['eval_img_per_s']:.0f} img/s, "
+          f"{stacks} stacks of {c['batch']}); float top-1 {facc * 100:.2f} %, "
+          f"int8 {iacc * 100:.2f} %, delta {rec['delta_points']:+.2f} points; "
+          f"vta_gemm launches {launches} ({layers} layers x {stacks} stacks); "
+          f"spot-check on {SPOTCHECK_N} images bit-identical; float card vs "
+          f"CPU max |diff| {rec['float_card_vs_cpu_max_abs_err']:.3g}"
+          + (f"; trained twice: parameters "
+             f"{'bit-identical' if rec['retrain_bit_identical'] else 'differ'}"
+             if retrain else ""))
+    print(f"  the JAX package's recorded CPU run (EXPERIMENTS.md): float "
+          f"{jf * 100:.2f} %, int8 {ji * 100:.2f} %, delta "
+          f"{(jf - ji) * 100:+.2f} points")
+    if launches != layers * stacks:
+        raise AssertionError(f"{net}: {launches} vta_gemm launches, expected "
+                             f"{layers} x {stacks}")
+    if round(rec["delta_points"], 2) > GATE_POINTS:
+        raise AssertionError(f"{net}: int8 {rec['delta_points']:.2f} points "
+                             f"under float")
+    if facc * 100 < jf * 100 - GATE_POINTS:
+        raise AssertionError(f"{net}: float top-1 {facc * 100:.2f} % is more "
+                             f"than {GATE_POINTS} points under the JAX "
+                             f"package's {jf * 100:.2f} %")
+    rec["gemms"] = [time_gemm(ops, ref, kernel, sms, rng, name, m, k, n, kw,
+                              dev)
+                    for name, m, k, n, kw in program_gemms(prog, c["batch"])]
+    total = lambda key: (None if any(r[key] is None for r in rec["gemms"])
+                         else sum(r[key] for r in rec["gemms"]))
+    rec["stack_gemm"] = {key: total(key) for key in
+                         ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    us = lambda t: "n/a" if t is None else f"{t * 1e3:.2f} us"
+    print(f"  vta_gemm at its {layers} shapes, batch {c['batch']}: kernel "
+          f"{us(total('kernel_ms'))}, plain {us(total('plain_ms'))}, _int_mm "
+          f"{us(total('library_ms'))}, bound {us(total('bound_ms'))}")
+    return rec
+
+
+def projection_phase(ops, dev) -> dict:
+    """Phase 11: the GQA projection of ``repro_torch.vta_lm_projection`` on
+    the oracle, the kernel on the card (one launch, the counters set to 0
+    just before and read just after) and the plain version, byte for byte;
+    then ``MATMUL_CASES`` (K not a multiple of 16, int32 out, saturate on
+    and off) through ``run_matmul_case``."""
+    from repro_torch import vta_lm_projection as proj
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = proj.run_projection(dev)
+    launches = ops.launches
+    if launches != 1:
+        raise AssertionError(f"projection: {launches} vta_gemm launches")
+    for name in ("kernel", "plain"):
+        if not np.array_equal(res["oracle"], res[name]):
+            raise AssertionError(f"projection: oracle != {name}")
+    report = res["report"]
+    rec = {"launches": launches, "gemm_loops": report.gemm_loops,
+           "insn_executed": report.insn_executed,
+           "dram_bytes": report.dram_bytes_total, "cases": []}
+    print(f"projection 64x96x64: oracle ({report.gemm_loops} GeMM loops) == "
+          f"vta_gemm on the card ({launches} launch) == plain, bit-exact")
+    for case in proj.MATMUL_CASES:
+        r = proj.run_matmul_case(case, dev)
+        failed = [k for k, ok in r["checks"].items() if not ok]
+        if failed:
+            raise AssertionError(f"{r['name']}: {failed}")
+        rec["cases"].append({"name": r["name"], "shape": list(r["shape"]),
+                             "saturated_values": r["saturated"],
+                             "checks": sorted(r["checks"])})
+        print(f"  {r['name']} {'x'.join(map(str, r['shape']))}: "
+              f"{len(r['checks'])} checks hold (oracle, kernel and plain; "
+              f"int8 wrap and saturate, int32; {r['saturated']} values "
+              f"beyond int8)")
+    return rec
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -1310,16 +1534,8 @@ def main() -> int:
     # -- 5. kernel timings at LeNet-5's and resnet8's shapes, batch 32 ----
     rng = np.random.default_rng(5)
     sms = attn_kernel.device_sm_count(dev)
-    shapes = []
-    for layer, p in zip(net.layers, plans):
-        mp, np_ = p.padded_shape
-        m, k, n = 32 * mp, p.lam * p.block_size, np_
-        kw = (dict(relu=p.relu, shift=p.shift, saturate=False,
-                   out_dtype=torch.int8) if p.fused else
-              dict(relu=False, shift=0, saturate=False,
-                   out_dtype=torch.int32))
-        shapes.append(time_gemm(ops, ref, kernel, sms, rng, layer.spec.name,
-                                m, k, n, kw, dev))
+    shapes = [time_gemm(ops, ref, kernel, sms, rng, name, m, k, n, kw, dev)
+              for name, m, k, n, kw in program_gemms(net, 32)]
     resnet8 = [time_gemm(ops, ref, kernel, sms, rng, name, m, k, n,
                          dict(relu=True, shift=4, saturate=False,
                               out_dtype=torch.int8) if out == "int8" else
@@ -1589,6 +1805,24 @@ def main() -> int:
         "cases": rows,
         "split_ab": ab,
     })
+
+    # -- 10. the float front door: train, quantise, serve the test split ----
+    rng = np.random.default_rng(10)
+    record["front_door"] = {
+        name: front_door_phase(ops, ref, kernel, sms, rng, name, dev,
+                               retrain=name == "lenet5")
+        for name in ("lenet5", "resnet8")}
+    # -- 11. the projection: oracle, kernel and plain version --------------
+    record["projection"] = projection_phase(ops, dev)
+    for name, fd in record["front_door"].items():
+        entry["launches"] += fd["launches"]
+        entry["launches_by_path"][f"front_door_{name}"] = fd["launches"]
+    entry["launches"] += record["projection"]["launches"]
+    entry["launches_by_path"]["projection"] = record["projection"]["launches"]
+    entry["front_door_stack_gemm"] = {
+        name: {**fd["stack_gemm"], "batch": FRONT_DOOR["batch"],
+               "launches_per_stack": fd["layers"]}
+        for name, fd in record["front_door"].items()}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -19,7 +19,7 @@ multi-chunk by construction).
                                                          [--device cuda|cpu]
 
 The reference's ``--backend fast|oracle`` and ``--skip-oracle`` flags are
-dropped: the port has no oracle interpreter, only its ``cuda`` backend.
+dropped: the port's network programs run on its ``cuda`` backend only.
 With no ``--device`` it runs on the CUDA card and fails if there is none;
 ``--device cpu`` runs the kernel's plain torch version on the host.
 """

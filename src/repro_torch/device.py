@@ -9,8 +9,9 @@ silently measure the host instead.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Optional, Union
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -51,3 +52,25 @@ def device_sm_count(device: torch.device) -> int:
     device = torch.device(device)
     return _device_sms(torch.cuda.current_device() if device.index is None
                        else device.index)
+
+
+@contextlib.contextmanager
+def strict_float32() -> Iterator[None]:
+    """float32 convolutions and products in float32, reproducibly.
+
+    On a card cuDNN runs float32 convolutions in TF32 unless told not to,
+    and may pick its algorithm by timing; inside this scope TF32 is off for
+    cuDNN and cuBLAS, ``cudnn.benchmark`` is off and ``cudnn.deterministic``
+    on.  The flags are process-wide; the scope restores them on exit."""
+    backends = torch.backends
+    saved = (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+             backends.cudnn.benchmark, backends.cudnn.deterministic)
+    backends.cudnn.allow_tf32 = False
+    backends.cuda.matmul.allow_tf32 = False
+    backends.cudnn.benchmark = False
+    backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+         backends.cudnn.benchmark, backends.cudnn.deterministic) = saved

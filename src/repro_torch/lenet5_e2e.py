@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.cycle_model import FPGA_CLOCK_HZ
 from repro_torch.core.network_compiler import compile_network
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, strict_float32
 from repro_torch.models.lenet import (LeNet5Float, calibrate_shifts,
                                       lenet5_random_weights, lenet5_specs,
                                       reference_forward_int8)
@@ -88,10 +88,11 @@ def main() -> None:
         serve_s += time.perf_counter() - t0
         logits_all.extend(outs)
 
-    model = LeNet5Float(dataclasses.asdict(weights))
-    with torch.no_grad():
+    model = LeNet5Float(dataclasses.asdict(weights)).to(device)
+    with torch.no_grad(), strict_float32():
         float_logits = model(torch.from_numpy(
-            images.reshape(-1, 1, 32, 32).astype(np.float32))).numpy()
+            images.reshape(-1, 1, 32, 32).astype(np.float32)).to(
+                device)).cpu().numpy()
     agree_float = 0
     for r, (img, logits) in enumerate(zip(images, logits_all)):
         ref_logits, _ = reference_forward_int8(weights, img, shifts)

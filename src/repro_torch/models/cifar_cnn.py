@@ -19,9 +19,10 @@ is multi-chunk too (9216 INP vectors), exercising the avg-pool ADD/SHR
 program across chunks.
 
 The bit-exact integer forward pass the VTA execution must reproduce lives
-here.  The reference's float32 forward (``reference_forward_float``, a JAX
-program standing in for a framework-trained model) is left out of this
-copy: it arrives with the port's float front door.
+here, and the float32 forward over the same (integer-valued) weights
+(``reference_forward_float``, standing in for a framework-trained model):
+the reference's JAX program op for op, in torch on an explicit device
+with TF32 off.
 
 Weights travel from the reference as a mapping of named numpy arrays
 (``dataclasses.asdict`` of its :class:`CifarCNNWeights`);
@@ -34,9 +35,12 @@ import dataclasses
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core.conv_lowering import conv2d_reference
 from repro_torch.core.layer_compiler import LayerSpec
+from repro_torch.device import DeviceLike, resolve_device, strict_float32
 
 from .weights import checked_arrays
 
@@ -165,6 +169,44 @@ def reference_forward_int8(weights: CifarCNNWeights, image: np.ndarray,
     acc = v @ weights.fc5_w.astype(np.int64) + weights.fc5_b.astype(np.int64)
     logits = _requant(acc, 0, shifts[4]);  acts["f5"] = logits
     return logits, acts
+
+
+# ---------------------------------------------------------------------------
+# Float reference (stands in for a framework-trained model)
+# ---------------------------------------------------------------------------
+
+def reference_forward_float(weights: CifarCNNWeights, image: np.ndarray, *,
+                            device: DeviceLike = None) -> np.ndarray:
+    """Float32 forward over the same (integer-valued) weights on
+    ``device`` (the card unless the caller names another), TF32 off — the
+    classification reference, the reference's JAX forward op for op:
+    padding 2/1/1; max, average (the mean of four strided views) and max
+    2×2 pools.  ``image`` is ``(B, 3, 32, 32)``; returns ``(B, 10)``
+    logits on the host."""
+    dev = resolve_device(device)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def conv(x, w, b, pad, pool):
+        y = F.conv2d(x, f32(w), padding=pad)
+        y = torch.relu(y + f32(b)[None, :, None, None])
+        if pool == "avg":
+            y = (y[:, :, 0::2, 0::2] + y[:, :, 0::2, 1::2]
+                 + y[:, :, 1::2, 0::2] + y[:, :, 1::2, 1::2]) / 4.0
+        elif pool == "max":
+            y = torch.maximum(
+                torch.maximum(y[:, :, 0::2, 0::2], y[:, :, 0::2, 1::2]),
+                torch.maximum(y[:, :, 1::2, 0::2], y[:, :, 1::2, 1::2]))
+        return y
+
+    with strict_float32(), torch.no_grad():
+        x = f32(image)
+        x = conv(x, weights.conv1_w, weights.conv1_b, 2, "max")
+        x = conv(x, weights.conv2_w, weights.conv2_b, 1, "avg")
+        x = conv(x, weights.conv3_w, weights.conv3_b, 1, "max")
+        v = x.reshape(x.shape[0], -1)
+        v = torch.relu(v @ f32(weights.fc4_w) + f32(weights.fc4_b))
+        logits = v @ f32(weights.fc5_w) + f32(weights.fc5_b)
+    return logits.cpu().numpy()
 
 
 def synthetic_cifar_image(seed: int = 0) -> np.ndarray:

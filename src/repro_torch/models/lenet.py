@@ -16,7 +16,8 @@ Two references live here:
   compiled network must match this bit-for-bit.
 * :class:`LeNet5Float` — a float32 ``nn.Module`` over the same
   (integer-valued) weights, ``F.conv2d`` on NCHW/OIHW: the classification
-  reference.
+  reference.  Its forward, :func:`lenet5_forward`, is also the trainable
+  float LeNet-5's (:mod:`repro_torch.quantize.train`).
 
 Weights travel between the two packages as a mapping of named numpy
 arrays (``dataclasses.asdict`` of either package's :class:`LeNetWeights`);
@@ -158,15 +159,37 @@ def reference_forward_int8(weights: LeNetWeights, image: np.ndarray,
 # Float reference
 # ---------------------------------------------------------------------------
 
+def lenet5_forward(p: Mapping[str, torch.Tensor],
+                   x: torch.Tensor) -> torch.Tensor:
+    """Float logits ``(B, 10)`` for ``(B, 1, 32, 32)`` images from the named
+    float tensors ``p`` (:data:`LENET5_SHAPES`' names; fc weights ``(in,
+    out)``, used as ``x @ w``) — the reference's ``lenet5_apply`` op for
+    op: conv + bias + ReLU, the 2×2 average as the mean of four strided
+    views, then fc + ReLU, fc.  :class:`LeNet5Float` and the trainable
+    :class:`~repro_torch.quantize.train.LeNet5Net` both run it."""
+
+    def conv(x, w, b, pool):
+        y = torch.relu(F.conv2d(x, w) + b[None, :, None, None])
+        if pool:
+            y = (y[:, :, 0::2, 0::2] + y[:, :, 0::2, 1::2]
+                 + y[:, :, 1::2, 0::2] + y[:, :, 1::2, 1::2]) / 4.0
+        return y
+
+    x = conv(x, p["conv1_w"], p["conv1_b"], True)
+    x = conv(x, p["conv2_w"], p["conv2_b"], True)
+    x = conv(x, p["conv3_w"], p["conv3_b"], False)
+    v = torch.relu(x.reshape(x.shape[0], -1) @ p["fc4_w"] + p["fc4_b"])
+    return v @ p["fc5_w"] + p["fc5_b"]
+
+
 class LeNet5Float(nn.Module):
-    """Float32 LeNet-5 over the (integer-valued) int8 weights: conv + bias
-    + ReLU (+ 2×2 average pool) ×3, then fc + ReLU, fc.  Input ``(B, 1, 32,
-    32)``, output ``(B, 10)`` logits.
+    """Float32 LeNet-5 over the (integer-valued) int8 weights
+    (:func:`lenet5_forward`).  Input ``(B, 1, 32, 32)``, output ``(B, 10)``
+    logits.
 
     On a card, float32 convolutions go through cuDNN in TF32 unless
     ``torch.backends.cudnn.allow_tf32`` is off; a caller comparing logits
-    across devices sets it (and ``torch.backends.cuda.matmul.allow_tf32``)
-    to False."""
+    across devices runs it inside :func:`repro_torch.device.strict_float32`."""
 
     def __init__(self, arrays: Mapping[str, np.ndarray]):
         super().__init__()
@@ -176,15 +199,7 @@ class LeNet5Float(nn.Module):
                 getattr(weights, name).astype(np.float32)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        def conv(x, w, b, pool):
-            y = F.relu(F.conv2d(x, w, b))
-            return F.avg_pool2d(y, 2) if pool else y
-
-        x = conv(x, self.conv1_w, self.conv1_b, True)
-        x = conv(x, self.conv2_w, self.conv2_b, True)
-        x = conv(x, self.conv3_w, self.conv3_b, False)
-        v = F.relu(x.flatten(1) @ self.fc4_w + self.fc4_b)
-        return v @ self.fc5_w + self.fc5_b
+        return lenet5_forward(dict(self.named_buffers()), x)
 
 
 def synthetic_digit(seed: int = 0) -> np.ndarray:

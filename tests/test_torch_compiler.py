@@ -179,12 +179,9 @@ CNNS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(CNNS))
-def test_cnn_compiles_identically(name):
-    """resnet8 (both schedules), resnet_tiny and the CIFAR CNN: every
-    layer's program byte-identical, the same DAG schedule (input and
-    residual sources), the same DRAM image."""
-    tnet, jnet = CNNS[name][0](), CNNS[name][1]()
+def assert_networks_identical(tnet, jnet):
+    """Every layer's program byte-identical, the same DAG schedule (input
+    and residual sources), the same DRAM image, loop and cycle counts."""
     assert (tnet.input_sources, tnet.residual_sources) == \
         (jnet.input_sources, jnet.residual_sources)
     assert len(tnet.layers) == len(jnet.layers)
@@ -206,6 +203,14 @@ def test_cnn_compiles_identically(name):
     assert tnet.chunks_per_layer() == jnet.chunks_per_layer()
     assert dataclasses.asdict(tnet.cycle_report()) == \
         dataclasses.asdict(jnet.cycle_report())
+
+
+@pytest.mark.parametrize("name", sorted(CNNS))
+def test_cnn_compiles_identically(name):
+    """resnet8 (both schedules), resnet_tiny and the CIFAR CNN, compiled by
+    both packages: :func:`assert_networks_identical`."""
+    tnet, jnet = CNNS[name][0](), CNNS[name][1]()
+    assert_networks_identical(tnet, jnet)
     if name.startswith("resnet8"):
         assert len(tnet.layers) == 11
         assert sum(s is not None for s in tnet.residual_sources) == 3
@@ -213,3 +218,22 @@ def test_cnn_compiles_identically(name):
 
 def test_cifar_shifts_identical():
     assert tcifar.compile_cifar_cnn()[1] == compile_cifar_reference()[1]
+
+
+@pytest.mark.parametrize("net", ["lenet5", "resnet8"])
+def test_quantised_from_float_compiles_identically(net):
+    """A float checkpoint trained by the reference (96 images, one epoch),
+    post-training quantised and compiled by each package: the same
+    programs, byte for byte."""
+    import repro.quantize as jq
+    import repro_torch.quantize as tq
+    ch = {"lenet5": 1, "resnet8": 3}[net]
+    params = jq.train_float(net, *jq.digit_dataset(96, channels=ch),
+                            epochs=1)
+    calib, _ = jq.digit_dataset(8, split="calib", channels=ch)
+    tnet = tq.quantize_network(tq.float_model(net, params), calib,
+                               margin=0).compile()
+    jnet = jq.quantize_network(jq.float_model(net, params), calib,
+                               margin=0).compile()
+    assert_networks_identical(tnet, jnet)
+    assert len(tnet.layers) == {"lenet5": 5, "resnet8": 11}[net]

@@ -5,11 +5,12 @@
   level or inside a function;
 * a subprocess with ``jax`` and ``repro`` blocked in ``sys.modules``
   compiles and serves LeNet-5, and resnet8 through the graph front end,
-  on ``device="cpu"``, and replays a short trace through the serving
-  engine;
-* with no CUDA card, entry points called without a device raise
-  :class:`~repro_torch.device.NoDeviceError` before any work runs (the
-  serving engine before any thread starts).
+  on ``device="cpu"``, replays a short trace through the serving engine,
+  runs the projection driver and trains, quantises and serves a float
+  LeNet-5;
+* with no CUDA card, entry points and drivers called without a device
+  raise :class:`~repro_torch.device.NoDeviceError` before any work runs
+  (the serving engine before any thread starts).
 """
 
 import ast
@@ -53,7 +54,10 @@ def test_no_module_imports_jax_or_repro():
     assert len(files) > 15
     names = {str(f.relative_to(PORT)) for f in files[:-1]}
     assert {"serving/vta/engine.py", "serving/vta/simulate.py",
-            "serve_vta.py", "resnet_e2e.py", "cifar10_cnn_e2e.py"} <= names
+            "serve_vta.py", "resnet_e2e.py", "cifar10_cnn_e2e.py",
+            "quantize/digits.py", "quantize/train.py", "quantize/ptq.py",
+            "quantize/models.py", "quantize/evaluate.py",
+            "quantize_eval.py", "vta_lm_projection.py"} <= names
     bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
            for path in files for line, name in _imports(path)
            if _forbidden(name)]
@@ -94,11 +98,22 @@ sim = simulate(PoissonSource(400.0, 9, seed=1, images=list(images)),
                BatchPolicy(max_batch=4), ServiceModel(0.004, 0.001),
                workers=2, net=net, device="cpu")
 assert len(sim.records) == 9 and sim.metrics.audit() == []
+import contextlib, io
+from repro_torch import vta_lm_projection
+from repro_torch.quantize import (digit_dataset, float_model, int8_top1,
+                                  quantize_network, train_float)
+with contextlib.redirect_stdout(io.StringIO()) as said:
+    assert vta_lm_projection.main(["--device", "cpu"]) == 0
+assert "(bit-exact)" in said.getvalue()
+x, y = digit_dataset(64, seed=0)
+params = train_float("lenet5", x, y, epochs=1, device="cpu")
+qm = quantize_network(float_model("lenet5", params), x[:4], margin=0)
+acc = int8_top1(qm.compile(), x[:16], y[:16], batch=8, device="cpu")
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
 print("served", len(out), net.gemm_loops(), len(r8_out), r8.gemm_loops(),
-      len(served))
+      len(served), 0.0 <= acc <= 1.0)
 """
 
 
@@ -107,7 +122,7 @@ def test_runs_with_jax_and_repro_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "served 3 2942 2 53252 9"
+    assert proc.stdout.strip() == "served 3 2942 2 53252 9 True"
 
 
 def test_no_device_raises_and_runs_nothing(monkeypatch):
@@ -174,16 +189,70 @@ def test_engine_without_card_raises_before_any_thread(monkeypatch):
     assert not net._device_images
 
 
-@pytest.mark.parametrize("module", ["serve_vta", "resnet_e2e",
-                                    "cifar10_cnn_e2e"])
+DRIVER_ARGS = {
+    "serve_vta": ["--requests", "2"], "resnet_e2e": ["--requests", "2"],
+    "cifar10_cnn_e2e": ["--requests", "2"],
+    "quantize_eval": ["--net", "lenet5", "--train-n", "64"],
+    "vta_lm_projection": []}
+
+
+@pytest.mark.parametrize("module", list(DRIVER_ARGS))
 def test_drivers_without_card_raise(monkeypatch, module):
-    """The drivers run on the card unless ``--device`` names another."""
+    """The drivers run on the card unless ``--device`` names another, and
+    with no card they raise before any work: no image drawn, nothing
+    compiled, no GEMM run."""
     import importlib
 
     from repro_torch import device as tdevice
+    from repro_torch.core import gemm_compiler
+    from repro_torch.kernels import ref as tref
+    from repro_torch.quantize import digits
 
     driver = importlib.import_module(f"repro_torch.{module}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(sys, "argv", [module, "--requests", "2"])
+    monkeypatch.setattr(sys, "argv", [module, *DRIVER_ARGS[module]])
+    work = []
+    for mod, name in ((digits, "digit_image"), (tref, "vta_gemm_ref"),
+                      (gemm_compiler, "compile_matmul")):
+        monkeypatch.setattr(mod, name, lambda *a, **kw: work.append(name))
+    monkeypatch.setattr(driver, "compile_matmul",
+                        lambda *a, **kw: work.append("compile_matmul"),
+                        raising=False)
     with pytest.raises(tdevice.NoDeviceError):
         driver.main()
+    assert work == []
+
+
+def test_front_door_without_card_raises(monkeypatch):
+    """No card and no device named: the float front door, the accuracy
+    harness, the CIFAR CNN's float forward and the simulator's cuda
+    backend raise :class:`NoDeviceError` before any work."""
+    from repro_torch import device as tdevice
+    from repro_torch import quantize as tq
+    from repro_torch.core.simulator import run_program
+    from repro_torch.lenet5_e2e import compile_lenet5
+    from repro_torch.models import cifar_cnn
+    from repro_torch.quantize import digits
+
+    _, net = compile_lenet5()
+    x, y = tq.digit_dataset(4)
+    params = tq.init_params("lenet5")
+    weights = cifar_cnn.cifar_cnn_random_weights()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    drawn = []
+    monkeypatch.setattr(digits, "digit_image",
+                        lambda *a, **kw: drawn.append(a))
+    for call in (
+            lambda: tq.evaluate_net("lenet5", train_n=64, eval_n=8),
+            lambda: tq.train_or_load("lenet5", train_n=64),
+            lambda: tq.train_float("lenet5", x, y, epochs=1),
+            lambda: tq.float_top1("lenet5", params, x, y),
+            lambda: tq.float_net("lenet5", params),
+            lambda: tq.int8_top1(net, x, y),
+            lambda: tq.backend_agreement(net, x),
+            lambda: cifar_cnn.reference_forward_float(
+                weights, cifar_cnn.synthetic_cifar_image()),
+            lambda: run_program(net.layers[0].program, backend="cuda")):
+        with pytest.raises(tdevice.NoDeviceError):
+            call()
+    assert drawn == [] and not net._device_images
