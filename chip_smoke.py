@@ -141,7 +141,35 @@ In order it:
    plain version, byte for byte, and three more ``compile_matmul`` GEMMs
    (K = 75 and 200, not multiples of 16; K = 64 with shift 0) on the
    oracle, the kernel and the plain version with truncating int8,
-   saturating int8 and int32 out.
+   saturating int8 and int32 out;
+12. serves LeNet-5, resnet8, resnet_tiny and the CIFAR CNN on the torch
+   instruction interpreters on the card (``repro_torch.core.fast_simulator``):
+   ``serve(backend="batched")`` at batches 8 and 32 and
+   ``serve_one(backend="fast")`` for 4 images, every answer equal to the
+   ``cuda`` backend's (its launches counted: layers per serve) and to the
+   integer reference, with no ``vta_gemm`` launch from the interpreters;
+   prints img/s of both backends (median of 5 rounds of warmed serves
+   taken in turns, host clock), and per batch-32 interpreter serve the kernels the host launched, the
+   device's kernels and busy time, the copies each way and the
+   interpreter's device-to-host reads;
+13. serves LeNet-5 and resnet8 at batch 32 through
+   ``serve(backend="batched", guard=GuardPolicy(dual_execute=True))``:
+   every report ``clean``, the outputs the ``cuda`` backend's, the shadow
+   exactly ``layers`` ``vta_gemm`` launches; times plain, guarded and
+   guarded-with-dual batched serves in turns (the overhead in %, median
+   of 9 rounds); then drives the
+   serving engine with ``backends=("batched",)`` and ``guard=GuardPolicy()``
+   over 128 requests: all bit-identical to a direct serve, every guard
+   report clean, the audit clean;
+14. runs the reference's seeded SEU campaign (``benchmarks/
+   fault_campaign.py``'s arms, seed 2026) on the card: LeNet-5 with 200
+   injections a class guarded (dual execution against the oracle for
+   ``sram``) and 25 unguarded must reproduce the JAX package's counts
+   (``LENET_CAMPAIGN``: 1,000 recovered, ``sram`` 30 recovered and 170
+   masked, 54/150 silent corruptions unguarded); resnet8 with 10 a class
+   guarded (the fast shadow) and 5 unguarded must show no guarded silent
+   corruption and the same per-injection outcomes as the same campaign
+   on ``device="cpu"``; prints each arm's seconds.
 
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
 the last line.  Any failure raises and exits non-zero.  The last line is
@@ -1335,6 +1363,400 @@ def projection_phase(ops, dev) -> dict:
     return rec
 
 
+# -- phases 12-14: the interpreters, the guards, the seeded campaign ---------
+
+INTERP_BATCHES = (8, 32)           # phase 12: a batched serve at each
+INTERP_SERVE_ONE = 4               # phase 12: serve_one(backend="fast")
+INTERP_REPEATS = 5                 # phase 12: rounds of warmed serves
+GUARD_REPEATS = 9                  # phase 13: rounds of plain/guarded/dual
+GUARD_ENGINE_REQUESTS = 128        # phase 13: the guarded engine's trace
+CAMPAIGN_SEED = 2026               # phase 14: benchmarks/fault_campaign.py
+# The JAX package's LeNet-5 campaign at seed 2026 (EXPERIMENTS.md §Faults;
+# the guards-off split from the same injector): 200 injections a class
+# with the guards on, then 25 a class with them off.
+LENET_CAMPAIGN = {"n_on": 200, "n_off": 25, "guarded": {
+    "dram-wgt": {"recovered": 200}, "dram-uop": {"recovered": 200},
+    "dram-bias": {"recovered": 200}, "insn-bits": {"recovered": 200},
+    "insn-field": {"recovered": 200},
+    "sram": {"recovered": 30, "masked": 170}}, "unguarded": {
+    "dram-wgt": {"masked": 21, "sdc": 4}, "dram-uop": {"sdc": 19, "masked": 6},
+    "dram-bias": {"masked": 14, "sdc": 11},
+    "insn-bits": {"detected": 5, "sdc": 8, "masked": 12},
+    "insn-field": {"masked": 10, "detected": 7, "sdc": 8},
+    "sram": {"masked": 21, "sdc": 4}}}
+RESNET8_CAMPAIGN = {"n_on": 10, "n_off": 5}
+
+
+def median_s(fns: dict, repeats: int = INTERP_REPEATS) -> dict:
+    """Median host-clock seconds of each of ``fns`` (name → call) over
+    ``repeats`` rounds that call them in turn, after one warm-up call each
+    (every call ends in a copy of its answers to the host), so a drift of
+    the host's speed falls on all of them alike."""
+    for fn in fns.values():
+        fn()
+    runs = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            runs[name].append(time.perf_counter() - t0)
+    return {name: sorted(r)[len(r) // 2] for name, r in runs.items()}
+
+
+def serve_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the kernels the host
+    launched (``cudaLaunchKernel`` calls), the device's kernel and copy
+    events, its busy time and the copies each way."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    host_launches = sum(1 for e in prof.events()
+                        if e.device_type == DeviceType.CPU
+                        and e.name in ("cudaLaunchKernel",
+                                       "cudaLaunchKernelExC"))
+    copies = [e for e in dev_events if "Memcpy" in e.name]
+    return {"host_kernel_launches": host_launches,
+            "device_kernels": len(dev_events) - len(copies)
+            - sum(1 for e in dev_events if "Memset" in e.name),
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in dev_events) / 1e3,
+            "copies_dtoh": sum(1 for e in copies if "DtoH" in e.name),
+            "copies_htod": sum(1 for e in copies if "HtoD" in e.name)}
+
+
+def interpreter_phase(ops, models, card: str, dev) -> dict:
+    """Phase 12: each model served on the torch interpreters on the card —
+    ``serve(backend="batched")`` at ``INTERP_BATCHES`` and
+    ``serve_one(backend="fast")`` for ``INTERP_SERVE_ONE`` images — held
+    bit for bit against the ``cuda`` backend's serve of the same images
+    (the launch counters set to 0 just before those serves and read just
+    after) and the model's integer reference.  The interpreters must add
+    nothing to ``vta_gemm``'s counter.  Reports img/s (median of warmed
+    serves of the two backends taken in turns, host clock), and per
+    batch-32 interpreter serve the kernels the host launched, the device's kernel events and
+    busy time, the copies each way and the interpreter's own count of
+    device-to-host reads (``fast_simulator.syncs``)."""
+    from repro_torch.core import fast_simulator as fs
+    rec = {"card": card, "models": {}, "launches": 0}
+    for name, net, images, reference, layers in models:
+        lo, golden, m = 0, [], {"layers": layers}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        for bsz in INTERP_BATCHES:
+            golden.append(net.serve(images[lo:lo + bsz], device=dev)[0])
+            lo += bsz
+        cuda_launches = ops.launches
+        if cuda_launches != layers * len(INTERP_BATCHES):
+            raise AssertionError(f"{name}: {cuda_launches} vta_gemm "
+                                 f"launches for {len(INTERP_BATCHES)} "
+                                 f"cuda serves of {layers} layers")
+        rec["launches"] += cuda_launches
+        ops.reset_launches()
+        lo = 0
+        for bsz, want in zip(INTERP_BATCHES, golden):
+            got, _ = net.serve(images[lo:lo + bsz], backend="batched",
+                               device=dev)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{name}: batched interpreter != cuda "
+                                     f"at batch {bsz}")
+            for r in range(bsz):
+                if not np.array_equal(got[r], reference(images[lo + r])):
+                    raise AssertionError(f"{name} request {lo + r}: the "
+                                         f"interpreter != the reference")
+            lo += bsz
+        for r in range(INTERP_SERVE_ONE):
+            one = net.serve_one(images[r], backend="fast", device=dev)
+            if not np.array_equal(one, golden[0][r]):
+                raise AssertionError(f"{name} request {r}: serve_one(fast) "
+                                     f"!= cuda")
+        if ops.launches or ops.attention_launches:
+            raise AssertionError(f"{name}: the interpreters launched "
+                                 f"{ops.launches} vta_gemm kernels")
+        for bsz in INTERP_BATCHES:
+            batch = images[:bsz]
+            t = median_s({
+                "batched": lambda: net.serve(batch, backend="batched",
+                                             device=dev),
+                "cuda": lambda: net.serve(batch, device=dev)})
+            m[f"batch{bsz}"] = {"batched_ms": t["batched"] * 1e3,
+                                "batched_img_per_s": bsz / t["batched"],
+                                "cuda_ms": t["cuda"] * 1e3,
+                                "cuda_img_per_s": bsz / t["cuda"]}
+        t_one = median_s({"fast": lambda: net.serve_one(
+            images[0], backend="fast", device=dev)})["fast"]
+        m["serve_one_fast_ms"] = t_one * 1e3
+        batch = images[:32]
+        fs.reset_syncs()
+        net.serve(batch, backend="batched", device=dev)
+        m["syncs_per_batch"] = fs.syncs
+        m["profile_batch32"] = serve_profile(
+            lambda: net.serve(batch, backend="batched", device=dev))
+        m["bit_exact"] = (f"{sum(INTERP_BATCHES)}/{sum(INTERP_BATCHES)} "
+                          f"batched, {INTERP_SERVE_ONE}/{INTERP_SERVE_ONE} "
+                          f"fast")
+        rec["models"][name] = m
+        p = m["profile_batch32"]
+        print(f"{name} on the interpreters: {m['bit_exact']} equal to the "
+              f"cuda backend and the integer reference, 0 vta_gemm "
+              f"launches; batched "
+              + ", ".join(f"batch {b} {m[f'batch{b}']['batched_ms']:.2f} ms"
+                          f" = {m[f'batch{b}']['batched_img_per_s']:.1f} "
+                          f"img/s (cuda {m[f'batch{b}']['cuda_ms']:.2f} ms)"
+                          for b in INTERP_BATCHES)
+              + f"; serve_one(fast) {t_one * 1e3:.2f} ms; a batch-32 serve: "
+              f"{p['host_kernel_launches']} kernel launches, "
+              f"{p['device_kernels']} device kernels, device busy "
+              f"{p['device_busy_ms']:.3f} ms, {p['copies_dtoh']} DtoH / "
+              f"{p['copies_htod']} HtoD copies, {m['syncs_per_batch']} "
+              f"interpreter syncs ({card})")
+    return rec
+
+
+def guarded_phase(ops, models, card: str, dev) -> dict:
+    """Phase 13: LeNet-5 and resnet8 at batch 32 through
+    ``serve(backend="batched", guard=GuardPolicy(dual_execute=True))``:
+    every report ``clean``, the outputs the ``cuda`` backend's, and the
+    shadow — the network's default serve, the ``cuda`` backend — making
+    exactly ``layers`` ``vta_gemm`` launches (the counters set to 0 just
+    before the guarded serve and read just after).  Times the plain
+    batched serve, the guarded one and the guarded one with dual
+    execution (median of warmed serves taken in turns, host clock).  Then
+    the serving
+    engine with ``backends=("batched",)`` and ``guard=GuardPolicy()``:
+    ``GUARD_ENGINE_REQUESTS`` requests, all bit-identical to a direct serve,
+    every guard report clean, the audit clean."""
+    from repro_torch.harden import GuardPolicy
+    from repro_torch.serving import vta
+    rec = {"card": card, "models": {}, "launches": 0}
+    n_req = GUARD_ENGINE_REQUESTS
+    for name, net, images, _, layers in models:
+        batch = images[:32]
+        want, _ = net.serve(batch, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        outs, _, reports = net.serve(batch, backend="batched", device=dev,
+                                     guard=GuardPolicy(dual_execute=True))
+        shadow = ops.launches
+        if shadow != layers:
+            raise AssertionError(f"{name}: the guarded batch's shadow made "
+                                 f"{shadow} vta_gemm launches, expected "
+                                 f"{layers}")
+        rec["launches"] += shadow
+        outcomes = sorted({r.outcome for r in reports})
+        if outcomes != ["clean"] or not np.array_equal(outs, want):
+            raise AssertionError(f"{name}: guarded batch {outcomes}, or its "
+                                 f"outputs differ from the cuda backend's")
+        t = median_s({
+            "plain": lambda: net.serve(batch, backend="batched", device=dev),
+            "guarded": lambda: net.serve(batch, backend="batched",
+                                         device=dev, guard=GuardPolicy()),
+            "dual": lambda: net.serve(batch, backend="batched", device=dev,
+                                      guard=GuardPolicy(dual_execute=True))},
+            repeats=GUARD_REPEATS)
+        plain, guarded, dual = t["plain"], t["guarded"], t["dual"]
+        m = {"layers": layers, "shadow_launches": shadow,
+             "outcomes": outcomes, "plain_ms": plain * 1e3,
+             "guarded_ms": guarded * 1e3, "guarded_dual_ms": dual * 1e3,
+             "overhead_pct": 100 * (guarded / plain - 1),
+             "overhead_dual_pct": 100 * (dual / plain - 1)}
+        policy = vta.BatchPolicy(max_batch=32, max_wait_s=0.002,
+                                 max_depth=1024)
+        requests = np.concatenate([images] * -(-n_req // len(images)))
+        requests = requests[:n_req]
+        direct = np.concatenate([net.serve(requests[i:i + 32], device=dev)[0]
+                                 for i in range(0, n_req, 32)])
+        ops.reset_launches()
+        with vta.VTAServingEngine(net, policy=policy, backends=("batched",),
+                                  device=dev, guard=GuardPolicy()) as engine:
+            t0 = time.perf_counter()
+            served, tickets = vta.serve_all(engine, list(requests))
+            wall = time.perf_counter() - t0
+        audit = engine.metrics.audit()
+        engine_outcomes = sorted({t.guard_report.outcome for t in tickets})
+        same = sum(np.array_equal(a, b) for a, b in zip(served, direct))
+        if (same != n_req or audit or engine_outcomes != ["clean"]
+                or ops.launches):
+            raise AssertionError(f"{name} guarded engine: {same}/{n_req} "
+                                 f"bit-identical, audit {audit}, outcomes "
+                                 f"{engine_outcomes}, "
+                                 f"{ops.launches} vta_gemm launches")
+        summary = engine.metrics.summary()
+        m["engine"] = {"requests": n_req,
+                       "bit_identical": f"{same}/{n_req}",
+                       "outcomes": engine_outcomes, "audit": "clean",
+                       "wall_s": wall, "img_per_s": n_req / wall,
+                       "p50_ms": summary["p50_ms"],
+                       "p99_ms": summary["p99_ms"],
+                       "mean_batch": summary["mean_batch_occupancy"]}
+        rec["models"][name] = m
+        print(f"{name} guarded batch 32: all clean, shadow {shadow} vta_gemm "
+              f"launches; plain batched {plain * 1e3:.2f} ms, guarded "
+              f"{guarded * 1e3:.2f} ms ({m['overhead_pct']:+.1f} %), with "
+              f"dual execution {dual * 1e3:.2f} ms "
+              f"({m['overhead_dual_pct']:+.1f} %); guarded engine "
+              f"{same}/{n_req} bit-identical, audit clean, "
+              f"{n_req / wall:.1f} img/s ({card})")
+    return rec
+
+
+def _classify(out, golden, report) -> str:
+    if out is None:
+        return "unrecovered"
+    if not np.array_equal(out, golden):
+        return "sdc"
+    return "recovered" if report.detections else "masked"
+
+
+def campaign_arms(net, image, dual_backend: str, n_on: int, n_off: int,
+                  dev) -> dict:
+    """The port's counterpart of ``benchmarks/fault_campaign.py``'s
+    ``_guarded_arm`` then ``_unguarded_arm``, from one seeded injector:
+    ``n_on`` injections a class served through ``serve_one(backend="fast",
+    guard=...)`` (dual execution against ``dual_backend`` for ``sram``),
+    then ``n_off`` a class served unguarded, every serve on ``dev``.  The
+    golden output is the ``cuda`` backend's.  Returns per-injection
+    outcomes, per-class tallies and each arm's seconds."""
+    from repro_torch.harden import (FAULT_CLASSES, FaultInjector,
+                                    GuardPolicy, guards)
+    from repro_torch.harden.faults import estimate_footprint
+    inj = FaultInjector(seed=CAMPAIGN_SEED)
+    golden_out = net.serve_one(image, device=dev)
+    golden = guards.golden_of(net)
+    log = {"guarded": [], "unguarded": []}
+    tally = {"guarded": {}, "unguarded": {}}
+    seconds = {}
+    t0 = time.perf_counter()
+    for cls in FAULT_CLASSES:
+        policy = GuardPolicy(dual_execute=(cls == "sram"),
+                             dual_backend=dual_backend)
+        counts = tally["guarded"].setdefault(cls, {})
+        for _ in range(n_on):
+            spec, hook = inj.inject(net, cls)
+            if cls == "insn-bits":
+                try:
+                    inj.materialize(net, spec)
+                except ValueError:
+                    pass        # undecodable: the stale decode stays
+            out, rep = net.serve_one(image, backend="fast", device=dev,
+                                     guard=policy, fault_hook=hook)
+            outcome = _classify(out, golden_out, rep)
+            counts[outcome] = counts.get(outcome, 0) + 1
+            log["guarded"].append((spec.describe(), outcome, rep.outcome,
+                                   rep.retries))
+            guards.restore_network(net, golden)
+    seconds["guarded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for cls in FAULT_CLASSES:
+        counts = tally["unguarded"].setdefault(cls, {})
+        for _ in range(n_off):
+            spec, hook = inj.inject(net, cls)
+            decode_failed = False
+            if cls == "insn-bits":
+                try:
+                    inj.materialize(net, spec)
+                except ValueError:
+                    decode_failed = True
+            bomb = any(estimate_footprint(layer.program.instructions)
+                       > guards.MAX_INSN_FOOTPRINT for layer in net.layers)
+            if decode_failed:
+                outcome = "detected"
+            elif bomb:
+                outcome = "hang"
+            else:
+                try:
+                    out = net.serve_one(image, backend="fast", device=dev,
+                                        fault_hook=hook)
+                except guards._SERVE_FAULTS as exc:
+                    # the reference scores any crash as detected; here only
+                    # its typed serve faults are, so that a torch error in
+                    # place of one fails the phase instead of scoring
+                    outcome = "detected"
+                    log["unguarded_errors"] = log.get(
+                        "unguarded_errors", []) + [
+                        f"{type(exc).__name__}: {exc}"[:200]]
+                else:
+                    outcome = ("masked" if np.array_equal(out, golden_out)
+                               else "sdc")
+            counts[outcome] = counts.get(outcome, 0) + 1
+            log["unguarded"].append((spec.describe(), outcome))
+            guards.restore_network(net, golden)
+    seconds["unguarded"] = time.perf_counter() - t0
+    if guards.verify_network(net, golden):
+        raise AssertionError("the campaign left the network corrupted")
+    return {"log": log, "tally": tally, "seconds": seconds,
+            "sdc_guarded": sum(t.get("sdc", 0)
+                               for t in tally["guarded"].values()),
+            "sdc_unguarded": sum(t.get("sdc", 0)
+                                 for t in tally["unguarded"].values())}
+
+
+def campaign_phase(card: str, dev) -> dict:
+    """Phase 14: the reference's seeded SEU campaign on the card.  LeNet-5
+    (seed-0 weights, image ``synthetic_digit(1)``, the oracle shadow) at
+    the reference's settings must reproduce the JAX package's per-class
+    counts exactly (``LENET_CAMPAIGN``); resnet8 (image
+    ``synthetic_image(1)``, the fast shadow) at ``RESNET8_CAMPAIGN`` must
+    give the same per-injection outcomes on the card as on the host
+    (``device="cpu"``).  Both: no silent corruption with the guards on."""
+    from repro_torch.core.network_compiler import compile_network
+    from repro_torch.models import lenet, resnet8
+    rec = {"card": card, "seed": CAMPAIGN_SEED}
+    net = compile_network(lenet.lenet5_specs(lenet.lenet5_random_weights(0)),
+                          lenet.synthetic_digit(0))
+    res = campaign_arms(net, lenet.synthetic_digit(1), "oracle",
+                        LENET_CAMPAIGN["n_on"], LENET_CAMPAIGN["n_off"], dev)
+    for arm in ("guarded", "unguarded"):
+        if res["tally"][arm] != LENET_CAMPAIGN[arm]:
+            raise AssertionError(f"LeNet-5 campaign, guards {arm}: "
+                                 f"{res['tally'][arm]} != the JAX package's "
+                                 f"{LENET_CAMPAIGN[arm]}")
+    rec["lenet5"] = {k: res[k] for k in ("tally", "seconds", "sdc_guarded",
+                                         "sdc_unguarded")}
+    rec["lenet5"]["unguarded_errors"] = res["log"].get("unguarded_errors", [])
+    print(f"LeNet-5 campaign (seed {CAMPAIGN_SEED}, "
+          f"{LENET_CAMPAIGN['n_on']} a class guarded, "
+          f"{LENET_CAMPAIGN['n_off']} unguarded): the JAX package's counts "
+          f"exactly; guarded {res['tally']['guarded']}, 0 SDC "
+          f"({res['seconds']['guarded']:.1f} s); unguarded "
+          f"{res['sdc_unguarded']}/{6 * LENET_CAMPAIGN['n_off']} SDC "
+          f"{res['tally']['unguarded']} ({res['seconds']['unguarded']:.1f} s)"
+          f" ({card})")
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        r8, _ = resnet8.compile_resnet8()
+        runs[where.type] = campaign_arms(
+            r8, resnet8.synthetic_image(1), "fast", RESNET8_CAMPAIGN["n_on"],
+            RESNET8_CAMPAIGN["n_off"], where)
+    card_run, host_run = runs["cuda"], runs["cpu"]
+    if card_run["sdc_guarded"] or card_run["log"] != host_run["log"]:
+        raise AssertionError(f"resnet8 campaign: guarded SDC "
+                             f"{card_run['sdc_guarded']}, or the card's "
+                             f"outcomes differ from the host's")
+    rec["resnet8"] = {"n_on": RESNET8_CAMPAIGN["n_on"],
+                      "n_off": RESNET8_CAMPAIGN["n_off"],
+                      "tally": card_run["tally"],
+                      "seconds": card_run["seconds"],
+                      "seconds_cpu": host_run["seconds"],
+                      "sdc_guarded": card_run["sdc_guarded"],
+                      "sdc_unguarded": card_run["sdc_unguarded"],
+                      "identical_to_cpu": True}
+    print(f"resnet8 campaign ({RESNET8_CAMPAIGN['n_on']} a class guarded, "
+          f"{RESNET8_CAMPAIGN['n_off']} unguarded): per-injection outcomes "
+          f"identical on the card and the host; guarded "
+          f"{card_run['tally']['guarded']}, 0 SDC; unguarded "
+          f"{card_run['sdc_unguarded']}/{6 * RESNET8_CAMPAIGN['n_off']} SDC;"
+          f" card {card_run['seconds']['guarded']:.1f} + "
+          f"{card_run['seconds']['unguarded']:.1f} s, host "
+          f"{host_run['seconds']['guarded']:.1f} + "
+          f"{host_run['seconds']['unguarded']:.1f} s ({card})")
+    return rec
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -1823,6 +2245,20 @@ def main() -> int:
         name: {**fd["stack_gemm"], "batch": FRONT_DOOR["batch"],
                "launches_per_stack": fd["layers"]}
         for name, fd in record["front_door"].items()}
+
+    # -- 12. the torch interpreters on the card ---------------------------
+    models = [("lenet5", net, images,
+               lambda img: reference_forward_int8(weights, img, shifts)[0],
+               5)] + cnns
+    record["interpreters"] = interpreter_phase(ops, models, card, dev)
+    # -- 13. guarded serving: the batch, its shadow, the engine ------------
+    record["guarded"] = guarded_phase(ops, models[:2], card, dev)
+    # -- 14. the reference's seeded SEU campaign ---------------------------
+    record["campaign"] = campaign_phase(card, dev)
+    for key, path in (("interpreters", "interpreters_cuda_serves"),
+                      ("guarded", "guarded_shadow")):
+        entry["launches"] += record[key]["launches"]
+        entry["launches_by_path"][path] = record[key]["launches"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -9,19 +9,21 @@ multi-chunk by construction).
   1. calibrate static requant shifts over a held-out image set (§4.2);
   2. compile all 5 layers into one shared DRAM allocation (Fig. 12) and
      print the per-layer chunk/uop/wave statistics;
-  3. run the compile-time input with every staged input checked against
-     the compiled matrices;
-  4. serve seeded requests in batches and verify every answer bit-exactly
-     against the integer reference.
+  3. run the compile-time input on the ``cuda`` backend with every staged
+     input checked against the compiled matrices, then the chain on the
+     ``fast`` interpreter and — unless ``--skip-oracle`` — on the oracle,
+     asserting every backend agrees byte for byte;
+  4. serve seeded requests in batches on the ``cuda`` backend and verify
+     every answer bit-exactly against the integer reference.
 
     PYTHONPATH=src python -m repro_torch.cifar10_cnn_e2e [--requests 8]
                                                          [--batch 8]
+                                                         [--skip-oracle]
                                                          [--device cuda|cpu]
 
-The reference's ``--backend fast|oracle`` and ``--skip-oracle`` flags are
-dropped: the port's network programs run on its ``cuda`` backend only.
 With no ``--device`` it runs on the CUDA card and fails if there is none;
-``--device cpu`` runs the kernel's plain torch version on the host.
+``--device cpu`` runs on the host (the kernel's plain torch version on the
+``cuda`` backend).
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def layer_lines(net) -> list:
 
 
 def main() -> None:
-    args = cnn_args("the CIFAR CNN served on the port's cuda backend")
+    args = cnn_args("the CIFAR CNN served on the port's cuda backend",
+                    skip_oracle=True)
     device = resolve_device(args.device)
 
     print("calibrating static requant shifts (§4.2), compiling the "
@@ -79,6 +82,14 @@ def main() -> None:
                          "reference")
     print("  compile-time input: every staged input matches the compiled "
           "matrices")
+    for backend in ("fast",) + (() if args.skip_oracle else ("oracle",)):
+        print(f"verifying the chain ({backend} backend)...")
+        other, _ = net.run_functional(backend=backend, device=device)
+        if not np.array_equal(other, out):
+            raise SystemExit(f"the {backend} backend disagrees with cuda")
+    print("  " + ("fast and cuda" if args.skip_oracle
+                  else "oracle, fast and cuda")
+          + " backends agree bit-for-bit")
 
     rng = np.random.default_rng(42)
     images = np.stack([rng.integers(-64, 64, (1, 3, 32, 32)).astype(np.int8)

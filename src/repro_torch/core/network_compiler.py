@@ -9,9 +9,15 @@ Serving differs from the reference in where the work happens.  The
 reference stages every layer's input on the host between VTA executions;
 here the whole ``(batch, nbytes)`` DRAM stack lives on the device for the
 whole network: images come in once, each layer's im2row / pad / split /
-binarise (:mod:`repro_torch.core.staging`), its kernel launch and its
-TensorAlu epilogue (:mod:`repro_torch.core.cuda_backend`) and the OUT
+binarise (:mod:`repro_torch.core.staging`), its execution and the OUT
 decode all run in torch on that device, and only the logits come back.
+A layer executes on one of the reference's backends, with ``cuda`` in the
+place of ``pallas``: ``cuda`` (the default) as one ``vta_gemm`` launch
+plus its TensorAlu epilogue (:mod:`repro_torch.core.cuda_backend`);
+``batched``, ``fast`` and ``oracle`` as the instruction interpreters
+(:mod:`repro_torch.core.fast_simulator`, :mod:`~repro_torch.core.simulator`)
+with the reference's ``fault_hook`` and ``count_overflows``.  ``guard=``
+routes a serve through :mod:`repro_torch.harden`.
 
 A program is a DAG schedule: layer k reads its input from the semantic
 output of layer ``input_sources[k]`` (``-1`` is the network input) and, for
@@ -22,11 +28,14 @@ front end (:func:`repro_torch.graph.compile_graph`) builds the DAG of the
 residual networks.  A layer's output stays on the device only while a
 later layer still reads it.
 
-The fused-path decision of every layer (:class:`~repro_torch.core.
-cuda_backend.StackForm`: uniform weights, a row-broadcast bias, zero pad
-rows) depends only on the compiled image, which serving never writes
-outside the INP and RES regions, so it is read once per device and cached
-here; serving a batch then reads nothing back but the logits.
+The device image is the programs' segments placed in one DRAM image and
+uploaded once per device; it is rebuilt when a segment is replaced (a
+segment is an immutable ``bytes`` object, so a fault or a restore is a new
+object).  The fused-path decision of every layer (:class:`~repro_torch.
+core.cuda_backend.StackForm`: uniform weights, a row-broadcast bias, zero
+pad rows) depends only on that image, which serving never writes outside
+the INP and RES regions, so it is read once per image and cached here;
+serving a batch then reads nothing back but the logits.
 """
 
 from __future__ import annotations
@@ -46,11 +55,13 @@ from .dram import DramAllocator
 from .errors import CompileError
 from .hwconfig import VTAConfig, vta_default
 from .layer_compiler import CompiledLayer, LayerSpec, compile_layer
-from .simulator import SimReport
+from .simulator import SimReport, make_simulator, run_instructions
 
-# ``serve`` and ``serve_one`` run on the one backend the port has.
-SERVE_BACKENDS = ("cuda",)
-SERVE_ONE_BACKENDS = ("cuda",)
+# The reference's backend sets, with ``cuda`` in the place of ``pallas``:
+# ``serve`` executes a (batch, nbytes) DRAM stack — only the two batch
+# engines can; ``serve_one`` runs the per-image interpreters or the kernel.
+SERVE_BACKENDS = ("batched", "cuda")
+SERVE_ONE_BACKENDS = ("oracle", "fast", "cuda")
 
 
 @dataclasses.dataclass
@@ -75,12 +86,12 @@ class NetworkProgram:
     # threads may both miss and both build an entry; each stores a complete
     # value in one dict assignment, so the race only duplicates work (the
     # engine's warm-up fills both before its workers start).
-    # the DRAM image, uploaded once per device (compile once, serve many)
-    _device_images: Dict[str, torch.Tensor] = dataclasses.field(
-        default_factory=dict, repr=False, compare=False)
-    # every layer's StackForm over that image, read once per device
-    _stack_forms: Dict[str, List[StackForm]] = dataclasses.field(
-        default_factory=dict, repr=False, compare=False)
+    # (segments it was built from, the DRAM image uploaded to the device)
+    _device_images: Dict[str, Tuple[tuple, torch.Tensor]] = \
+        dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # (that image, every layer's StackForm over it)
+    _stack_forms: Dict[str, Tuple[torch.Tensor, List[StackForm]]] = \
+        dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def _sources(self) -> List[int]:
         if self.input_sources is not None:
@@ -108,6 +119,13 @@ class NetworkProgram:
 
     def cycle_report(self) -> CycleReport:
         return analyze_programs([l.program for l in self.layers])
+
+    def plans(self) -> List[object]:
+        """Per-layer compiled instruction plans, cached on the layer
+        programs — the compile-once/serve-many contract: the returned
+        objects are identical across repeated interpreter serves."""
+        from .fast_simulator import plan_for
+        return [plan_for(layer.program) for layer in self.layers]
 
     def input_signature(self) -> Tuple[Tuple[int, ...], np.dtype]:
         """(shape, dtype) one request image must have — the admission
@@ -161,12 +179,23 @@ class NetworkProgram:
         return image
 
     # ------------------------------------------------------- serving --
+    def _segments(self) -> tuple:
+        return tuple((name, data) for layer in self.layers
+                     for name, data in layer.program.segments.items())
+
     def _device_image(self, device: torch.device) -> torch.Tensor:
+        """The DRAM image on ``device``, rebuilt only when a segment was
+        replaced since it was uploaded (compared by identity: segments
+        are immutable ``bytes``)."""
         key = device_of(device)
-        if key not in self._device_images:
-            self._device_images[key] = torch.from_numpy(
-                self.dram_image()).to(device)
-        return self._device_images[key]
+        segments = self._segments()
+        cached = self._device_images.get(key)
+        if cached is None or len(cached[0]) != len(segments) or any(
+                a[0] != b[0] or a[1] is not b[1]
+                for a, b in zip(cached[0], segments)):
+            cached = (segments, torch.from_numpy(self.dram_image()).to(device))
+            self._device_images[key] = cached
+        return cached[1]
 
     def stack_forms(self, device: DeviceLike = None) -> List[StackForm]:
         """Each layer's :class:`StackForm` over the compiled image on
@@ -178,11 +207,13 @@ class NetworkProgram:
         comes from the image's data."""
         dev = resolve_device(device)
         key = device_of(dev)
-        if key not in self._stack_forms:
-            image = self._device_image(dev).reshape(1, -1)
-            self._stack_forms[key] = [stack_form(l.program, image)
-                                      for l in self.layers]
-        return self._stack_forms[key]
+        image = self._device_image(dev)
+        cached = self._stack_forms.get(key)
+        if cached is None or cached[0] is not image:
+            cached = (image, [stack_form(l.program, image.reshape(1, -1))
+                              for l in self.layers])
+            self._stack_forms[key] = cached
+        return cached[1]
 
     def _as_image_batch(self, images, device: torch.device) -> torch.Tensor:
         """Normalise a request batch to one ``(B,) + input_shape[1:]`` int8
@@ -273,16 +304,15 @@ class NetworkProgram:
                     last[j] = max(last.get(j, k), k)
         return last
 
-    def _run_chain(self, stack: torch.Tensor, first: torch.Tensor, *,
-                   forms: Optional[List[StackForm]] = None,
-                   check_chaining: bool = False
+    def _run_chain(self, stack: torch.Tensor, first: torch.Tensor,
+                   execute, *, check_chaining: bool = False
                    ) -> Tuple[torch.Tensor, List[SimReport]]:
         """Run every layer over the stack in place, in schedule order: stage
         its input from ``first`` (the network input) or an earlier layer's
-        semantic outputs, stage its residual operand if it has one, execute,
-        decode.  Returns the last layer's semantic outputs (on the device)
-        and the per-layer batch-total reports.  ``forms`` are the layers'
-        :class:`StackForm` (read off the stack per layer when None).
+        semantic outputs, stage its residual operand if it has one,
+        ``execute(k, layer, stack)`` (which writes the layer's OUT region
+        and returns its report), decode.  Returns the last layer's semantic
+        outputs (on the device) and the per-layer batch-total reports.
         ``check_chaining`` asserts each staged input and residual equals the
         matrix the layer was compiled against — a divergence is a
         compilation bug (the paper's traceability)."""
@@ -306,38 +336,75 @@ class NetworkProgram:
                         R[0].cpu().numpy(), layer.residual_matrix,
                         err_msg=f"layer {layer.spec.name!r}: residual "
                                 f"operand mismatch")
-            reports.append(_execute_stack(
-                layer.program, stack, saturate=False,
-                form=forms[k] if forms is not None else None))
+            reports.append(execute(k, layer, stack))
             out_mats = staging.decode_out_region_batch(layer.program, stack)
             sems[k] = staging.decode_layer_output_batch(layer, out_mats)
             for j in [j for j in sems if last.get(j, k) <= k]:
                 del sems[j]             # no later layer reads it
         return sems[len(self.layers) - 1], reports
 
+    # ------------------------------------------------------- executors --
     @staticmethod
-    def _refuse(backend: str, allowed: Tuple[str, ...], what: str,
-                fault_hook, count_overflows: bool, guard) -> None:
-        if guard is not None:
-            raise CompileError(
-                "guarded serving runs on the reference package's numpy "
-                "interpreter (its watchdog and injection hooks are "
-                "per-instruction); the port serves unguarded",
-                constraint="serve-guard-backend")
+    def _layer_hook(fault_hook, k: int):
+        """Adapt a network-level ``hook(sim, layer_idx, insn_idx)`` to the
+        simulator-level ``hook(sim, insn_idx)`` for layer ``k`` — the
+        injection/watchdog point of the harden subsystem."""
+        if fault_hook is None:
+            return None
+        return lambda sim, i: fault_hook(sim, k, i)
+
+    def _kernel_executor(self, dev: torch.device):
+        """Each layer as one ``vta_gemm`` launch (plus its epilogue) over
+        the stack, with the layer's cached :class:`StackForm`."""
+        forms = self.stack_forms(dev)
+        return lambda k, layer, stack: _execute_stack(
+            layer.program, stack, saturate=False, form=forms[k])
+
+    def _interpreter(self, backend: str, fault_hook, count_overflows: bool):
+        """Each layer on an instruction interpreter over the stack, its
+        plan cached on the program: ``batched`` runs the whole stack in
+        place on the stack's device; ``fast`` (on that device) and
+        ``oracle`` (host numpy) run the one row of a ``serve_one`` stack,
+        which gets the interpreter's DRAM back."""
+        from .fast_simulator import BatchFastSimulator, plan_for
+
+        def execute(k: int, layer: CompiledLayer,
+                    stack: torch.Tensor) -> SimReport:
+            prog = layer.program
+            hook = self._layer_hook(fault_hook, k)
+            if backend == "batched":
+                sim = BatchFastSimulator(self.config, stack, copy_dram=False,
+                                         count_overflows=count_overflows,
+                                         device=stack.device)
+                return sim.run(prog.instructions, plan=plan_for(prog),
+                               fault_hook=hook)
+            row = stack[0] if backend == "fast" else stack[0].cpu().numpy()
+            sim = make_simulator(self.config, row, backend=backend,
+                                 count_overflows=count_overflows,
+                                 device=stack.device)
+            report = run_instructions(sim, prog.instructions, program=prog,
+                                      fault_hook=hook)
+            stack[0] = torch.as_tensor(sim.dram).to(stack.device)
+            return report
+
+        return execute
+
+    @staticmethod
+    def _refuse_hooks(fault_hook, count_overflows: bool) -> None:
+        """The ``cuda`` backend executes whole programs, as ``pallas``
+        does in the reference: there is no instruction to hook or count."""
         if fault_hook is not None:
             raise CompileError(
                 "fault_hook requires per-instruction execution; the cuda "
-                "backend has no instruction stream to hook",
+                "backend has no instruction stream to hook (use the "
+                "'batched' or 'fast' interpreter)",
                 constraint="serve-fault-hook")
         if count_overflows:
             raise CompileError(
                 "overflow counters need per-instruction execution; the "
-                "cuda backend executes whole programs",
+                "cuda backend executes whole programs (use the 'batched' "
+                "or 'fast' interpreter)",
                 constraint="serve-count-overflows")
-        if backend not in allowed:
-            raise CompileError(
-                f"{what} supports backend in {allowed}, got {backend!r}",
-                constraint=f"{what.replace('_', '-')}-backend")
 
     def _outputs(self, sem: torch.Tensor) -> np.ndarray:
         """Device semantic outputs → the reference's stacked host form:
@@ -352,42 +419,93 @@ class NetworkProgram:
             host = host[:, None]
         return host
 
+    # ------------------------------------------------------- serving --
     def serve(self, images, *, backend: str = "cuda",
               device: DeviceLike = None, fault_hook=None,
-              count_overflows: bool = False, guard=None
-              ) -> Tuple[np.ndarray, List[SimReport]]:
+              count_overflows: bool = False, guard=None):
         """Compile-once/serve-many batched inference on the device.
 
         ``images`` is a batch of requests (see :meth:`_as_image_batch`).
         One ``(batch, nbytes)`` DRAM stack on ``device`` (the card unless
-        the caller names another) moves through the layer chain: one
-        stacked kernel launch per layer over the whole batch.  Returns
+        the caller names another) moves through the layer chain.
+        ``backend="cuda"`` (default) executes each layer as one stacked
+        ``vta_gemm`` launch over the whole batch; ``backend="batched"``
+        runs the batched instruction interpreter on the device, one plan
+        per layer over the whole stack, with ``fault_hook(sim, layer_idx,
+        insn_idx)`` and ``count_overflows`` as in the reference.  Returns
         ``(stacked outputs, per-layer batch-total reports)``, outputs on
         the host with the request index leading — bit-identical to the
         reference's ``serve``.
 
-        ``guard``, ``fault_hook`` and ``count_overflows`` need the
-        reference's per-instruction interpreters and raise here."""
-        self._refuse(backend, SERVE_BACKENDS, "serve", fault_hook,
-                     count_overflows, guard)
+        ``guard`` (a :class:`repro_torch.harden.GuardPolicy`) needs
+        ``backend="batched"``: the batch goes through the integrity-guarded
+        path and the call returns ``(outputs, reports, guard_reports)``
+        with one :class:`~repro_torch.harden.GuardReport` per request."""
+        if guard is not None:
+            if backend != "batched":
+                raise CompileError(
+                    "guarded serving runs on the batched instruction "
+                    "interpreter (its watchdog and injection hooks are "
+                    "per-instruction); drop guard= or backend="
+                    f"{backend!r}", constraint="serve-guard-backend")
+            from repro_torch.harden import guards as _guards
+            return _guards.guarded_serve(self, images, guard,
+                                         fault_hook=fault_hook,
+                                         device=device)
+        if backend not in SERVE_BACKENDS:
+            raise CompileError(
+                f"serve supports backend in {SERVE_BACKENDS} (the "
+                f"per-image backends {SERVE_ONE_BACKENDS} are "
+                f"serve_one()'s), got {backend!r}",
+                constraint="serve-backend")
+        if backend == "cuda":
+            self._refuse_hooks(fault_hook, count_overflows)
         dev = resolve_device(device)
         batch = self._as_image_batch(images, dev)
-        base = self._device_image(dev)
-        stack = base.expand(batch.shape[0], -1).clone()
-        sem, reports = self._run_chain(stack, batch,
-                                       forms=self.stack_forms(dev))
+        stack = self._device_image(dev).expand(batch.shape[0], -1).clone()
+        execute = (self._kernel_executor(dev) if backend == "cuda" else
+                   self._interpreter(backend, fault_hook, count_overflows))
+        sem, reports = self._run_chain(stack, batch, execute)
         return self._outputs(sem), reports
 
     def serve_one(self, image, *, backend: str = "cuda",
                   device: DeviceLike = None, fault_hook=None,
-                  count_overflows: bool = False, guard=None) -> np.ndarray:
-        """One inference request (a batch of one through :meth:`serve`);
-        returns the request's semantic output as the reference does."""
-        self._refuse(backend, SERVE_ONE_BACKENDS, "serve_one", fault_hook,
-                     count_overflows, guard)
-        outs, _ = self.serve([np.asarray(image)], backend=backend,
-                             device=device)
-        return outs[0]
+                  count_overflows: bool = False, guard=None):
+        """One inference request through the layer chain on ``device``;
+        returns the request's semantic output as the reference does.
+
+        ``backend`` is one of :data:`SERVE_ONE_BACKENDS` — ``"cuda"``
+        (default, a batch of one through :meth:`serve`'s kernel path),
+        ``"fast"`` (the vectorised interpreter on the device) or
+        ``"oracle"`` (the per-struct reference interpreter, on the host).
+        All are bit-identical.
+
+        ``guard`` (a :class:`repro_torch.harden.GuardPolicy`) routes the
+        request through the integrity-guarded path and changes the return
+        value to ``(output, GuardReport)``.  ``fault_hook(sim, layer_idx,
+        insn_idx)`` fires before each instruction of each layer on the
+        interpreters; the ``cuda`` backend refuses it."""
+        if backend not in SERVE_ONE_BACKENDS:
+            raise CompileError(
+                f"serve_one supports backend in {SERVE_ONE_BACKENDS}, got "
+                f"{backend!r} (the batched engine is serve()'s)",
+                constraint="serve-one-backend")
+        if guard is not None:
+            from repro_torch.harden import guards as _guards
+            return _guards.guarded_serve_one(
+                self, image, guard, backend=backend, fault_hook=fault_hook,
+                device=device)
+        if backend == "cuda":
+            self._refuse_hooks(fault_hook, count_overflows)
+            outs, _ = self.serve([np.asarray(image)], backend=backend,
+                                 device=device)
+            return outs[0]
+        dev = resolve_device(device)
+        first = self._as_image_batch([np.asarray(image)], dev)
+        stack = self._device_image(dev).reshape(1, -1).clone()
+        sem, _ = self._run_chain(stack, first, self._interpreter(
+            backend, fault_hook, count_overflows))
+        return self._outputs(sem)[0]
 
     def run_functional(self, *, check_chaining: bool = True,
                        backend: str = "cuda", device: DeviceLike = None,
@@ -395,14 +513,20 @@ class NetworkProgram:
                        ) -> Tuple[np.ndarray, List[SimReport]]:
         """Fig. 12 over the compile-time input: one execution per layer with
         the reshaping between, asserting (``check_chaining``) that each
-        staged input equals the matrix the layer was compiled against."""
-        self._refuse(backend, SERVE_BACKENDS, "run_functional", fault_hook,
-                     False, None)
+        staged input equals the matrix the layer was compiled against.
+        ``backend`` is one of :data:`SERVE_ONE_BACKENDS`."""
+        if backend not in SERVE_ONE_BACKENDS:
+            raise CompileError(
+                f"run_functional supports backend in {SERVE_ONE_BACKENDS}, "
+                f"got {backend!r}", constraint="run-functional-backend")
+        if backend == "cuda":
+            self._refuse_hooks(fault_hook, False)
         dev = resolve_device(device)
         first = self._as_image_batch([self.input_tensor], dev)
         stack = self._device_image(dev).reshape(1, -1).clone()
-        sem, reports = self._run_chain(stack, first,
-                                       forms=self.stack_forms(dev),
+        execute = (self._kernel_executor(dev) if backend == "cuda" else
+                   self._interpreter(backend, fault_hook, False))
+        sem, reports = self._run_chain(stack, first, execute,
                                        check_chaining=check_chaining)
         return self._outputs(sem)[0], reports
 

@@ -3,11 +3,11 @@
 Replaces the paper's extracted C++ functional simulator with a pure-numpy
 interpreter that consumes exactly the artefacts the compiler emits: a DRAM
 image (or the per-region segments) plus the instruction stream.  It is the
-*oracle* every other execution path is validated against — in the port,
-the CUDA backend (:mod:`repro_torch.core.cuda_backend`, ``backend="cuda"``)
-that executes compiled programs on the hand-written ``vta_gemm`` kernel.
-The reference's vectorised numpy interpreters (``"fast"``, ``"batched"``)
-are not ported yet; asking for them raises.
+*oracle* every other execution path is validated against: the vectorised
+torch interpreters of :mod:`repro_torch.core.fast_simulator`
+(``backend="fast"``, and ``"batched"`` over a DRAM stack) and the CUDA
+backend (:mod:`repro_torch.core.cuda_backend`, ``backend="cuda"``) that
+executes compiled programs on the hand-written ``vta_gemm`` kernel.
 
 Semantics implemented:
 
@@ -483,7 +483,7 @@ class FunctionalSimulator:
 # Backend selection + program-level drivers
 # ---------------------------------------------------------------------------
 
-BACKENDS = ("oracle", "cuda")
+BACKENDS = ("oracle", "fast", "batched", "cuda")
 
 
 def make_simulator(cfg: VTAConfig, dram, *, backend: str = "oracle",
@@ -492,7 +492,13 @@ def make_simulator(cfg: VTAConfig, dram, *, backend: str = "oracle",
     """Instantiate a simulator backend over a DRAM image.
 
     ``"oracle"`` is the per-struct Python interpreter above — the
-    correctness anchor.  ``"cuda"`` executes compiled programs as
+    correctness anchor.  ``"fast"`` is the vectorised plan-compiling
+    interpreter of :mod:`repro_torch.core.fast_simulator` on ``device`` (the
+    card unless the caller names another), bit-exact against the oracle.
+    ``"batched"`` takes a ``(batch, nbytes)`` DRAM *stack* and executes the
+    stream once over all images on ``device``, bit-identical to looping
+    ``"oracle"`` over the stack's rows.  ``"cuda"`` executes compiled
+    programs as
     ``vta_gemm`` kernel launches on ``device`` (the card unless the caller
     names another; :mod:`repro_torch.core.cuda_backend`) — bit-identical
     to the oracle on its default truncation path; a ``(batch, nbytes)``
@@ -501,6 +507,15 @@ def make_simulator(cfg: VTAConfig, dram, *, backend: str = "oracle",
     if backend == "oracle":
         return FunctionalSimulator(cfg, np.asarray(dram), trace=trace,
                                    count_overflows=count_overflows)
+    if backend == "fast":
+        from .fast_simulator import FastSimulator
+        return FastSimulator(cfg, dram, trace=trace,
+                             count_overflows=count_overflows, device=device)
+    if backend == "batched":
+        from .fast_simulator import BatchFastSimulator
+        return BatchFastSimulator(cfg, dram, trace=trace,
+                                  count_overflows=count_overflows,
+                                  device=device)
     if backend == "cuda":
         from .cuda_backend import BatchCudaSimulator, CudaSimulator
         cls = BatchCudaSimulator if dram.ndim == 2 else CudaSimulator
@@ -514,25 +529,32 @@ def run_instructions(sim, instructions, *, program: Optional[VTAProgram] = None,
                      fault_hook=None) -> SimReport:
     """Run an instruction stream on either backend.
 
-    The cuda backend executes compiled programs, so ``program`` is
-    required there (raw instruction streams need the oracle).
-    ``fault_hook(sim, insn_idx)`` is forwarded to the oracle's run loop;
+    On the fast backends, passing ``program`` reuses (or populates) the
+    instruction plan cached on it, so repeated executions of the same
+    program (batch serving) skip plan compilation entirely.  The cuda
+    backend executes compiled programs, so ``program`` is required there
+    (raw instruction streams need a simulator backend).
+    ``fault_hook(sim, insn_idx)`` is forwarded to the backend's run loop;
     the cuda backend refuses it.
     """
     from .cuda_backend import CudaSimulator
+    from .fast_simulator import FastSimulator, plan_for
     if isinstance(sim, CudaSimulator):
         if program is None:
             raise ValueError(
                 "the cuda backend executes compiled programs; pass "
                 "program= to run_instructions (raw instruction streams "
-                "need the oracle)")
+                "need a simulator backend)")
         return sim.run_program(program, fault_hook=fault_hook)
+    if isinstance(sim, FastSimulator) and program is not None:
+        return sim.run(instructions, plan=plan_for(program),
+                       fault_hook=fault_hook)
     return sim.run(instructions, fault_hook=fault_hook)
 
 
 def _host_dram(sim) -> np.ndarray:
-    """The simulator's DRAM on the host (the cuda backend keeps it as a
-    torch tensor on its device)."""
+    """The simulator's DRAM on the host (the fast and cuda backends keep
+    it as a torch tensor on their device)."""
     dram = sim.dram
     return dram if isinstance(dram, np.ndarray) else dram.cpu().numpy()
 
@@ -545,10 +567,21 @@ def run_program(prog: VTAProgram, *, trace: bool = False,
 
     The decoded matrix is the *unpadded* (M, N) int8 result, reconstructed
     from the OUT region exactly as the §4.2 host-side reshaping does.
-    ``backend="cuda"`` executes the program as a ``vta_gemm`` kernel
-    launch on ``device`` (truncation path — bit-identical to the oracle;
-    see :mod:`repro_torch.core.cuda_backend`).
+    ``backend="fast"`` selects the vectorised interpreter with the plan
+    cached on ``prog``; ``backend="batched"`` routes through the batch
+    engine with a batch of one (the real batched entry point is
+    :func:`run_program_batch`); ``backend="cuda"`` executes the program as
+    a ``vta_gemm`` kernel launch (truncation path — bit-identical to the
+    oracle; see :mod:`repro_torch.core.cuda_backend`).  The fast, batched
+    and cuda backends run on ``device``.
     """
+    if backend == "batched":
+        outs, report = run_program_batch(prog, batch=1, trace=trace,
+                                         backend="batched",
+                                         fault_hook=fault_hook,
+                                         count_overflows=count_overflows,
+                                         device=device)
+        return outs[0], report
     sim = make_simulator(prog.config, prog.dram_image(),
                          backend=backend, trace=trace,
                          count_overflows=count_overflows, device=device)
@@ -569,15 +602,17 @@ def run_program_batch(prog: VTAProgram, *, batch: Optional[int] = None,
     Either pass ``dram_stack`` — a ``(batch, nbytes)`` uint8 stack whose
     rows are per-image DRAM images (typically the program's own image with
     per-request INP regions staged in) — or just ``batch`` to replicate
-    ``prog.dram_image()``.  The stack executes on the cuda backend's batch
-    engine on ``device`` (one stacked kernel launch when the batch shares
-    weights).  Returns the stacked decoded ``(batch, M, N)`` results and
-    the batch-total report.
+    ``prog.dram_image()``.  ``backend="cuda"`` (default) executes the stack
+    on the kernel backend's batch engine on ``device`` (one stacked kernel
+    launch when the batch shares weights); ``backend="batched"`` runs the
+    batched instruction interpreter on ``device``, its plan compiled once
+    and cached on ``prog``.  Returns the stacked decoded ``(batch, M, N)``
+    results and the batch-total report.
     """
-    if backend != "cuda":
+    if backend not in ("batched", "cuda"):
         raise ValueError(
-            f"run_program_batch supports backend='cuda' (the reference's "
-            f"numpy batch engine is not ported), got {backend!r}")
+            f"run_program_batch supports backend='batched' or 'cuda', "
+            f"got {backend!r}")
     if dram_stack is None:
         if batch is None:
             raise ValueError("pass either dram_stack or batch")
@@ -639,9 +674,10 @@ def decode_out_region_batch(prog: VTAProgram,
 
 
 def verify_program(prog: VTAProgram, *, trace: bool = False,
-                   backend: str = "oracle") -> SimReport:
+                   backend: str = "oracle", device=None) -> SimReport:
     """Run + assert the simulator output equals the compiler's oracle."""
-    out, report = run_program(prog, trace=trace, backend=backend)
+    out, report = run_program(prog, trace=trace, backend=backend,
+                              device=device)
     m, n = prog.output_meta.valid_shape
     expected = prog.expected_out[:m, :n]
     np.testing.assert_array_equal(out, expected,

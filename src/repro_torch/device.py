@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Iterator, Optional, Union
 
 import torch
@@ -54,6 +55,11 @@ def device_sm_count(device: torch.device) -> int:
                        else device.index)
 
 
+_strict_lock = threading.Lock()
+_strict_open = 0            # scopes open now, in every thread
+_strict_saved = None        # the flags the first of them found
+
+
 @contextlib.contextmanager
 def strict_float32() -> Iterator[None]:
     """float32 convolutions and products in float32, reproducibly.
@@ -61,16 +67,28 @@ def strict_float32() -> Iterator[None]:
     On a card cuDNN runs float32 convolutions in TF32 unless told not to,
     and may pick its algorithm by timing; inside this scope TF32 is off for
     cuDNN and cuBLAS, ``cudnn.benchmark`` is off and ``cudnn.deterministic``
-    on.  The flags are process-wide; the scope restores them on exit."""
+    on.  The flags are process-wide, so scopes open at once (nested, or in
+    serving threads) share them: the first to open sets them, the last to
+    close restores what the first found."""
+    global _strict_open, _strict_saved
     backends = torch.backends
-    saved = (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
-             backends.cudnn.benchmark, backends.cudnn.deterministic)
-    backends.cudnn.allow_tf32 = False
-    backends.cuda.matmul.allow_tf32 = False
-    backends.cudnn.benchmark = False
-    backends.cudnn.deterministic = True
+    with _strict_lock:
+        if _strict_open == 0:
+            _strict_saved = (backends.cudnn.allow_tf32,
+                             backends.cuda.matmul.allow_tf32,
+                             backends.cudnn.benchmark,
+                             backends.cudnn.deterministic)
+            backends.cudnn.allow_tf32 = False
+            backends.cuda.matmul.allow_tf32 = False
+            backends.cudnn.benchmark = False
+            backends.cudnn.deterministic = True
+        _strict_open += 1
     try:
         yield
     finally:
-        (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
-         backends.cudnn.benchmark, backends.cudnn.deterministic) = saved
+        with _strict_lock:
+            _strict_open -= 1
+            if _strict_open == 0:
+                (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+                 backends.cudnn.benchmark,
+                 backends.cudnn.deterministic) = _strict_saved

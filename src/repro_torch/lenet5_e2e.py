@@ -1,21 +1,25 @@
-"""LeNet-5 compiled to VTA programs and served on the CUDA backend.
+"""LeNet-5 compiled to VTA programs and served on the device.
 
 The port's counterpart of ``examples/lenet5_e2e.py``:
 
   1. compile all 5 layers into one shared DRAM allocation (Fig. 12), with
      static requant shifts calibrated over a held-out image set;
   2. serve seeded digit-classification requests in batches: one
-     device-resident DRAM stack per batch, one ``vta_gemm`` kernel launch
-     per layer;
+     device-resident DRAM stack per batch, on the ``cuda`` backend one
+     ``vta_gemm`` kernel launch per layer, on ``fast`` the batched
+     instruction interpreter; ``--batch 1`` serves per image
+     (``serve_one``, where ``oracle`` runs the per-struct interpreter);
   3. verify every answer bit-exactly against the integer reference and
      report agreement with the float model.
 
     PYTHONPATH=src python -m repro_torch.lenet5_e2e [--requests 32]
                                                     [--batch 8]
+                                                    [--backend cuda|fast|oracle]
                                                     [--device cuda|cpu]
 
 With no ``--device`` it runs on the CUDA card and fails if there is none;
-``--device cpu`` runs the kernel's plain torch version on the host.
+``--device cpu`` runs on the host (the kernel's plain torch version on the
+``cuda`` backend).
 """
 
 from __future__ import annotations
@@ -59,12 +63,20 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=8,
-                    help="requests per served batch (default: 8)")
+                    help="requests per served batch; 1 = serve per image "
+                         "(default: 8)")
+    ap.add_argument("--backend", choices=("cuda", "fast", "oracle"),
+                    default="cuda",
+                    help="the vta_gemm kernel, or the fast/oracle "
+                         "interpreters (default: cuda)")
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card")
     args = ap.parse_args()
     if args.batch < 1:
         ap.error("--batch must be >= 1")
+    if args.batch > 1 and args.backend == "oracle":
+        ap.error("--batch > 1 runs a batch engine; --backend oracle is "
+                 "per-image only (use --batch 1)")
     device = resolve_device(args.device)
 
     print("compiling LeNet-5 through the VTA pipeline...")
@@ -79,12 +91,21 @@ def main() -> None:
     shifts = [l.requant_shift for l in net.layers]
 
     images = request_images(args.requests)
-    net.serve(images[:1], device=device)            # warm-up: build, upload
+    if args.batch > 1:
+        backend = "batched" if args.backend == "fast" else args.backend
+        mode = f"batch {args.batch}, {backend}"
+        serve = lambda group: list(net.serve(group, backend=backend,
+                                             device=device)[0])
+    else:
+        mode = f"per-image, {args.backend}"
+        serve = lambda group: [net.serve_one(group[0], backend=args.backend,
+                                             device=device)]
+    serve(images[:1])                               # warm-up: build, upload
     logits_all = []
     serve_s = 0.0
     for lo in range(0, len(images), args.batch):
         t0 = time.perf_counter()
-        outs, _ = net.serve(images[lo:lo + args.batch], device=device)
+        outs = serve(images[lo:lo + args.batch])
         serve_s += time.perf_counter() - t0
         logits_all.extend(outs)
 
@@ -102,7 +123,7 @@ def main() -> None:
         agree_float += int(np.argmax(logits) == np.argmax(float_logits[r]))
     if args.requests:
         print(f"\nserved {args.requests} requests in {serve_s:.4f}s "
-              f"({args.requests / serve_s:.1f} img/s, batch {args.batch} "
+              f"({args.requests / serve_s:.1f} img/s, {mode} "
               f"on {device}"
               + (f" [{torch.cuda.get_device_name(device)}]"
                  if device.type == "cuda" else "")

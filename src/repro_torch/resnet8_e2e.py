@@ -55,14 +55,19 @@ def request_images(n: int, seed: int = 100) -> np.ndarray:
     return np.stack([synthetic_image(seed + r) for r in range(n)])
 
 
-def cnn_args(description: str) -> argparse.Namespace:
-    """The CNN drivers' flags: ``--requests``, ``--batch``, ``--device``."""
+def cnn_args(description: str, *,
+             skip_oracle: bool = False) -> argparse.Namespace:
+    """The CNN drivers' flags: ``--requests``, ``--batch``, ``--device``
+    (and ``--skip-oracle`` where the entry point checks the oracle)."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=8,
                     help="requests per served batch (default: 8)")
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card")
+    if skip_oracle:
+        ap.add_argument("--skip-oracle", action="store_true",
+                        help="skip the oracle chain check (smoke mode)")
     args = ap.parse_args()
     if args.batch < 1:
         ap.error("--batch must be >= 1")

@@ -5,8 +5,9 @@ The port's counterpart of ``examples/serve_vta.py``:
 
   1. compile LeNet-5 through the VTA pipeline (compile-once);
   2. start the async engine — bounded request queue, max-batch/max-wait
-     dynamic batch former, a pool of ``cuda`` workers draining formed
-     batches on one device;
+     dynamic batch former, a pool of workers draining formed batches on
+     one device, on the ``cuda`` kernel backend or the ``batched``
+     interpreter (optionally through the integrity guards);
   3. replay a seeded Poisson arrival trace against it in real time;
   4. assert the serving contracts: every result bit-identical to a
      direct ``NetworkProgram.serve`` of the same images, and zero SLO
@@ -16,13 +17,15 @@ The port's counterpart of ``examples/serve_vta.py``:
 
     PYTHONPATH=src python -m repro_torch.serve_vta [--requests 16]
         [--rate 200] [--max-batch 4] [--max-wait 0.005]
-        [--backends cuda,cuda] [--slo 0.5] [--guard] [--device cuda|cpu]
+        [--backends cuda,cuda|batched,batched] [--slo 0.5] [--guard]
+        [--device cuda|cpu]
 
-It exits non-zero on any contract violation.  ``--guard`` exits non-zero
-with the engine's typed refusal: guarded serving runs only on the
-reference package's numpy interpreter.  With no ``--device`` it runs on
-the CUDA card and fails if there is none; ``--device cpu`` runs the
-kernel's plain torch version on the host.
+It exits non-zero on any contract violation.  ``--guard`` serves through
+the integrity guards (``repro_torch.harden``) and needs ``batched``
+workers (``--backends batched[,batched]``); with ``cuda`` workers it exits
+with the engine's typed refusal.  With no ``--device`` it runs on the CUDA
+card and fails if there is none; ``--device cpu`` runs on the host (the
+kernel's plain torch version for ``cuda`` workers).
 """
 
 from __future__ import annotations
@@ -50,13 +53,13 @@ def main() -> None:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-wait", type=float, default=0.005)
     ap.add_argument("--backends", default="cuda,cuda",
-                    help="comma-separated worker backends (cuda), one "
-                         "worker per entry")
+                    help="comma-separated worker backends (cuda|batched), "
+                         "one worker per entry")
     ap.add_argument("--slo", type=float, default=0.5,
                     help="per-request latency SLO in seconds")
     ap.add_argument("--guard", action="store_true",
-                    help="ask for guarded serving (refused: the guards run "
-                         "on the reference package's interpreter)")
+                    help="serve through the integrity guards (batched "
+                         "workers only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card")
@@ -74,9 +77,14 @@ def main() -> None:
     policy = BatchPolicy(max_batch=args.max_batch,
                          max_wait_s=args.max_wait,
                          max_depth=max(64, 4 * args.requests))
+    guard = None
+    if args.guard:
+        from repro_torch.harden import GuardPolicy
+        guard = GuardPolicy()
+
     try:
         engine = VTAServingEngine(net, policy=policy, backends=backends,
-                                  device=device, guard=args.guard or None,
+                                  device=device, guard=guard,
                                   slo_s=args.slo)
     except CompileError as exc:
         print(f"refused: {exc}", file=sys.stderr)
@@ -107,7 +115,8 @@ def main() -> None:
     summary = engine.metrics.summary()
 
     print(f"\nserved {summary['completed']:.0f}/{args.requests} requests "
-          f"on {backends} workers, device {device}")
+          f"on {backends} workers, device {device} "
+          f"(guarded={bool(guard)})")
     print(f"  p50/p95/p99 latency = {summary['p50_ms']:.2f}/"
           f"{summary['p95_ms']:.2f}/{summary['p99_ms']:.2f} ms; "
           f"throughput = {summary['throughput_rps']:.1f} rps")
@@ -119,6 +128,10 @@ def main() -> None:
           f"{args.requests - mismatches}/{args.requests}")
     print(f"  accounting audit: "
           f"{'clean' if not audit else audit}")
+    if args.guard:
+        outcomes = [t.guard_report.outcome for t in tickets]
+        print(f"  guard outcomes: "
+              f"{ {o: outcomes.count(o) for o in set(outcomes)} }")
 
     if mismatches or audit or summary["completed"] != args.requests:
         print("SERVING CONTRACT VIOLATION", file=sys.stderr)

@@ -1,11 +1,13 @@
-"""Async VTA serving subsystem on the port's ``cuda`` backend.
+"""Async VTA serving subsystem on the port's ``cuda`` and ``batched``
+backends.
 
 The production-shaped layer over compiled
 :class:`~repro_torch.core.network_compiler.NetworkProgram` plans: a
 thread-safe bounded request queue with typed backpressure, a
 max-batch/max-wait dynamic batch former padding to the compiled-shape
-ladder, a pool of ``cuda`` workers draining batches concurrently on one
-device, per-request latency + SLO metrics, and a seeded virtual-clock
+ladder, a pool of ``cuda`` or ``batched`` workers draining batches
+concurrently on one device (the batched ones optionally through the
+integrity guards), per-request latency + SLO metrics, and a seeded virtual-clock
 load generator + discrete-event simulation for hermetic latency curves.
 
 The queue, policy, metrics, clock and load generator are the reference

@@ -10,10 +10,14 @@ batches under the max-batch/max-wait
 compiled-shape ladder (:meth:`NetworkProgram.padded_batch_sizes`), execute
 ``NetworkProgram.serve`` on one device, and resolve the tickets.
 
-Design points (the reference's engine, on the port's ``cuda`` backend):
+Design points (the reference's engine, with ``cuda`` in the place of
+``pallas``):
 
-* **Workers** — ``backends=("cuda", "cuda")`` starts one worker thread per
-  entry; every entry must be in the port's ``SERVE_BACKENDS``.  All
+* **Workers** — ``backends=("cuda", "batched")`` starts one worker thread
+  per entry; every entry must be in the port's ``SERVE_BACKENDS`` — the
+  ``vta_gemm`` kernel backend or the batched instruction interpreter, both
+  bit-identical per request, so which worker serves a request is
+  unobservable in the results.  All
   workers serve on the engine's one device, resolved when the engine is
   constructed (the card unless the caller names another), and all issue
   their device work on that device's default stream: their batches
@@ -31,8 +35,11 @@ Design points (the reference's engine, on the port's ``cuda`` backend):
   CUDA fault) resolves each of its tickets with
   :class:`~repro_torch.serving.vta.queueing.ServingError`; nothing falls
   back to the CPU or to a plain version.
-* **No guarded serving** — ``guard=`` is refused at construction: the
-  integrity guards run on the reference package's numpy interpreter.
+* **Guarded serving** — ``guard=GuardPolicy()`` routes batches through
+  the integrity stack (:mod:`repro_torch.harden`).  Guarded execution
+  mutates/restores shared network state on detection, so it is serialized
+  across workers by an engine lock and pinned to the batched backend (the
+  guard stack's typed refusal otherwise).
 * **Compile-once under traffic** — the warm-up at ``start()`` serves one
   probe image before any worker thread exists, so the device image, the
   per-layer ``StackForm`` and plan caches and the kernel build are filled
@@ -74,16 +81,17 @@ class VTAServingEngine:
             if be not in SERVE_BACKENDS:
                 raise CompileError(
                     f"engine worker backend must be in {SERVE_BACKENDS} "
-                    f"(the port serves batch stacks on its cuda backend "
-                    f"only), got {be!r}", constraint="serve-backend")
-        if guard is not None:
+                    f"(the per-image simulators serve no batch stack), "
+                    f"got {be!r}", constraint="serve-backend")
+        if guard is not None and any(be != "batched" for be in backends):
             raise CompileError(
-                "guarded serving runs only on the reference package's "
-                "numpy interpreter (its watchdog and injection hooks are "
-                "per-instruction); the port's engine serves unguarded",
+                "guarded serving runs on the batched instruction "
+                "interpreter only; drop guard= or use "
+                "backends=('batched', ...)",
                 constraint="serve-guard-backend")
         self.device = resolve_device(device)
         self.net = net
+        self.guard = guard
         self.policy = policy or BatchPolicy()
         self.backends = tuple(backends)
         self.clock = clock or WallClock()
@@ -96,6 +104,8 @@ class VTAServingEngine:
         self._started = False
         self._stopped = False
         self._warmup = warmup
+        # guarded serving restores shared segments in place → serialize
+        self._guard_lock = threading.Lock() if guard is not None else None
 
     # ---------------------------------------------------------- lifecycle
     def start(self) -> "VTAServingEngine":
@@ -181,9 +191,16 @@ class VTAServingEngine:
         images = [t.image for t in batch]
         padded = padded_size(len(images), self._ladder)
         exec_images = images + [images[-1]] * (padded - len(images))
+        guard_reports = None
         try:
-            outs, _ = self.net.serve(exec_images, backend=backend,
-                                     device=self.device)
+            if self.guard is not None:
+                with self._guard_lock:
+                    outs, _, guard_reports = self.net.serve(
+                        exec_images, backend=backend, device=self.device,
+                        guard=self.guard)
+            else:
+                outs, _ = self.net.serve(exec_images, backend=backend,
+                                         device=self.device)
         except Exception as exc:                      # noqa: BLE001
             self.metrics.on_fail(len(batch))
             err = ServingError(f"batch execution failed on "
@@ -195,6 +212,15 @@ class VTAServingEngine:
         # serve returns after its logits reached the host (a device sync)
         complete_t = self.clock.now()
         for i, ticket in enumerate(batch):
+            if guard_reports is not None:
+                ticket.guard_report = guard_reports[i]
+            if outs is None or (guard_reports is not None
+                                and not guard_reports[i].ok):
+                self.metrics.on_fail()
+                ticket.resolve(None, ServingError(
+                    f"request {ticket.rid}: guard outcome 'failed' — "
+                    f"unrecoverable corruption, no result"))
+                continue
             record = RequestRecord(
                 rid=ticket.rid, enqueue_t=ticket.enqueue_t,
                 dispatch_t=dispatch_t, complete_t=complete_t,

@@ -408,3 +408,34 @@ def test_engine_two_workers_match_direct_serve():
     batches = {(t.record.worker, t.record.dispatch_t) for t in tickets}
     assert launches == 5 * len(batches)
     assert ops.attention_launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["lenet5", "resnet_tiny"])
+def test_interpreters_on_the_card_match_the_host(model):
+    """The torch interpreters on the card: ``batched`` and ``fast`` serves
+    equal the same serves on the host and the ``cuda`` backend's, with the
+    overflow counters equal too, and launch no ``vta_gemm``."""
+    dev = _card()
+    if model == "lenet5":
+        from repro_torch.lenet5_e2e import compile_lenet5, request_images
+        net = compile_lenet5()[1]
+        images = request_images(6)
+    else:                                   # max-pool pair lattices
+        from repro_torch.models import resnet_tiny
+        net = resnet_tiny.compile_resnet_tiny()[0]
+        images = np.stack([resnet_tiny.synthetic_image(s) for s in range(6)])
+    want, _ = net.serve(images, device=dev)
+    before = ops.launches
+    got, reps = net.serve(images, backend="batched", device=dev,
+                          count_overflows=True)
+    host, host_reps = net.serve(images, backend="batched", device="cpu",
+                                count_overflows=True)
+    one = net.serve_one(images[0], backend="fast", device=dev)
+    assert ops.launches == before
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(host, want)
+    np.testing.assert_array_equal(one, want[0])
+    assert ([(r.acc_overflow_lanes, r.acc_saturation_lanes) for r in reps]
+            == [(r.acc_overflow_lanes, r.acc_saturation_lanes)
+                for r in host_reps])

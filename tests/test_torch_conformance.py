@@ -1,4 +1,5 @@
-"""The ``cuda`` leg of the batched conformance draws, on the CPU.
+"""The ``cuda`` and ``batched`` legs of the batched conformance draws, on
+the CPU.
 
 ``tests/test_batched_conformance.py`` holds the reference's batched
 runtime bit-identical to looping its per-image oracle over a DRAM stack's
@@ -8,7 +9,9 @@ UOP waves, padded conv/pool layers, stride-2 convs and global-average-pool
 reductions — are compiled by both packages and run on the port's
 ``BatchCudaSimulator(device="cpu")`` (``vta_gemm``'s plain version), whose
 OUT bytes must equal, row for row, the reference's ``run_batch`` and its
-per-image oracle loop.
+per-image oracle loop, and on the port's batched torch interpreter
+(``BatchFastSimulator(device="cpu")``), whose whole DRAM stack and report
+must equal the reference's ``run_batch``.
 
 The engine pads a formed batch by repeating its last request and slices
 the pad rows off; that is sound only if the ``cuda`` backend treats stack
@@ -16,6 +19,7 @@ rows independently.  The last draws serve padded batches and hold the real
 rows equal to their unpadded serve.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -30,6 +34,7 @@ import repro.core.layer_compiler as jlc                          # noqa: E402
 import repro_torch.core.gemm_compiler as tgc                     # noqa: E402
 import repro_torch.core.hwconfig as thw                          # noqa: E402
 import repro_torch.core.isa as tisa                              # noqa: E402
+import repro_torch.core.fast_simulator as tfs                    # noqa: E402
 import repro_torch.core.layer_compiler as tlc                    # noqa: E402
 from repro.core.fast_simulator import plan_for, run_batch        # noqa: E402
 from repro.core.simulator import FunctionalSimulator             # noqa: E402
@@ -65,13 +70,21 @@ def varied_stack(prog, rng, batch, vary=("inp", "acc")):
 
 def assert_cuda_leg(build, rng, batch, vary=("inp", "acc")) -> None:
     """Compile ``build(pkg)`` with both packages, run one varied stack on
-    the port's batch simulator, the reference's ``run_batch`` and its
-    per-image oracle loop, and require identical OUT bytes in every row."""
+    the port's batch simulators, the reference's ``run_batch`` and its
+    per-image oracle loop, and require identical OUT bytes in every row —
+    and, on the port's batched interpreter, the reference's whole stack
+    and batch-total report."""
     tprog, jprog = build(PORT), build(REF)
     np.testing.assert_array_equal(tprog.dram_image(), jprog.dram_image())
     stack = varied_stack(jprog, rng, batch, vary)
-    want, _ = run_batch(jprog.config, stack, jprog.instructions,
-                        plan=plan_for(jprog))
+    want, want_report = run_batch(jprog.config, stack, jprog.instructions,
+                                  plan=plan_for(jprog), trace=True)
+    got, got_report = tfs.run_batch(tprog.config, stack, tprog.instructions,
+                                    plan=tfs.plan_for(tprog), trace=True,
+                                    device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want,
+                                  err_msg="batched interpreter leg")
+    assert dataclasses.asdict(got_report) == dataclasses.asdict(want_report)
     for b in range(batch):
         oracle = FunctionalSimulator(jprog.config, stack[b].copy())
         oracle.run(jprog.instructions)

@@ -5,9 +5,10 @@
   level or inside a function;
 * a subprocess with ``jax`` and ``repro`` blocked in ``sys.modules``
   compiles and serves LeNet-5, and resnet8 through the graph front end,
-  on ``device="cpu"``, replays a short trace through the serving engine,
-  runs the projection driver and trains, quantises and serves a float
-  LeNet-5;
+  on ``device="cpu"``, serves a guarded LeNet-5 batch on the batched
+  interpreter (a fault injected, detected and recovered), replays a short
+  trace through the serving engine, runs the projection driver and
+  trains, quantises and serves a float LeNet-5;
 * with no CUDA card, entry points and drivers called without a device
   raise :class:`~repro_torch.device.NoDeviceError` before any work runs
   (the serving engine before any thread starts).
@@ -57,7 +58,9 @@ def test_no_module_imports_jax_or_repro():
             "serve_vta.py", "resnet_e2e.py", "cifar10_cnn_e2e.py",
             "quantize/digits.py", "quantize/train.py", "quantize/ptq.py",
             "quantize/models.py", "quantize/evaluate.py",
-            "quantize_eval.py", "vta_lm_projection.py"} <= names
+            "quantize_eval.py", "vta_lm_projection.py",
+            "core/fast_simulator.py", "harden/__init__.py",
+            "harden/faults.py", "harden/guards.py"} <= names
     bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
            for path in files for line, name in _imports(path)
            if _forbidden(name)]
@@ -78,6 +81,16 @@ shifts = [l.requant_shift for l in net.layers]
 for img, logits in zip(images, out):
     want, _ = reference_forward_int8(weights, img, shifts)
     assert np.array_equal(logits, want)
+from repro_torch.harden import FaultInjector, GuardPolicy
+guarded, _, greps = net.serve(images, backend="batched", device="cpu",
+                              guard=GuardPolicy(dual_execute=True))
+assert np.array_equal(guarded, out)
+assert [r.outcome for r in greps] == ["clean"] * 3
+FaultInjector(seed=1).inject(net, "dram-wgt")
+guarded, _, greps = net.serve(images, backend="batched", device="cpu",
+                              guard=GuardPolicy())
+assert np.array_equal(guarded, out)
+assert [r.outcome for r in greps] == ["recovered"] * 3
 from repro_torch.resnet8_e2e import request_images as resnet8_images
 from repro_torch.models.resnet8 import (compile_resnet8,
                                         reference_forward_int8 as r8_ref)
@@ -131,6 +144,8 @@ def test_no_device_raises_and_runs_nothing(monkeypatch):
     from repro_torch import device as tdevice
     from repro_torch import lenet5_e2e
     from repro_torch.core import cuda_backend
+    from repro_torch.core.fast_simulator import FastSimulator
+    from repro_torch.harden import GuardPolicy
     from repro_torch.kernels import ops as tops
     from repro_torch.kernels import ref as tref
 
@@ -148,7 +163,16 @@ def test_no_device_raises_and_runs_nothing(monkeypatch):
     with pytest.raises(tdevice.NoDeviceError):
         net.serve(images)
     with pytest.raises(tdevice.NoDeviceError):
+        net.serve(images, backend="batched")
+    with pytest.raises(tdevice.NoDeviceError):
+        net.serve(images, backend="batched", guard=GuardPolicy())
+    with pytest.raises(tdevice.NoDeviceError):
         net.serve_one(images[0])
+    for backend in ("fast", "oracle"):
+        with pytest.raises(tdevice.NoDeviceError):
+            net.serve_one(images[0], backend=backend)
+    with pytest.raises(tdevice.NoDeviceError):
+        FastSimulator(net.config, net.dram_image())
     with pytest.raises(tdevice.NoDeviceError):
         net.run_functional()
     with pytest.raises(tdevice.NoDeviceError):

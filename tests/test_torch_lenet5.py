@@ -4,7 +4,8 @@
   byte-identical to the reference's numpy functions on every LeNet layer;
 * the port's ``serve`` is bit-identical to the reference's
   ``serve(backend="batched")``, ``serve(backend="pallas")`` (interpret
-  mode) and ``reference_forward_int8``;
+  mode) and ``reference_forward_int8``, and refuses what the reference
+  refuses;
 * ``lenet_weights_from_arrays`` and ``LeNet5Float`` take the reference's
   weights, and the float model agrees with the JAX float forward.
 """
@@ -27,6 +28,7 @@ import repro_torch.core.network_compiler as tnc                  # noqa: E402
 import repro_torch.models.lenet as tlenet                        # noqa: E402
 from repro_torch.core import staging                             # noqa: E402
 from repro_torch.core.errors import CompileError                 # noqa: E402
+from repro_torch.harden import GuardPolicy                        # noqa: E402
 from repro_torch.kernels import ops as tops                      # noqa: E402
 
 
@@ -141,9 +143,20 @@ def test_serve_one_and_run_functional(nets):
 
 
 def test_serve_refusals(nets):
-    _, tnet, _, _ = nets
+    """The reference's refusal set, with ``cuda`` in the place of
+    ``pallas``: ``batched`` serves, with and without a guard; the ``cuda``
+    backend refuses a guard, a fault hook and the overflow counters;
+    ``serve_one`` serves on ``fast`` and refuses the batch engine."""
+    _, tnet, _, jnet = nets
     images = _images(2, 1)
-    for kw, constraint in ((dict(backend="batched"), "serve-backend"),
+    want, _ = jnet.serve(images, backend="batched")
+    got, _ = tnet.serve(images, backend="batched", device="cpu")
+    np.testing.assert_array_equal(got, want)
+    outs, _, reps = tnet.serve(images, backend="batched", device="cpu",
+                               guard=GuardPolicy())
+    np.testing.assert_array_equal(outs, want)
+    assert [r.outcome for r in reps] == ["clean", "clean"]
+    for kw, constraint in ((dict(backend="fast"), "serve-backend"),
                            (dict(guard=object()), "serve-guard-backend"),
                            (dict(fault_hook=lambda *a: None),
                             "serve-fault-hook"),
@@ -152,8 +165,11 @@ def test_serve_refusals(nets):
         with pytest.raises(CompileError) as exc:
             tnet.serve(images, device="cpu", **kw)
         assert exc.value.constraint == constraint
+    np.testing.assert_array_equal(
+        tnet.serve_one(images[0], backend="fast", device="cpu"),
+        jnet.serve_one(images[0], backend="fast"))
     with pytest.raises(CompileError) as exc:
-        tnet.serve_one(images[0], backend="fast", device="cpu")
+        tnet.serve_one(images[0], backend="batched", device="cpu")
     assert exc.value.constraint == "serve-one-backend"
     with pytest.raises(ValueError, match="cannot interpret"):
         tnet.serve(np.zeros((2, 3, 32, 32), np.int8), device="cpu")

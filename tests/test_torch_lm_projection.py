@@ -85,11 +85,21 @@ def test_cuda_backend_equals_oracle(name):
 
 
 def test_backends_refused():
+    """``fast`` and ``batched`` run and equal the oracle; what the
+    reference refuses stays refused."""
     prog = _programs(tgc, thw)["k75"]
+    want, _ = tsim.run_program(prog)
+    for backend in ("fast", "batched"):
+        got, _ = tsim.run_program(prog, backend=backend, device="cpu")
+        np.testing.assert_array_equal(got, want)
+    stack, _ = tsim.run_program_batch(prog, batch=2, backend="batched",
+                                      device="cpu")
+    for row in stack:
+        np.testing.assert_array_equal(row, want)
     with pytest.raises(ValueError, match="unknown simulator backend"):
-        tsim.run_program(prog, backend="fast")
+        tsim.run_program(prog, backend="pallas")
     with pytest.raises(ValueError, match="run_program_batch supports"):
-        tsim.run_program_batch(prog, batch=2, backend="batched")
+        tsim.run_program_batch(prog, batch=2, backend="fast")
     with pytest.raises(ValueError, match="pass either"):
         tsim.run_program_batch(prog, device="cpu")
     sim = tsim.make_simulator(prog.config, prog.dram_image(),

@@ -13,7 +13,8 @@ so these tests hold everything around the kernel:
   outputs;
 * the threaded engine, with one and with two ``cuda`` workers, answers
   bit-identically to the reference's direct ``serve(backend="batched")``
-  with a clean audit;
+  with a clean audit, and so do ``batched`` workers through the
+  integrity guards;
 * the reference engine's contracts hold with the same typed errors and
   constraints.
 """
@@ -397,7 +398,7 @@ def test_shutdown_without_drain_cancels_typed(lenet):
 
 @pytest.mark.parametrize("kw,exc_type,constraint", [
     (dict(backends=("weird",)), CompileError, "serve-backend"),
-    (dict(backends=("batched",)), CompileError, "serve-backend"),
+    (dict(backends=("batched",)), None, None),
     (dict(backends=("cuda", "pallas")), CompileError, "serve-backend"),
     (dict(backends=("fast",)), CompileError, "serve-backend"),
     (dict(backends=()), ValueError, None),
@@ -406,11 +407,54 @@ def test_shutdown_without_drain_cancels_typed(lenet):
      "serve-guard-backend"),
 ])
 def test_engine_refusals_are_typed(lenet, kw, exc_type, constraint):
+    """The reference's refusal set, with ``cuda`` in the place of
+    ``pallas``: a ``batched`` worker is accepted, a guard with ``cuda``
+    workers is refused with the reference's message."""
+    if exc_type is None:
+        engine = tsv.VTAServingEngine(lenet, device="cpu", **kw)
+        assert engine.backends == kw["backends"] and engine.guard is None
+        return
     with pytest.raises(exc_type) as exc:
         tsv.VTAServingEngine(lenet, device="cpu", **kw)
     assert getattr(exc.value, "constraint", None) == constraint
     if constraint == "serve-guard-backend":
-        assert "numpy interpreter" in str(exc.value)
+        from repro.core.errors import CompileError as JCompileError
+        with pytest.raises(JCompileError) as ref_exc:
+            jsv.VTAServingEngine(jnc_lenet(), backends=("batched", "pallas"),
+                                 guard=object())
+        assert str(exc.value) == str(ref_exc.value)
+
+
+def jnc_lenet():
+    return _lenet(jnc, jlenet)
+
+
+@pytest.mark.parametrize("backends", [("batched",), ("batched", "batched"),
+                                      ("batched", "cuda")])
+def test_guarded_engine_workers(nets, backends):
+    """``guard=`` with every worker ``batched`` serves bit-identically to
+    the reference's guarded direct serve, each ticket carrying a clean
+    :class:`GuardReport`; any ``cuda`` worker is refused."""
+    from repro.harden import GuardPolicy as JGuardPolicy
+    from repro_torch.harden import GuardPolicy
+    tnet, jnet = nets["lenet5"]
+    images = tsv.request_images(tnet, 9, seed=3)
+    if "cuda" in backends:
+        with pytest.raises(CompileError) as exc:
+            tsv.VTAServingEngine(tnet, backends=backends, device="cpu",
+                                 guard=GuardPolicy())
+        assert exc.value.constraint == "serve-guard-backend"
+        return
+    want, _, _ = jnet.serve(list(images), guard=JGuardPolicy())
+    policy = tsv.BatchPolicy(max_batch=4, max_wait_s=0.002)
+    before = tops.launches
+    with tsv.VTAServingEngine(tnet, policy=policy, backends=backends,
+                              device="cpu", guard=GuardPolicy()) as engine:
+        served, tickets = tsv.serve_all(engine, list(images))
+    assert tops.launches == before                 # CPU: plain version
+    np.testing.assert_array_equal(served, want)
+    assert [t.guard_report.outcome for t in tickets] == ["clean"] * 9
+    assert engine.metrics.audit() == []
 
 
 def test_engine_rejects_mis_shaped_request(lenet):
