@@ -169,7 +169,28 @@ In order it:
    masked, 54/150 silent corruptions unguarded); resnet8 with 10 a class
    guarded (the fast shadow) and 5 unguarded must show no guarded silent
    corruption and the same per-injection outcomes as the same campaign
-   on ``device="cpu"``; prints each arm's seconds.
+   on ``device="cpu"``; prints each arm's seconds;
+15. serves qwen2.5-3b at full width (36 layers, d 2048, 16 heads over 2,
+   vocab 151936; seeded float32 weights, 3.40 B parameters, TF32 off)
+   through the port's LM ``Server`` (batch 4, ``max_seq`` 1280): 8
+   requests with prompts of 768–1024 tokens (seed 15) and 16 new tokens
+   each, two generations, after a warm prefill and step.  Every causal
+   self-attention call of prefill and dense decode runs the float32
+   ``flash_attention`` kernel: the attention launches, counted from 0 over
+   the serve, must equal the sum of ``flash_attention.plan(...).launches``
+   of every call (one a layer in prefill, a split and its combine a layer
+   a decode step); every logit finite, every token below the vocabulary.
+   Generation 1 is replayed teacher-forced on the plain path
+   (``layers.plain_attention``: ``chunked_attention`` and
+   ``_attn_scores_decode``) and each call's logits must agree within
+   ``LM_TOL`` × max |plain logit|.  Prints prefill ms a generation, the
+   median decode step, tokens/s and peak memory; a profiled prefill and
+   decode step (the attention kernels' device time beside the step's, the
+   idle share); the decode and prefill bounds; and the two attention
+   calls of the path timed alone (kernel, plain, SDPA, bound; their
+   launches and times in the ``flash_attention`` entry as ``lm_calls``,
+   the serve's launches added to its ``launches``; ``lm_serve`` in the
+   record).
 
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
 the last line.  Any failure raises and exits non-zero.  The last line is
@@ -1757,6 +1778,327 @@ def campaign_phase(card: str, dev) -> dict:
     return rec
 
 
+# -- phase 15: the LM server at full width ------------------------------------
+
+LM_ARCH = "qwen2.5-3b"             # src/repro_torch/configs/qwen2_5_3b.py
+LM_BATCH, LM_MAX_SEQ = 4, 1280
+LM_REQUESTS, LM_NEW = 8, 16        # two generations of four
+LM_PROMPT = (768, 1024)            # prompt lengths, drawn from seed 15
+# kernel path against the plain path, teacher-forced: max |diff| of each
+# call's logits at most LM_TOL × that call's max |plain logit| (the kernel
+# holds 2e-5 a call; 36 layers of float32 residual stream lie between)
+LM_TOL = 1e-3
+LM_DECODE_POS = 1000               # the decode call timed alone
+
+
+def lm_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the float32 attention
+    kernels' device time (``f32_kernel`` and ``combine_kernel``), every
+    device event's, the host clock of the traced call and the idle
+    share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    attn = [e for e in events
+            if "f32_kernel" in e.name or "combine_kernel" in e.name]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return {"attention_kernel_ms": sum(e.time_range.elapsed_us()
+                                       for e in attn) / 1e3,
+            "attention_kernels": len(attn),
+            "device_busy_ms": busy_ms, "traced_wall_ms": wall,
+            "idle_share": 1.0 - busy_ms / wall}
+
+
+def lm_call_case(ops, ref, fa, name, shape, q_offset, sms, dev) -> dict:
+    """One attention call of the LM path alone, float32 at its shape:
+    kernel against ``ref.attention_ref`` (2e-5), device times of the
+    kernel, the plain version and SDPA (causal: ``is_causal``; decode: an
+    explicit bool mask, built before timing), its launches and bound (the
+    keys the masks keep, read once)."""
+    import torch.nn.functional as F
+    b, h, hkv, sq, skv, d = shape
+    x = attention_inputs(np.random.default_rng(150), shape, torch.float32,
+                         dev)
+    kw = dict(causal=True, window=None, q_offset=q_offset)
+    p = fa.plan(*shape, torch.float32, **kw, sm_count=sms)
+    before = ops.attention_launches
+    got = ops.attention(*x, **kw)
+    launches = ops.attention_launches - before
+    want = ref.attention_ref(*x, **kw)
+    st = attention_err(got, want)
+    if launches != p.launches:
+        raise AssertionError(f"{name}: {launches} launches, planned "
+                             f"{p.launches}")
+    if q_offset == 0 and sq == skv:
+        lib = lambda: F.scaled_dot_product_attention(
+            *x, is_causal=True, scale=d ** -0.5, enable_gqa=True)
+    else:
+        mask = ref.attention_mask(sq, skv, True, None, q_offset, dev)
+        lib = lambda: F.scaled_dot_product_attention(
+            *x, attn_mask=mask, scale=d ** -0.5, enable_gqa=True)
+    lib_err = attention_err(lib(), want, SDPA_TOL)["max_abs_err"]
+    kept = min(skv, q_offset + sq)
+    t_bound, bound_by = attention_bound(dict(
+        shape=(b, h, hkv, sq, kept, d), dtype=torch.float32, causal=True,
+        window=None, q_offset=q_offset))
+    row = {"case": name, "shape_b_h_hkv_sq_skv_d": list(shape),
+           "q_offset": q_offset, "path": p.path, "blocks": p.blocks,
+           "splits": p.splits, "launches": launches,
+           "max_abs_err": st["max_abs_err"],
+           "kernel_ms": graph_ms(lambda: ops.attention(*x, **kw),
+                                 *ATTN_WINDOW),
+           "plain_ms": graph_ms(lambda: ref.attention_ref(*x, **kw),
+                                *ATTN_WINDOW),
+           "library_ms": graph_ms(lib, *ATTN_WINDOW),
+           "library_max_abs_err": lib_err,
+           "bound_ms": t_bound, "bound_by": bound_by,
+           "bound_cuda_cores_ms": attention_bound(dict(
+               shape=(b, h, hkv, sq, kept, d), dtype=torch.float32,
+               causal=True, window=None, q_offset=q_offset), True)[0]}
+    row["share_of_bound"] = t_bound / row["kernel_ms"]
+    return row
+
+
+def lm_phase(ops, ref, fa, card: str, dev) -> dict:
+    """Phase 15: qwen2.5-3b at full width (seeded float32 weights, TF32
+    off) served by the port's ``Server``: 8 requests in two generations of
+    four, 16 new tokens each, every causal self-attention call on the
+    ``flash_attention`` kernel.  The attention launches, counted from 0
+    over the serve, must equal the sum of ``plan(...).launches`` of every
+    call; every logit finite, every token below the vocabulary; then the
+    first generation is replayed teacher-forced on the plain path
+    (``layers.plain_attention``) and each call's logits must agree within
+    ``LM_TOL``.  Reports prefill and decode times, tokens/s, peak memory,
+    the attention kernels' device time in one prefill and one decode step
+    beside the step's, and the two attention calls timed alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import strict_float32
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import layers
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.engine import decode_step, prefill
+
+    cfg = get_config(LM_ARCH)
+    defs = model_defs(cfg)
+    n_params = param_count(defs)
+    sms = fa.device_sm_count(dev)
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(
+        LM_PROMPT[0], LM_PROMPT[1] + 1))).astype(np.int32)
+        for _ in range(LM_REQUESTS)]
+    shape = (LM_BATCH, cfg.n_heads, cfg.n_kv_heads)
+    planned, calls = 0, 0
+    for g in range(0, LM_REQUESTS, LM_BATCH):
+        plen = max(len(p) for p in prompts[g:g + LM_BATCH])
+        planned += cfg.n_layers * fa.plan(*shape, plen, plen, cfg.head_dim,
+                                          torch.float32, sm_count=sms
+                                          ).launches
+        for t in range(LM_NEW - 1):
+            planned += cfg.n_layers * fa.plan(
+                *shape, 1, LM_MAX_SEQ, cfg.head_dim, torch.float32,
+                q_offset=plen + t, sm_count=sms).launches
+        calls += cfg.n_layers * LM_NEW
+    out = {"arch": LM_ARCH, "card": card, "params": n_params,
+           "batch": LM_BATCH, "max_seq": LM_MAX_SEQ,
+           "requests": LM_REQUESTS, "new_tokens": LM_NEW,
+           "prompt_lengths": [len(p) for p in prompts],
+           "attention_calls": calls, "planned_launches": planned}
+    with strict_float32():
+        t0 = time.perf_counter()
+        params = init_params(defs, seed=0, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        server = Server(cfg, params, batch_size=LM_BATCH,
+                        max_seq=LM_MAX_SEQ, device=dev, record=True)
+        for rid, p in enumerate(prompts):
+            server.submit(Request(rid, p, LM_NEW))
+        with torch.inference_mode():        # warm: a prefill and a step
+            warm = init_cache(cfg, LM_BATCH, LM_MAX_SEQ, torch.float32, dev)
+            toks = torch.zeros((LM_BATCH, LM_PROMPT[1]), dtype=torch.long,
+                               device=dev)
+            prefill(params, cfg, toks, warm)
+            decode_step(params, cfg, warm, toks[:, 0], LM_PROMPT[1])
+            del warm, toks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        results = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, gemm = ops.attention_launches, ops.launches
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if launches != planned or gemm:
+            raise AssertionError(f"LM serve: {launches} attention launches, "
+                                 f"planned {planned} (vta_gemm {gemm})")
+        tokens = [t for rid in sorted(results) for t in results[rid]]
+        if (sorted(results) != list(range(LM_REQUESTS))
+                or any(len(results[r]) != LM_NEW for r in results)
+                or max(tokens) >= cfg.vocab or min(tokens) < 0):
+            raise AssertionError(f"LM serve: results {results}")
+        gens = server.generations
+        for gen in gens:
+            for logits in gen.logits:
+                if not torch.isfinite(logits[:, :cfg.vocab]).all():
+                    raise AssertionError("LM serve: a logit is not finite")
+        prefill_s = [gen.seconds[0] for gen in gens]
+        decode_s = sorted(s for gen in gens for s in gen.seconds[1:])
+        out.update({
+            "launches": launches, "serve_s": wall,
+            "tokens": len(tokens), "tokens_per_s": len(tokens) / wall,
+            "prefill_ms": [s * 1e3 for s in prefill_s],
+            "decode_ms_median": decode_s[len(decode_s) // 2] * 1e3,
+            "decode_ms_min": decode_s[0] * 1e3,
+            "decode_ms_max": decode_s[-1] * 1e3,
+            "steps_per_generation": [len(g.steps) for g in gens]})
+
+        # teacher-forced replay of generation 1 on the plain path
+        gen = gens[0]
+        diffs = []
+        before = ops.attention_launches
+        with torch.inference_mode(), layers.plain_attention():
+            t0 = time.perf_counter()
+            cache = init_cache(cfg, LM_BATCH, LM_MAX_SEQ, torch.float32, dev)
+            plain, cache = prefill(params, cfg,
+                                   torch.from_numpy(gen.prompts).to(dev),
+                                   cache)
+            torch.cuda.synchronize()
+            plain_prefill_s = time.perf_counter() - t0
+            want = [plain]
+            for fed, pos in gen.steps:
+                plain, cache = decode_step(
+                    params, cfg, cache,
+                    torch.from_numpy(fed.astype(np.int64)).to(dev), pos)
+                want.append(plain)
+            del cache
+        if ops.attention_launches != before:
+            raise AssertionError("the plain replay launched the kernel")
+        for i, (got, w) in enumerate(zip(gen.logits, want)):
+            w = w[:, :cfg.vocab]
+            err = float((got[:, :cfg.vocab] - w).abs().max())
+            scale = float(w.abs().max())
+            diffs.append({"call": "prefill" if i == 0 else f"decode {i}",
+                          "max_abs_diff": err, "max_abs_logit": scale})
+            if not err <= LM_TOL * scale:
+                raise AssertionError(
+                    f"LM {diffs[-1]['call']}: kernel path != plain path: "
+                    f"max |diff| {err:.3g} > {LM_TOL} × {scale:.3g}")
+        out["teacher_forced"] = {
+            "tolerance": f"{LM_TOL} x max |plain logit| a call",
+            "calls": diffs,
+            "max_abs_diff": max(d["max_abs_diff"] for d in diffs),
+            "max_rel_diff": max(d["max_abs_diff"] / d["max_abs_logit"]
+                                for d in diffs),
+            "plain_prefill_ms": plain_prefill_s * 1e3}
+        del want, plain, gens, server
+
+        # one prefill and one decode step under the profiler
+        with torch.inference_mode():
+            toks = torch.from_numpy(gen.prompts).to(dev)
+            cache = init_cache(cfg, LM_BATCH, LM_MAX_SEQ, torch.float32, dev)
+            out["profile_prefill"] = lm_profile(
+                lambda: prefill(params, cfg, toks, cache))
+            fed = torch.from_numpy(gen.steps[0][0].astype(np.int64)).to(dev)
+            pos = gen.steps[0][1]
+            decode_step(params, cfg, cache, fed, pos)      # warm
+            out["profile_decode"] = lm_profile(
+                lambda: decode_step(params, cfg, cache, fed, pos))
+            for key in ("profile_prefill", "profile_decode"):
+                prof = out[key]
+                want_n = cfg.n_layers * (
+                    fa.plan(*shape, *((toks.shape[1],) * 2), cfg.head_dim,
+                            torch.float32, sm_count=sms).launches
+                    if key == "profile_prefill" else
+                    fa.plan(*shape, 1, LM_MAX_SEQ, cfg.head_dim,
+                            torch.float32, q_offset=pos,
+                            sm_count=sms).launches)
+                if prof["attention_kernels"] not in (0, want_n):
+                    raise AssertionError(f"{key}: {prof['attention_kernels']}"
+                                         f" attention kernels traced, "
+                                         f"planned {want_n}")
+            del cache
+        del params
+    torch.cuda.empty_cache()
+
+    # the two calls of the path alone
+    d = cfg.head_dim
+    out["calls"] = [
+        lm_call_case(ops, ref, fa, "qwen2.5-3b LM prefill f32",
+                     (*shape, LM_PROMPT[1], LM_PROMPT[1], d), 0, sms, dev),
+        lm_call_case(ops, ref, fa, "qwen2.5-3b LM decode f32",
+                     (*shape, 1, LM_MAX_SEQ, d), LM_DECODE_POS, sms, dev)]
+
+    # bounds: decode reads every weight but the embedding table (4 of its
+    # rows) and the kept K/V; prefill's products on the CUDA cores
+    d_model, vp = cfg.d_model, cfg.vocab_padded
+    layer_params = n_params - 2 * vp * d_model
+    kv_bytes = (4 * cfg.n_layers * 2 * LM_BATCH * cfg.n_kv_heads
+                * (LM_PROMPT[1] + 1) * d)
+    decode_bytes = 4 * (n_params - vp * d_model + LM_BATCH * d_model) \
+        + kv_bytes
+    plen = max(len(p) for p in prompts[:LM_BATCH])
+    prefill_ops = (2 * layer_params * LM_BATCH * plen
+                   + 2 * d_model * vp * LM_BATCH
+                   + cfg.n_layers * 4 * LM_BATCH * cfg.n_heads * d
+                   * kept_pairs(plen, plen, True, None, 0))
+    out["bounds"] = {
+        "decode_weight_bytes_all": 4 * n_params,
+        "decode_bytes": decode_bytes,
+        "decode_ms": decode_bytes / HBM_BYTES_PER_S * 1e3,
+        "prefill_ops": prefill_ops,
+        "prefill_ms": prefill_ops / F32_OPS_PER_S * 1e3,
+        "prefill_tokens": LM_BATCH * plen}
+    bd = out["bounds"]
+    pp, pd = out["profile_prefill"], out["profile_decode"]
+    print(f"LM server ({card}): {LM_ARCH} full width, {n_params / 1e9:.3f} B "
+          f"float32 parameters (init {out['init_s']:.2f} s), "
+          f"{LM_REQUESTS} requests x {LM_NEW} tokens, prompts "
+          f"{out['prompt_lengths']}: {len(tokens)} tokens in {wall:.3f} s "
+          f"({out['tokens_per_s']:.2f} tokens/s); prefill "
+          + ", ".join(f"{t:.1f}" for t in out["prefill_ms"])
+          + f" ms a generation (plain-path replay "
+          f"{out['teacher_forced']['plain_prefill_ms']:.1f} ms); decode "
+          f"median {out['decode_ms_median']:.2f} ms a step (min "
+          f"{out['decode_ms_min']:.2f}, max {out['decode_ms_max']:.2f}); "
+          f"peak memory {out['peak_memory_bytes'] / 2**30:.2f} GiB")
+    print(f"  attention launches {launches} = planned {planned} over "
+          f"{calls} calls; teacher-forced kernel vs plain: max |diff| "
+          f"{out['teacher_forced']['max_abs_diff']:.3g} "
+          f"({out['teacher_forced']['max_rel_diff']:.3g} of max |logit|, "
+          f"limit {LM_TOL})")
+    print(f"  profiled prefill ({card}): attention kernels "
+          f"{pp['attention_kernel_ms']:.3f} ms of {pp['device_busy_ms']:.3f} "
+          f"ms device time, wall {pp['traced_wall_ms']:.3f} ms, idle share "
+          f"{pp['idle_share']:.4f}; decode step: attention "
+          f"{pd['attention_kernel_ms']:.4f} ms of {pd['device_busy_ms']:.3f} "
+          f"ms, wall {pd['traced_wall_ms']:.3f} ms, idle share "
+          f"{pd['idle_share']:.4f}")
+    print(f"  bounds: decode reads {bd['decode_bytes'] / 1e9:.2f} GB (all "
+          f"weights {bd['decode_weight_bytes_all'] / 1e9:.2f} GB) >= "
+          f"{bd['decode_ms']:.3f} ms at 3.35 TB/s; prefill of "
+          f"{bd['prefill_tokens']} tokens {bd['prefill_ops'] / 1e12:.2f} "
+          f"TFLOP >= {bd['prefill_ms']:.1f} ms at 67 TFLOP/s")
+    for row in out["calls"]:
+        print(f"  {row['case']} {tuple(row['shape_b_h_hkv_sq_skv_d'])} "
+              f"q_offset {row['q_offset']} ({card}): {row['path']} blocks "
+              f"{row['blocks']} splits {row['splits']} launches "
+              f"{row['launches']}: kernel {row['kernel_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}, share "
+              f"{row['share_of_bound']:.3f}), max |diff| "
+              f"{row['max_abs_err']:.3g}")
+    return out
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -2212,7 +2554,9 @@ def main() -> int:
         "plain_call_ms": attn_total("plain_call_ms"),
         "per": ("the attention path: one call at each of the eight full-width "
                 "cases (launches counts every kernel, the combine kernel "
-                "after a split too); ms = device time (CUDA-graph replay, "
+                "after a split too, and adds phase 15's LM serve: "
+                "launches_by_path; the LM path's two calls timed alone are "
+                "lm_calls); ms = device time (CUDA-graph replay, "
                 "200 calls a case), call_ms = back-to-back calls between "
                 "CUDA events; "
                 "library_ms is SDPA, with the boolean mask built once before "
@@ -2259,6 +2603,14 @@ def main() -> int:
                       ("guarded", "guarded_shadow")):
         entry["launches"] += record[key]["launches"]
         entry["launches_by_path"][path] = record[key]["launches"]
+    # -- 15. the LM server at full width -----------------------------------
+    record["lm_serve"] = lm_phase(ops, ref, attn_kernel, card, dev)
+    attn_entry = record["kernels"][1]
+    attn_entry["launches_by_path"] = {
+        "attention_path": attn_entry["launches"],
+        "lm_serve": record["lm_serve"]["launches"]}
+    attn_entry["launches"] += record["lm_serve"]["launches"]
+    attn_entry["lm_calls"] = record["lm_serve"]["calls"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,0 +1,307 @@
+"""Core neural layers (port of the reference's ``models/layers.py``).
+
+Norms, rotary embeddings, GQA attention and the MLP family (SwiGLU /
+GeGLU / squared-ReLU / GELU), config-driven, in torch on the tensors'
+device.  :func:`attention` picks the attention path by device: on CUDA
+tensors the hand-written ``flash_attention`` kernel
+(``repro_torch.kernels.ops.attention``), on CPU tensors the plain
+:func:`chunked_attention`, the reference's double-chunked online softmax
+with its chunk schedule.  There is no fallback from one to the other;
+:func:`plain_attention` runs the plain version on either device, for the
+card-side check of the kernel path.
+
+The reference's ``constrain``/``constrain_seq`` are sharding annotations,
+identities without a mesh: the port runs on one device and leaves them
+out.  Its ``grad_cast`` (a gradient-dtype boundary) is an identity in the
+forward pass, and so it is here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Dict, Iterator, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+from .config import ModelConfig
+from .params import ParamDef
+
+NEG_INF = -1e30
+
+_PLAIN = contextvars.ContextVar("plain_attention", default=False)
+
+
+@contextlib.contextmanager
+def plain_attention() -> Iterator[None]:
+    """Inside this scope every attention call of the model (prefill,
+    decode, cross and encoder attention) runs its plain torch version on
+    either device, not the kernel."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
+def uses_kernel(x: torch.Tensor) -> bool:
+    """True where attention over ``x``'s device launches the kernel."""
+    return x.device.type == "cuda" and not _PLAIN.get()
+
+
+def grad_cast(x: torch.Tensor) -> torch.Tensor:
+    """The reference's bf16 cotangent boundary; identity in the forward
+    pass.  Its backward returns with training."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": ParamDef((d,), (None,), init="ones"),
+                "bias": ParamDef((d,), (None,), init="zeros")}
+    return {"scale": ParamDef((d,), (None,), init="ones")}
+
+
+def norm_apply(p, cfg: ModelConfig, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x (..., S, D) rotate-half RoPE at absolute ``positions`` (S,)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.to(torch.float32)[:, None] * freqs[None, :]   # (S, half)
+    cos = torch.cos(ang)[None, None]
+    sin = torch.sin(ang)[None, None]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf1 * sin + xf2 * cos],
+                     -1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Double-chunked attention (flash-style, plain torch)
+# ---------------------------------------------------------------------------
+
+def _pick(n: int, target: int) -> int:
+    """Largest divisor of n that is ≤ target (whisper's 1500-frame encoder
+    and other non-power-of-2 lengths)."""
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0, q_chunk: int = 512,
+                      kv_chunk: int = 512,
+                      causal_skip: bool = False) -> torch.Tensor:
+    """Online-softmax attention, O(q_chunk·kv_chunk) live scores: the
+    reference's chunk schedule, step for step.
+
+    q (B, H, Sq, D); k/v (B, KV, Skv, D); GQA expands the KV *chunk* only.
+    ``causal_skip`` drops fully-masked (q, kv) chunk pairs from the
+    schedule instead of masking them (only with ``q_offset == 0``)."""
+    b, h, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = h // hkv
+    q_chunk = _pick(sq, q_chunk)
+    kv_chunk = _pick(skv, kv_chunk)
+    nq, nk = sq // q_chunk, skv // kv_chunk
+    scale = d ** -0.5
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q_i = q[:, :, qi * q_chunk:(qi + 1) * q_chunk].float()
+        qpos = (q_offset + qi * q_chunk
+                + torch.arange(q_chunk, device=dev))[:, None]
+        m = torch.full((b, h, q_chunk, 1), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, q_chunk, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, q_chunk, d), dtype=torch.float32, device=dev)
+        if causal_skip and causal and q_offset == 0:
+            # only kv chunks j ∈ [lo, qi] contribute: causality bounds the
+            # top, a sliding window the bottom
+            lo = (max(0, (qi * q_chunk - (window - 1)) // kv_chunk)
+                  if window is not None else 0)
+            js = range(lo, qi + 1)
+        else:
+            js = range(nk)
+        for j in js:
+            kj = k[:, :, j * kv_chunk:(j + 1) * kv_chunk]
+            vj = v[:, :, j * kv_chunk:(j + 1) * kv_chunk]
+            kj = kj.repeat_interleave(group, dim=1)        # (B, H, ck, D)
+            vj = vj.repeat_interleave(group, dim=1)
+            s = torch.einsum("bhqd,bhkd->bhqk", q_i, kj.float()) * scale
+            kpos = j * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= qpos >= kpos
+            if window is not None:
+                mask &= (qpos - kpos) < window
+            s = s.masked_fill(~mask[None, None], NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            # P·V in the input dtype with float32 accumulation, as the
+            # reference's flash discipline
+            acc = acc * alpha + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(vj.dtype).float(), vj.float())
+            m = m_new
+        safe = torch.where(l == 0.0, torch.ones_like(l), l)
+        outs.append((acc / safe).to(q.dtype))
+    return outs[0] if nq == 1 else torch.cat(outs, dim=2)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0, q_chunk: int = 512, kv_chunk: int = 512,
+              causal_skip: bool = False) -> torch.Tensor:
+    """Attention of q (B, H, Sq, D) over k/v (B, KV, Skv, D).  On CUDA
+    tensors the ``flash_attention`` kernel (contiguous operands, as it
+    takes them; ``q_offset`` from the host); on CPU tensors, or inside
+    :func:`plain_attention`, :func:`chunked_attention`."""
+    if uses_kernel(q):
+        return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal, window=window, q_offset=q_offset,
+                             backend="cuda")
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk, causal_skip=causal_skip)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def attention_defs(cfg: ModelConfig, *, cross: bool = False
+                   ) -> Dict[str, ParamDef]:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    defs = {
+        "wq": ParamDef((d, h * hd), ("fsdp", "tp")),
+        "wk": ParamDef((d, kv * hd), ("fsdp", "tp")),
+        "wv": ParamDef((d, kv * hd), ("fsdp", "tp")),
+        "wo": ParamDef((h * hd, d), ("tp", "fsdp")),
+    }
+    if cfg.qkv_bias and not cross:
+        defs["bq"] = ParamDef((h * hd,), ("tp",), init="zeros")
+        defs["bk"] = ParamDef((kv * hd,), ("tp",), init="zeros")
+        defs["bv"] = ParamDef((kv * hd,), ("tp",), init="zeros")
+    return defs
+
+
+def attention_qkv(p, cfg: ModelConfig, x: torch.Tensor,
+                  kv_input: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project to (q, k, v) with head layout (B, H, S, D) (transposed
+    views, not contiguous)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv_in = x if kv_input is None else kv_input
+    skv = kv_in.shape[1]
+    q = x @ p["wq"]
+    k = kv_in @ p["wk"]
+    v = kv_in @ p["wv"]
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, s, h, hd).transpose(1, 2)
+    k = k.reshape(b, skv, kv, hd).transpose(1, 2)
+    v = v.reshape(b, skv, kv, hd).transpose(1, 2)
+    return q, k, v
+
+
+def attention_window(cfg: ModelConfig, kind: str
+                     ) -> Tuple[Optional[int], float]:
+    """(window, RoPE theta) of an attention layer kind: 'attn' (global) |
+    'attn_local' | 'attn_swa'."""
+    if kind in ("attn_local", "attn_swa"):
+        return cfg.local_window, cfg.rope_theta
+    if kind == "attn" and cfg.rope_theta_global is not None:
+        return None, cfg.rope_theta_global
+    return None, cfg.rope_theta
+
+
+def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
+                    kind: str = "attn",
+                    positions: Optional[torch.Tensor] = None,
+                    kv_input: Optional[torch.Tensor] = None,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Full attention block: qkv → rope → attention → output proj.
+
+    kind selects window and (for gemma3) the RoPE theta.  ``kv_input``
+    switches to cross-attention (no RoPE on kv, non-causal)."""
+    b, s, _ = x.shape
+    q, k, v = attention_qkv(p, cfg, x, kv_input)
+    window, theta = attention_window(cfg, kind)
+    is_cross = kv_input is not None
+    if not is_cross:
+        if positions is None:
+            positions = q_offset + torch.arange(s, device=x.device)
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+    q, k, v = grad_cast(q), grad_cast(k), grad_cast(v)
+    out = attention(
+        q, k, v, causal=causal and not is_cross,
+        window=None if is_cross else window, q_offset=q_offset,
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+        causal_skip=cfg.causal_skip)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLP family
+# ---------------------------------------------------------------------------
+
+def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None
+             ) -> Dict[str, ParamDef]:
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        return {"wg": ParamDef((d, ff), ("fsdp", "tp")),
+                "wu": ParamDef((d, ff), ("fsdp", "tp")),
+                "wd": ParamDef((ff, d), ("tp", "fsdp"))}
+    return {"wu": ParamDef((d, ff), ("fsdp", "tp")),
+            "wd": ParamDef((ff, d), ("tp", "fsdp"))}
+
+
+def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        hmid = F.silu(x @ p["wg"]) * (x @ p["wu"])
+    elif cfg.act == "geglu":
+        hmid = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
+    elif cfg.act == "sq_relu":
+        r = torch.clamp(x @ p["wu"], min=0)
+        hmid = r * r                       # nemotron squared-ReLU
+    else:
+        hmid = F.gelu(x @ p["wu"], approximate="tanh")
+    return hmid @ p["wd"]

@@ -1,0 +1,225 @@
+"""Model assembly: decoder-only LMs and encoder-decoders (port of the
+reference's ``models/transformer.py``, the dense families).
+
+The layer stack is expressed as (pattern × repeats) + tail: the smallest
+repeating period of the per-layer schedule is detected and parameters for
+each pattern position are *stacked* over the repeats, as in the reference,
+so that its parameter tree carries over leaf for leaf
+(``params.params_from_numpy``).  Where the reference scans over the
+repeats, the forward pass here loops over them, taking each stacked leaf
+at ``[r]``.  Non-periodic tails apply as individual layers.
+
+RWKV-6 and Mamba layers and MoE feed-forwards are not ported yet
+(ROADMAP Queue 1 item 8b): :func:`block_defs` and :func:`block_apply`
+raise ``NotImplementedError`` for them, so such a config fails at
+:func:`model_defs`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from .config import ModelConfig
+from .layers import (attention_apply, attention_defs, mlp_apply, mlp_defs,
+                     norm_apply, norm_defs)
+from .params import ParamDef, tree_map
+
+NOT_PORTED = ("not ported yet: MoE, Mamba and RWKV-6 layers wait for "
+              "ROADMAP Queue 1 item 8b")
+
+
+def require_dense(kind: str, is_moe: bool) -> None:
+    """Raise ``NotImplementedError`` for a layer the port has no path
+    for (a recurrent kind or an MoE feed-forward)."""
+    if not kind.startswith("attn"):
+        if kind in ("rwkv6", "mamba"):
+            raise NotImplementedError(f"{kind} layers are {NOT_PORTED}")
+        raise ValueError(kind)
+    if is_moe:
+        raise NotImplementedError(f"MoE layers are {NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
+# Schedule → (pattern, repeats, tail)
+# ---------------------------------------------------------------------------
+
+def schedule_items(cfg: ModelConfig) -> List[Tuple[str, bool]]:
+    return list(zip(cfg.layer_schedule(), cfg.moe_layers()))
+
+
+def find_period(items: List[Tuple[str, bool]]) -> Tuple[int, int, int]:
+    """Smallest (period, repeats, tail) with items = pattern×repeats + tail
+    and repeats ≥ 1."""
+    n = len(items)
+    for p in range(1, n + 1):
+        reps = n // p
+        body = items[:reps * p]
+        if all(body[i] == body[i % p] for i in range(len(body))):
+            tail_start = reps * p
+            if all(items[tail_start + j] == items[j]
+                   for j in range(n - tail_start)):
+                return p, reps, n - tail_start
+    return n, 1, 0
+
+
+def stack_layout(cfg: ModelConfig
+                 ) -> Tuple[List[Tuple[str, bool]], int,
+                            List[Tuple[str, bool]]]:
+    """(pattern, repeats, tail items) of the layer stack: the pattern is
+    empty when nothing repeats (every layer in the tail)."""
+    items = schedule_items(cfg)
+    if cfg.scan_layers:
+        p, reps, _ = find_period(items)
+    else:
+        p, reps = len(items), 1
+    if reps <= 1:
+        return [], 0, items
+    return items[:p], reps, items[p * reps:]
+
+
+# ---------------------------------------------------------------------------
+# Per-layer defs
+# ---------------------------------------------------------------------------
+
+def block_defs(cfg: ModelConfig, kind: str, is_moe: bool, *,
+               cross: bool = False) -> Dict[str, Any]:
+    require_dense(kind, is_moe)
+    defs: Dict[str, Any] = {"norm1": norm_defs(cfg),
+                            "mix": attention_defs(cfg)}
+    if cross:
+        defs["norm_x"] = norm_defs(cfg)
+        defs["cross"] = attention_defs(cfg, cross=True)
+    defs["norm2"] = norm_defs(cfg)
+    defs["ffn"] = mlp_defs(cfg)
+    return defs
+
+
+def block_apply(bp, cfg: ModelConfig, h: torch.Tensor, kind: str,
+                is_moe: bool, *, enc_out: Optional[torch.Tensor] = None,
+                q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer; returns (h, moe_aux_scalar)."""
+    require_dense(kind, is_moe)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    hin = norm_apply(bp["norm1"], cfg, h)
+    h = h + attention_apply(bp["mix"], cfg, hin, kind=kind,
+                            q_offset=q_offset)
+    if enc_out is not None and "cross" in bp:
+        hx = norm_apply(bp["norm_x"], cfg, h)
+        h = h + attention_apply(bp["cross"], cfg, hx, kv_input=enc_out,
+                                causal=False)
+    hf = norm_apply(bp["norm2"], cfg, h)
+    h = h + mlp_apply(bp["ffn"], cfg, hf)
+    return h, aux
+
+
+# ---------------------------------------------------------------------------
+# Whole-model defs
+# ---------------------------------------------------------------------------
+
+def _stack_defs(defs, k: int):
+    return tree_map(lambda d: ParamDef((k,) + d.shape, (None,) + d.logical,
+                                       init=d.init, scale=d.scale), defs)
+
+
+def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    cross = cfg.encoder_layers > 0
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((cfg.vocab_padded, d), ("tp", "fsdp"), scale=1.0),
+        "final_norm": norm_defs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((d, cfg.vocab_padded), ("fsdp", "tp"))
+    pattern, reps, tail = stack_layout(cfg)
+    defs["blocks"] = [
+        _stack_defs(block_defs(cfg, kind, moe, cross=cross), reps)
+        for kind, moe in pattern]
+    defs["tail"] = [block_defs(cfg, kind, moe, cross=cross)
+                    for kind, moe in tail]
+    if cfg.encoder_layers:
+        enc_cfg = dataclasses.replace(cfg, qkv_bias=False)
+        enc_block = {
+            "norm1": norm_defs(cfg), "mix": attention_defs(enc_cfg),
+            "norm2": norm_defs(cfg), "ffn": mlp_defs(cfg),
+        }
+        defs["encoder"] = {
+            "pos": ParamDef((cfg.encoder_seq, d), (None, "fsdp"), scale=0.02),
+            "blocks": _stack_defs(enc_block, cfg.encoder_layers),
+            "final_norm": norm_defs(cfg),
+        }
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def layer_slice(tree, r: int):
+    """Repeat ``r`` of a stacked tree: every leaf indexed at ``[r]``
+    (views, so a cache written through them is written in place)."""
+    return tree_map(lambda x: x[r], tree, lambda x: isinstance(
+        x, torch.Tensor))
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over precomputed frame embeddings (the conv
+    frontend is a stub, as in the reference).  frames (B, T, d)."""
+    enc = params["encoder"]
+    h = frames + enc["pos"][None, :frames.shape[1]]
+    enc_cfg = dataclasses.replace(cfg, qkv_bias=False)
+    for r in range(cfg.encoder_layers):
+        bp = layer_slice(enc["blocks"], r)
+        hin = norm_apply(bp["norm1"], cfg, h)
+        h = h + attention_apply(bp["mix"], enc_cfg, hin, causal=False)
+        hf = norm_apply(bp["norm2"], cfg, h)
+        h = h + mlp_apply(bp["ffn"], cfg, hf)
+    return norm_apply(enc["final_norm"], cfg, h)
+
+
+def embed(params, tokens: torch.Tensor,
+          prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token ids (B, S) → embeddings, after an optional modality prefix
+    (B, P, d)."""
+    table = params["embed"]
+    h = table[tokens.to(device=table.device, dtype=torch.long)]
+    if prefix_embed is not None:
+        h = torch.cat([prefix_embed.to(h.dtype), h], dim=1)
+    return h
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            prefix_embed: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None,
+            q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token ids (B, S) [+ optional modality prefix embeddings (B, P, d)]
+    → (hidden states (B, S(+P), d), moe aux loss scalar)."""
+    pattern, reps, tail_items = stack_layout(cfg)
+    h = embed(params, tokens, prefix_embed)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for r in range(reps):
+        bp_slice = layer_slice(params["blocks"], r)
+        for pos, (kind, moe) in enumerate(pattern):
+            h, a = block_apply(bp_slice[pos], cfg, h, kind, moe,
+                               enc_out=enc_out, q_offset=q_offset)
+            aux_total = aux_total + a
+    for bp, (kind, moe) in zip(params["tail"], tail_items):
+        h, a = block_apply(bp, cfg, h, kind, moe, enc_out=enc_out,
+                           q_offset=q_offset)
+        aux_total = aux_total + a
+    h = norm_apply(params["final_norm"], cfg, h)
+    return h, aux_total
+
+
+def unembed_logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """h (..., d) → logits (..., vocab_padded); padding columns (≥ vocab)
+    are masked to -1e30."""
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].T
+    else:
+        logits = h @ params["unembed"]
+    if cfg.vocab_padded != cfg.vocab:
+        logits[..., cfg.vocab:] = -1e30
+    return logits

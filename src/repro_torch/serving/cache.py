@@ -1,0 +1,109 @@
+"""KV caches for LM serving (port of the reference's ``serving/cache.py``,
+the attention kinds).
+
+Two cache kinds, chosen per layer from the architecture's schedule:
+
+* **dense**    — (B, KV, S_max, D) k/v for global-attention layers;
+* **windowed** — (B, KV, W, D) ring buffer with absolute-position slots
+  (``slot_pos``, shared across the batch) for SWA / local-attention layers.
+
+The recurrent kinds (Mamba, RWKV-6) are not ported yet and raise
+``NotImplementedError`` (ROADMAP Queue 1 item 8b).  Caches are built with
+the same (pattern × repeats) stacking as the model parameters, on an
+explicit device; :mod:`repro_torch.serving.engine` writes them in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import NOT_PORTED, stack_layout
+
+
+def layer_cache_kind(cfg: ModelConfig, kind: str) -> str:
+    if kind == "attn":
+        return "dense"
+    if kind in ("attn_local", "attn_swa"):
+        return "windowed"
+    return kind                               # mamba | rwkv6
+
+
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: DeviceLike = None) -> Dict[str, Any]:
+    device = resolve_device(device)
+    ck = layer_cache_kind(cfg, kind)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    if ck == "dense":
+        return {"k": torch.zeros((batch, kv, max_seq, hd), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((batch, kv, max_seq, hd), dtype=dtype,
+                                 device=device)}
+    if ck == "windowed":
+        w = min(cfg.local_window, max_seq)
+        return {"k": torch.zeros((batch, kv, w, hd), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((batch, kv, w, hd), dtype=dtype,
+                                 device=device),
+                "slot_pos": torch.full((w,), -1, dtype=torch.int32,
+                                       device=device)}
+    if ck in ("mamba", "rwkv6"):
+        raise NotImplementedError(f"{ck} caches are {NOT_PORTED}")
+    raise ValueError(kind)
+
+
+def cache_logical(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    """Logical sharding of each cache leaf (the reference's names)."""
+    ck = layer_cache_kind(cfg, kind)
+    if ck == "dense":
+        return {"k": ("batch", None, "seq", None),
+                "v": ("batch", None, "seq", None)}
+    if ck == "windowed":
+        return {"k": ("batch", None, None, None),
+                "v": ("batch", None, None, None),
+                "slot_pos": (None,)}
+    if ck in ("mamba", "rwkv6"):
+        raise NotImplementedError(f"{ck} caches are {NOT_PORTED}")
+    raise ValueError(kind)
+
+
+@dataclasses.dataclass
+class CacheTree:
+    """blocks: list (pattern position) of stacked caches (leading repeats
+    dim); tail: list of per-layer caches.  Mirrors params structure."""
+
+    blocks: List[Any]
+    tail: List[Any]
+
+
+def _stack(trees: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return {key: torch.stack([t[key] for t in trees]) for key in trees[0]}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = None) -> CacheTree:
+    device = resolve_device(device)
+    pattern, reps, tail = stack_layout(cfg)
+    blocks = [_stack([init_layer_cache(cfg, kind, batch, max_seq, dtype,
+                                       device) for _ in range(reps)])
+              for kind, _ in pattern]
+    tail_caches = [init_layer_cache(cfg, kind, batch, max_seq, dtype, device)
+                   for kind, _ in tail]
+    return CacheTree(blocks=blocks, tail=tail_caches)
+
+
+def cache_logical_tree(cfg: ModelConfig) -> CacheTree:
+    pattern, _, tail = stack_layout(cfg)
+
+    def stacked(kind):
+        return {key: (None,) + lg
+                for key, lg in cache_logical(cfg, kind).items()}
+
+    return CacheTree(blocks=[stacked(kind) for kind, _ in pattern],
+                     tail=[cache_logical(cfg, kind) for kind, _ in tail])

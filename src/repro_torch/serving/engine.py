@@ -1,0 +1,226 @@
+"""LM serving engine: prefill + single-token decode over the cache tree
+(port of the reference's ``serving/engine.py``, the attention kinds).
+
+``prefill``     — runs the prompt through the parallel forward while
+writing each layer's cache; returns the last-position logits and the
+filled cache.
+
+``decode_step`` — one new token against the caches.  A dense layer on CUDA
+tensors runs the ``flash_attention`` kernel over the whole contiguous cache
+(B, KV, S_max, D) with ``causal=True`` and ``q_offset=pos``: its causal
+mask keeps exactly the reference's ``arange(S_max) <= pos``, and the plan's
+kept range keeps it from reading tiles above ``pos``.  On CPU tensors (or
+inside ``layers.plain_attention``) it runs :func:`_attn_scores_decode`, the
+reference's masked softmax over the whole cache.  A windowed ring buffer's
+slots are not in position order, so its decode stays on
+:func:`_attn_scores_decode` on either device.
+
+Where the reference scans over the stacked repeats, this loops over them.
+Caches are written in place (each stacked leaf through its ``[r]`` view)
+and returned; ``pos`` is a host int, so no position is read back from the
+device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (attention, attention_apply,
+                                       attention_qkv, attention_window,
+                                       mlp_apply, norm_apply, rope,
+                                       uses_kernel)
+from repro_torch.models.transformer import (embed, encode, layer_slice,
+                                            require_dense, stack_layout,
+                                            unembed_logits)
+from repro_torch.kernels import ops
+
+from .cache import CacheTree, init_cache, layer_cache_kind
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Attention over caches
+# ---------------------------------------------------------------------------
+
+def _attn_scores_decode(cfg: ModelConfig, q: torch.Tensor,
+                        k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """Plain decode attention: q (B,H,1,D); cache (B,KV,S,D); mask
+    broadcastable to (B,KV,group,S), True where a slot is kept."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    b, h, _, hd = q.shape
+    kv = cfg.n_kv_heads
+    qg = q.reshape(b, kv, group, hd)
+    s = torch.einsum("bkgd,bksd->bkgs", qg.float(),
+                     k_cache.float()) * (hd ** -0.5)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
+    return o.reshape(b, h, 1, hd).to(q.dtype)
+
+
+def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: int
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, 1, d); returns (out (B, 1, d), cache written in place)."""
+    b = x.shape[0]
+    _, theta = attention_window(cfg, kind)
+    q, k, v = attention_qkv(bp, cfg, x)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posv, theta)
+    k = rope(k, posv, theta)
+
+    if layer_cache_kind(cfg, kind) == "dense":
+        cache["k"][:, :, pos:pos + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, :, pos:pos + 1] = v.to(cache["v"].dtype)
+        if uses_kernel(q):          # the kernel takes one dtype: the cache's
+            o = ops.attention(q.to(cache["k"].dtype).contiguous(),
+                              cache["k"], cache["v"], causal=True,
+                              q_offset=pos, backend="cuda").to(q.dtype)
+        else:
+            s_max = cache["k"].shape[2]
+            mask = (torch.arange(s_max, device=x.device)
+                    <= pos)[None, None, None, :]
+            o = _attn_scores_decode(cfg, q, cache["k"], cache["v"], mask)
+    else:                                       # windowed ring buffer
+        w = cache["k"].shape[2]
+        slot = pos % w
+        cache["k"][:, :, slot:slot + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, :, slot:slot + 1] = v.to(cache["v"].dtype)
+        cache["slot_pos"][slot] = pos
+        slot_pos = cache["slot_pos"]
+        valid = (slot_pos >= 0) & (pos - slot_pos < cfg.local_window)
+        o = _attn_scores_decode(cfg, q, cache["k"], cache["v"],
+                                valid[None, None, None, :])
+    out = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return out @ bp["wo"], cache
+
+
+def attn_prefill(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], q_offset: int = 0
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Parallel attention over the prompt + cache write.  x (B, S, d)."""
+    b, s, _ = x.shape
+    window, theta = attention_window(cfg, kind)
+    q, k, v = attention_qkv(bp, cfg, x)
+    posv = q_offset + torch.arange(s, device=x.device)
+    q = rope(q, posv, theta)
+    k = rope(k, posv, theta)
+    o = attention(q, k, v, causal=True, window=window, q_offset=q_offset,
+                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                  causal_skip=cfg.causal_skip)
+    if layer_cache_kind(cfg, kind) == "dense":
+        cache["k"][:, :, q_offset:q_offset + s] = k.to(cache["k"].dtype)
+        cache["v"][:, :, q_offset:q_offset + s] = v.to(cache["v"].dtype)
+    else:
+        w = cache["k"].shape[2]
+        take = min(w, s)
+        pos_tail = posv[-take:]
+        slots = pos_tail % w
+        cache["k"][:, :, slots] = k[:, :, -take:].to(cache["k"].dtype)
+        cache["v"][:, :, slots] = v[:, :, -take:].to(cache["v"].dtype)
+        cache["slot_pos"][slots] = pos_tail.to(torch.int32)
+    out = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return out @ bp["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# Per-layer prefill / decode
+# ---------------------------------------------------------------------------
+
+def _block(bp, cfg: ModelConfig, h, kind: str, is_moe: bool, mix_fn,
+           enc_out):
+    require_dense(kind, is_moe)
+    hin = norm_apply(bp["norm1"], cfg, h)
+    mix, cache = mix_fn(hin)
+    h = h + mix
+    if enc_out is not None and "cross" in bp:
+        hx = norm_apply(bp["norm_x"], cfg, h)
+        h = h + attention_apply(bp["cross"], cfg, hx, kv_input=enc_out,
+                                causal=False)
+    hf = norm_apply(bp["norm2"], cfg, h)
+    return h + mlp_apply(bp["ffn"], cfg, hf), cache
+
+
+def block_prefill(bp, cfg: ModelConfig, h, kind: str, is_moe: bool, cache,
+                  *, enc_out=None, q_offset: int = 0):
+    return _block(bp, cfg, h, kind, is_moe,
+                  lambda hin: attn_prefill(bp["mix"], cfg, kind, hin, cache,
+                                           q_offset=q_offset), enc_out)
+
+
+def block_decode(bp, cfg: ModelConfig, h, kind: str, is_moe: bool, cache,
+                 pos: int, *, enc_out=None):
+    return _block(bp, cfg, h, kind, is_moe,
+                  lambda hin: attn_decode(bp["mix"], cfg, kind, hin, cache,
+                                          pos), enc_out)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model prefill / decode
+# ---------------------------------------------------------------------------
+
+def _layers(params, cfg: ModelConfig, cache: CacheTree):
+    """Every layer in order: (params, cache, kind, is_moe), stacked leaves
+    taken at their repeat."""
+    pattern, reps, tail_items = stack_layout(cfg)
+    for r in range(reps):
+        bp_slice = layer_slice(params["blocks"], r)
+        cache_slice = layer_slice(cache.blocks, r)
+        for posn, (kind, moe) in enumerate(pattern):
+            yield bp_slice[posn], cache_slice[posn], kind, moe
+    for bp, c, (kind, moe) in zip(params["tail"], cache.tail, tail_items):
+        yield bp, c, kind, moe
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: CacheTree, *, prefix_embed=None, frames=None
+            ) -> Tuple[torch.Tensor, CacheTree]:
+    """Prompt (B, S) → (last-token logits (B, vocab_padded), the caches
+    filled in place)."""
+    enc_out = encode(params, cfg, frames) if cfg.encoder_layers else None
+    h = embed(params, tokens, prefix_embed)
+    for bp, c, kind, moe in _layers(params, cfg, cache):
+        h, _ = block_prefill(bp, cfg, h, kind, moe, c, enc_out=enc_out)
+    h = norm_apply(params["final_norm"], cfg, h)
+    return unembed_logits(params, cfg, h[:, -1]), cache
+
+
+def decode_step(params, cfg: ModelConfig, cache: CacheTree,
+                tokens: torch.Tensor, pos: int, *, enc_out=None
+                ) -> Tuple[torch.Tensor, CacheTree]:
+    """One token per sequence.  tokens (B,), ``pos`` the host int position
+    of the new token.  Returns (logits (B, vocab_padded), the caches
+    written in place)."""
+    pos = int(pos)
+    h = embed(params, tokens[:, None])
+    for bp, c, kind, moe in _layers(params, cfg, cache):
+        h, _ = block_decode(bp, cfg, h, kind, moe, c, pos, enc_out=enc_out)
+    h = norm_apply(params["final_norm"], cfg, h)
+    return unembed_logits(params, cfg, h[:, 0]), cache
+
+
+def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int,
+             max_seq: int, *, dtype: torch.dtype = torch.bfloat16,
+             frames=None, prefix_embed=None) -> torch.Tensor:
+    """Greedy generation driver (examples / tests): (B, n_tokens)."""
+    b, s = prompt.shape
+    device = params["embed"].device
+    cache = init_cache(cfg, b, max_seq, dtype, device)
+    logits, cache = prefill(params, cfg, prompt, cache, frames=frames,
+                            prefix_embed=prefix_embed)
+    enc_out = encode(params, cfg, frames) if cfg.encoder_layers else None
+    tok = torch.argmax(logits, -1)
+    tokens = [tok]
+    pos = s + (prefix_embed.shape[1] if prefix_embed is not None else 0)
+    for _ in range(n_tokens - 1):
+        logits, cache = decode_step(params, cfg, cache, tok, pos,
+                                    enc_out=enc_out)
+        tok = torch.argmax(logits, -1)
+        tokens.append(tok)
+        pos += 1
+    return torch.stack(tokens, 1)

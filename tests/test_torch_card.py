@@ -439,3 +439,67 @@ def test_interpreters_on_the_card_match_the_host(model):
     assert ([(r.acc_overflow_lanes, r.acc_saturation_lanes) for r in reps]
             == [(r.acc_overflow_lanes, r.acc_saturation_lanes)
                 for r in host_reps])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, cache_dtype, tol", [
+    (torch.float32, torch.float32, 1e-4),
+    # bf16 rounds the residual stream at every op (2^-8 relative) and the
+    # kernel holds 4e-3 + 2^-7 a call: a 3-layer model stays within 5e-2
+    (torch.bfloat16, torch.bfloat16, 5e-2),
+    # bf16 weights over a float32 cache: decode casts q to the cache's
+    # dtype for the kernel
+    (torch.bfloat16, torch.float32, 5e-2)])
+def test_lm_prefill_and_decode_kernel_matches_plain(dtype, cache_dtype, tol):
+    """qwen2.5 smoke on the card: prefill and 3 teacher-forced decode
+    steps through the ``flash_attention`` kernel against the same steps
+    on the plain path (``layers.plain_attention``), logits within ``tol``
+    × max(1, max |logit|); the attention launches equal the sum of the
+    plans' launches, one plan a layer and call (prefill in the weights'
+    dtype, decode in the cache's)."""
+    dev = _card()
+    from repro_torch.configs import get_smoke
+    from repro_torch.device import strict_float32
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.engine import decode_step, prefill
+
+    cfg = get_smoke("qwen2.5-3b")
+    b, s, max_seq = 2, 20, 48
+    params = init_params(model_defs(cfg), seed=0, dtype=dtype, device=dev)
+    rng = np.random.default_rng(11)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (3, b))).to(dev)
+    sms = fa.device_sm_count(dev)
+    shape = (b, cfg.n_heads, cfg.n_kv_heads)
+    planned = cfg.n_layers * (
+        fa.plan(*shape, s, s, cfg.head_dim, dtype, sm_count=sms).launches
+        + sum(fa.plan(*shape, 1, max_seq, cfg.head_dim, cache_dtype,
+                      q_offset=s + t, sm_count=sms).launches
+              for t in range(3)))
+
+    def run():
+        cache = init_cache(cfg, b, max_seq, cache_dtype, dev)
+        logits, cache = prefill(params, cfg, prompt, cache)
+        out = [logits]
+        for t in range(3):
+            logits, cache = decode_step(params, cfg, cache, steps[t], s + t)
+            out.append(logits)
+        return out
+
+    with strict_float32(), torch.inference_mode():
+        before = ops.attention_launches
+        got = run()
+        torch.cuda.synchronize()
+        launched = ops.attention_launches - before
+        with layers.plain_attention():
+            want = run()
+        assert ops.attention_launches - before == launched == planned
+    for g, w in zip(got, want):
+        g, w = g[:, :cfg.vocab].float(), w[:, :cfg.vocab].float()
+        assert torch.isfinite(g).all()
+        bound = tol * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= bound

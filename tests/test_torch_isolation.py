@@ -8,7 +8,8 @@
   on ``device="cpu"``, serves a guarded LeNet-5 batch on the batched
   interpreter (a fault injected, detected and recovered), replays a short
   trace through the serving engine, runs the projection driver and
-  trains, quantises and serves a float LeNet-5;
+  trains, quantises and serves a float LeNet-5, and runs the LM server
+  (``python -m repro_torch.launch.serve --arch lm100m --device cpu``);
 * with no CUDA card, entry points and drivers called without a device
   raise :class:`~repro_torch.device.NoDeviceError` before any work runs
   (the serving engine before any thread starts).
@@ -60,7 +61,10 @@ def test_no_module_imports_jax_or_repro():
             "quantize/models.py", "quantize/evaluate.py",
             "quantize_eval.py", "vta_lm_projection.py",
             "core/fast_simulator.py", "harden/__init__.py",
-            "harden/faults.py", "harden/guards.py"} <= names
+            "harden/faults.py", "harden/guards.py", "configs/__init__.py",
+            "configs/qwen2_5_3b.py", "models/config.py", "models/params.py",
+            "models/layers.py", "models/transformer.py", "serving/cache.py",
+            "serving/engine.py", "launch/serve.py"} <= names
     bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
            for path in files for line, name in _imports(path)
            if _forbidden(name)]
@@ -122,6 +126,18 @@ x, y = digit_dataset(64, seed=0)
 params = train_float("lenet5", x, y, epochs=1, device="cpu")
 qm = quantize_network(float_model("lenet5", params), x[:4], margin=0)
 acc = int8_top1(qm.compile(), x[:16], y[:16], batch=8, device="cpu")
+import runpy
+argv = sys.argv
+sys.argv = ["serve", "--arch", "lm100m", "--device", "cpu"]
+try:
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        try:
+            runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+        except SystemExit as done:
+            assert done.code == 0, done.code
+finally:
+    sys.argv = argv
+assert said.getvalue().startswith("served 6 requests, 96 tokens"), said.getvalue()
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
@@ -217,7 +233,7 @@ DRIVER_ARGS = {
     "serve_vta": ["--requests", "2"], "resnet_e2e": ["--requests", "2"],
     "cifar10_cnn_e2e": ["--requests", "2"],
     "quantize_eval": ["--net", "lenet5", "--train-n", "64"],
-    "vta_lm_projection": []}
+    "vta_lm_projection": [], "launch.serve": ["--arch", "lm100m"]}
 
 
 @pytest.mark.parametrize("module", list(DRIVER_ARGS))
@@ -280,3 +296,33 @@ def test_front_door_without_card_raises(monkeypatch):
         with pytest.raises(tdevice.NoDeviceError):
             call()
     assert drawn == [] and not net._device_images
+
+
+def test_lm_server_without_card_raises(monkeypatch):
+    """No card and no device named: the LM server, its ``main``, the
+    parameter and cache builders raise :class:`NoDeviceError` before any
+    prefill or decode runs."""
+    from repro_torch import device as tdevice
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.serving import cache
+
+    cfg = get_smoke("lm100m")
+    params = init_params(model_defs(cfg), seed=0, dtype=torch.float32,
+                         device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    work = []
+    for name in ("prefill", "decode_step", "init_params", "init_cache"):
+        monkeypatch.setattr(serve, name,
+                            lambda *a, name=name, **kw: work.append(name))
+    with pytest.raises(tdevice.NoDeviceError):
+        serve.Server(cfg, params)
+    with pytest.raises(tdevice.NoDeviceError):
+        serve.main(["--arch", "lm100m"])
+    with pytest.raises(tdevice.NoDeviceError):
+        init_params(model_defs(cfg), seed=0)
+    with pytest.raises(tdevice.NoDeviceError):
+        cache.init_cache(cfg, 2, 16)
+    assert work == []
