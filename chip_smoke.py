@@ -190,7 +190,34 @@ In order it:
    calls of the path timed alone (kernel, plain, SDPA, bound; their
    launches and times in the ``flash_attention`` entry as ``lm_calls``,
    the serve's launches added to its ``launches``; ``lm_serve`` in the
-   record).
+   record);
+16. runs the paper's §3.4 quickstart (``python -m repro_torch.quickstart``:
+   ReLU(A·B) at 16×16 on the oracle and on one ``vta_gemm`` launch, bit for
+   bit); runs the card test of the eleven LM smoke configs
+   (``tests/test_torch_card.py -k lm_prefill_and_decode`` in a pytest
+   process: the seven dense ones, mixtral, moonshot, jamba and rwkv6, each
+   in float32, bf16 and bf16 over a float32 cache, kernel path against the
+   plain path, launches against the plans; qwen1.5-110b smoke's head dim 8
+   runs padded to 16); serves moonshot-v1-16b-a3b at full width (48
+   layers, d 2048, 16 heads, head dim 128, 64 experts top-6, d_ff 1408,
+   vocab 163840; seeded bf16 weights, 28.06 B parameters) through the LM
+   ``Server`` (batch 4, ``max_seq`` 1280, bf16 cache): 8 requests of
+   768–1024 prompt tokens (seed 16), 16 new tokens each, two generations;
+   attention launches equal to the plans' sum (``bf16_tiles`` prefill,
+   ``bf16_split`` decode), logits finite, tokens in the vocabulary; a
+   kernel-path replay of generation 1 with every attention call held to
+   its plain version on its own operands; the plain-path replay's logits
+   against ``MOE_TOL`` with the router-flip share of each call (reported);
+   prefill and decode times, tokens/s, peak memory, a profiled prefill and
+   decode step, the bounds, and the two attention calls alone against
+   their bound and SDPA (``moe_serve``; its calls added to the attention
+   entry's ``lm_calls``); then frees those weights and serves rwkv6-7b at
+   full width (32 layers, d 4096, seeded float32 weights, 7.53 B
+   parameters, TF32 off): one generation of 4 prompts (the longest a
+   multiple of the WKV chunk) and 16 new tokens, logits finite, and a
+   960-token prefill plus 64 teacher-forced decode steps leaving every
+   layer's ``wkv`` state and the last logits within ``RWKV_TOL`` of one
+   1024-token prefill (``rwkv_serve``).
 
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
 the last line.  Any failure raises and exits non-zero.  The last line is
@@ -198,9 +225,11 @@ the last line.  Any failure raises and exits non-zero.  The last line is
 The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -1791,11 +1820,14 @@ LM_TOL = 1e-3
 LM_DECODE_POS = 1000               # the decode call timed alone
 
 
+ATTN_KERNEL_NAMES = ("f32_kernel", "tiles_kernel", "split_kernel",
+                     "combine_kernel")      # the attention sources' kernels
+
+
 def lm_profile(fn) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: the float32 attention
-    kernels' device time (``f32_kernel`` and ``combine_kernel``), every
-    device event's, the host clock of the traced call and the idle
-    share."""
+    """One call of ``fn`` under ``torch.profiler``: the attention kernels'
+    device time (``ATTN_KERNEL_NAMES``), every device event's, the host
+    clock of the traced call and the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1807,27 +1839,35 @@ def lm_profile(fn) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     attn = [e for e in events
-            if "f32_kernel" in e.name or "combine_kernel" in e.name]
+            if any(name in e.name for name in ATTN_KERNEL_NAMES)]
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"attention_kernel_ms": sum(e.time_range.elapsed_us()
                                        for e in attn) / 1e3,
             "attention_kernels": len(attn),
             "device_busy_ms": busy_ms, "traced_wall_ms": wall,
-            "idle_share": 1.0 - busy_ms / wall}
+            "idle_share": 1.0 - busy_ms / wall,
+            "device_events": len(events),
+            "top_device_ops": [{"name": name[:90], "ms": ms, "count": n}
+                               for name, (ms, n) in top]}
 
 
-def lm_call_case(ops, ref, fa, name, shape, q_offset, sms, dev) -> dict:
-    """One attention call of the LM path alone, float32 at its shape:
-    kernel against ``ref.attention_ref`` (2e-5), device times of the
-    kernel, the plain version and SDPA (causal: ``is_causal``; decode: an
-    explicit bool mask, built before timing), its launches and bound (the
-    keys the masks keep, read once)."""
+def lm_call_case(ops, ref, fa, name, shape, q_offset, sms, dev,
+                 dtype=torch.float32) -> dict:
+    """One attention call of the LM path alone at its shape and dtype:
+    kernel against ``ref.attention_ref`` (``ATTN_TOL``), device times of
+    the kernel, the plain version and SDPA (causal: ``is_causal``; decode:
+    an explicit bool mask, built before timing), its launches and bound
+    (the keys the masks keep, read once)."""
     import torch.nn.functional as F
     b, h, hkv, sq, skv, d = shape
-    x = attention_inputs(np.random.default_rng(150), shape, torch.float32,
-                         dev)
+    x = attention_inputs(np.random.default_rng(150), shape, dtype, dev)
     kw = dict(causal=True, window=None, q_offset=q_offset)
-    p = fa.plan(*shape, torch.float32, **kw, sm_count=sms)
+    p = fa.plan(*shape, dtype, **kw, sm_count=sms)
     before = ops.attention_launches
     got = ops.attention(*x, **kw)
     launches = ops.attention_launches - before
@@ -1844,24 +1884,24 @@ def lm_call_case(ops, ref, fa, name, shape, q_offset, sms, dev) -> dict:
         lib = lambda: F.scaled_dot_product_attention(
             *x, attn_mask=mask, scale=d ** -0.5, enable_gqa=True)
     lib_err = attention_err(lib(), want, SDPA_TOL)["max_abs_err"]
-    kept = min(skv, q_offset + sq)
-    t_bound, bound_by = attention_bound(dict(
-        shape=(b, h, hkv, sq, kept, d), dtype=torch.float32, causal=True,
-        window=None, q_offset=q_offset))
+    kept = dict(shape=(b, h, hkv, sq, min(skv, q_offset + sq), d),
+                dtype=dtype, causal=True, window=None, q_offset=q_offset)
+    t_bound, bound_by = attention_bound(kept)
     row = {"case": name, "shape_b_h_hkv_sq_skv_d": list(shape),
+           "dtype": str(dtype).replace("torch.", ""),
            "q_offset": q_offset, "path": p.path, "blocks": p.blocks,
            "splits": p.splits, "launches": launches,
            "max_abs_err": st["max_abs_err"],
+           "mismatch_share": st["mismatch_share"],
            "kernel_ms": graph_ms(lambda: ops.attention(*x, **kw),
                                  *ATTN_WINDOW),
            "plain_ms": graph_ms(lambda: ref.attention_ref(*x, **kw),
                                 *ATTN_WINDOW),
            "library_ms": graph_ms(lib, *ATTN_WINDOW),
            "library_max_abs_err": lib_err,
-           "bound_ms": t_bound, "bound_by": bound_by,
-           "bound_cuda_cores_ms": attention_bound(dict(
-               shape=(b, h, hkv, sq, kept, d), dtype=torch.float32,
-               causal=True, window=None, q_offset=q_offset), True)[0]}
+           "bound_ms": t_bound, "bound_by": bound_by}
+    if dtype == torch.float32:
+        row["bound_cuda_cores_ms"] = attention_bound(kept, True)[0]
     row["share_of_bound"] = t_bound / row["kernel_ms"]
     return row
 
@@ -2096,6 +2136,517 @@ def lm_phase(ops, ref, fa, card: str, dev) -> dict:
               f"{row['bound_ms']:.4f} ({row['bound_by']}, share "
               f"{row['share_of_bound']:.3f}), max |diff| "
               f"{row['max_abs_err']:.3g}")
+    return out
+
+
+# -- phase 16: MoE, Mamba and RWKV-6 on the card ------------------------------
+
+MOE_ARCH = "moonshot-v1-16b-a3b"   # src/repro_torch/configs/
+MOE_BATCH, MOE_MAX_SEQ = 4, 1280
+MOE_REQUESTS, MOE_NEW = 8, 16      # two generations of four
+MOE_PROMPT = (768, 1024)           # prompt lengths, drawn from seed 16
+# bf16 kernel path against the bf16 plain path, teacher-forced on the
+# serve's routing: each call's max |diff| of logits against MOE_TOL × its
+# max |plain logit| (PERF.md, written before the first run).  Reported, with
+# the router-flip share: bf16 rounding through 48 random layers is expected
+# to decorrelate the two paths' logits; the gate is every attention call of
+# the path held to its plain version on its own operands
+MOE_TOL = 5e-2
+MOE_DECODE_POS = 1000              # the decode call timed alone
+RWKV_ARCH = "rwkv6-7b"
+RWKV_BATCH, RWKV_NEW = 4, 16
+RWKV_PROMPT = (768, 1024)          # drawn from seed 16; longest rounded up
+                                   # to a multiple of the WKV chunk (64)
+RWKV_SPLIT = (960, 64)             # prefill + teacher-forced steps = 1024
+RWKV_TOL = 1e-3                    # of max |value|: wkv states, logits
+SMOKE_CARD_CASES = 33              # 11 smoke configs × 3 dtype pairs
+
+
+def quickstart_phase(ops, dev) -> dict:
+    """The paper's §3.4 example (``python -m repro_torch.quickstart``) on
+    the card: the oracle and one ``vta_gemm`` launch, bit for bit."""
+    import contextlib
+    import io
+    from repro_torch import quickstart
+    ops.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = quickstart.main(["--device", str(dev)])
+    launches = ops.launches
+    text = said.getvalue()
+    if rc != 0 or launches != 1 or "cuda (cuda:0): bit-exact" not in text:
+        raise AssertionError(f"quickstart: rc {rc}, {launches} vta_gemm "
+                             f"launches:\n{text}")
+    print(f"quickstart (§3.4, ReLU(A·B) 16x16): oracle and cuda bit-exact, "
+          f"{launches} vta_gemm launch")
+    return {"launches": launches, "bit_exact": True}
+
+
+def smoke_card_phase() -> dict:
+    """The eleven LM smoke configs, kernel path against plain path
+    (``tests/test_torch_card.py::test_lm_prefill_and_decode_kernel_
+    matches_plain``, three dtype pairs each), in a pytest process of its
+    own."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "cuda",
+         "-p", "no:cacheprovider", "tests/test_torch_card.py", "-k",
+         "lm_prefill_and_decode"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    seconds = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
+    if proc.returncode != 0 or f"{SMOKE_CARD_CASES} passed" not in tail:
+        raise AssertionError(f"LM smoke configs on the card: rc "
+                             f"{proc.returncode}\n{proc.stdout[-6000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    print(f"LM smoke configs on the card (dense 7, MoE/Mamba/RWKV-6 4; "
+          f"f32, bf16, bf16 over an f32 cache): {tail} in {seconds:.1f} s")
+    return {"result": tail, "seconds": seconds}
+
+
+class AttentionCallCheck:
+    """While open, every ``ops.attention`` call on the card is also run on
+    its plain version (``ref.attention_ref``) with the same operands and
+    held to ``attention_err``'s tolerance for the dtype (bf16: also at
+    most ``BF16_MISMATCH_LIMIT`` of the values differing)."""
+
+    def __init__(self, ops, ref):
+        self.ops, self.ref, self.real = ops, ref, ops.attention
+        self.stats, self.failures = [], []
+
+    def __enter__(self):
+        def checked(q, k, v, **kw):
+            out = self.real(q, k, v, **kw)
+            kw.pop("backend", None)
+            try:
+                self.stats.append(attention_err(
+                    out, self.ref.attention_ref(q, k, v, **kw)))
+            except AssertionError as exc:
+                self.failures.append(f"{tuple(q.shape)} {kw}: {exc}")
+            return out
+        self.ops.attention = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.attention = self.real
+
+    def summary(self) -> dict:
+        return {"calls": len(self.stats),
+                "max_abs_err": max(s["max_abs_err"] for s in self.stats),
+                "max_mismatch_share": max(s["mismatch_share"]
+                                          for s in self.stats),
+                "failures": self.failures[:5]}
+
+
+def moe_phase(ops, ref, fa, card: str, dev) -> dict:
+    """Phase 16: moonshot-v1-16b-a3b at full width in bf16 (seeded
+    weights) served by the port's ``Server``: 8 requests in two
+    generations of four, 16 new tokens each, every causal self-attention
+    call on the bf16 ``flash_attention`` kernels (``bf16_tiles`` prefill,
+    ``bf16_split`` decode).  Gates: the attention launches equal the
+    plans' sum, logits finite, tokens in the vocabulary; generation 1
+    replayed teacher-forced on the kernel path with every attention call
+    held to its plain version on the same operands.  Reported: the same
+    replay on the plain path (``layers.plain_attention``, the serve's
+    routing through ``moe.routing_log``), each call's max |diff| / max
+    |logit| against ``MOE_TOL``, and the share of (layer, token) whose
+    expert set the plain path's own router would have picked otherwise.
+"""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import layers, moe
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.engine import decode_step, prefill
+
+    bf16 = torch.bfloat16
+    cfg = get_config(MOE_ARCH)
+    defs = model_defs(cfg)
+    n_params = param_count(defs)
+    d = fa.padded_head_dim(cfg.head_dim)
+    sms = fa.device_sm_count(dev)
+    print(f"MoE LM ({card}): {MOE_ARCH} full width: {cfg.n_layers} layers, "
+          f"d {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, "
+          f"head dim {cfg.head_dim}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} (d_ff {cfg.moe.d_ff_expert}), vocab {cfg.vocab}: "
+          f"{n_params / 1e9:.3f} B parameters, {2 * n_params / 1e9:.2f} GB "
+          f"of bf16 weights")
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(
+        MOE_PROMPT[0], MOE_PROMPT[1] + 1))).astype(np.int32)
+        for _ in range(MOE_REQUESTS)]
+    shape = (MOE_BATCH, cfg.n_heads, cfg.n_kv_heads)
+    planned, calls, plens = 0, 0, []
+    for g in range(0, MOE_REQUESTS, MOE_BATCH):
+        plen = max(len(p) for p in prompts[g:g + MOE_BATCH])
+        plens.append(plen)
+        planned += cfg.n_layers * fa.plan(*shape, plen, plen, d, bf16,
+                                          sm_count=sms).launches
+        for t in range(MOE_NEW - 1):
+            planned += cfg.n_layers * fa.plan(
+                *shape, 1, MOE_MAX_SEQ, d, bf16, q_offset=plen + t,
+                sm_count=sms).launches
+        calls += cfg.n_layers * MOE_NEW
+    out = {"arch": MOE_ARCH, "card": card, "params": n_params,
+           "weight_bytes": 2 * n_params, "dtype": "bfloat16",
+           "batch": MOE_BATCH, "max_seq": MOE_MAX_SEQ,
+           "requests": MOE_REQUESTS, "new_tokens": MOE_NEW,
+           "prompt_lengths": [len(p) for p in prompts],
+           "attention_calls": calls, "planned_launches": planned}
+    t0 = time.perf_counter()
+    params = init_params(defs, seed=0, dtype=bf16, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["weights_allocated_bytes"] = torch.cuda.memory_allocated(dev)
+    server = Server(cfg, params, batch_size=MOE_BATCH, max_seq=MOE_MAX_SEQ,
+                    dtype=bf16, device=dev, record=True)
+    for rid, p in enumerate(prompts):
+        server.submit(Request(rid, p, MOE_NEW))
+    with torch.inference_mode():            # warm: a prefill and a step
+        warm = init_cache(cfg, MOE_BATCH, MOE_MAX_SEQ, bf16, dev)
+        toks = torch.zeros((MOE_BATCH, MOE_PROMPT[1]), dtype=torch.long,
+                           device=dev)
+        prefill(params, cfg, toks, warm)
+        decode_step(params, cfg, warm, toks[:, 0], MOE_PROMPT[1])
+        del warm, toks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with moe.routing_log() as kernel_routes:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        results = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, gemm = ops.attention_launches, ops.launches
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if launches != planned or gemm:
+            raise AssertionError(f"MoE serve: {launches} attention launches,"
+                                 f" planned {planned} (vta_gemm {gemm})")
+        tokens = [t for rid in sorted(results) for t in results[rid]]
+        if (sorted(results) != list(range(MOE_REQUESTS))
+                or any(len(results[r]) != MOE_NEW for r in results)
+                or max(tokens) >= cfg.vocab or min(tokens) < 0):
+            raise AssertionError(f"MoE serve: results {results}")
+        gens = server.generations
+        for gen in gens:
+            for logits in gen.logits:
+                if not torch.isfinite(logits[:, :cfg.vocab].float()).all():
+                    raise AssertionError("MoE serve: a logit is not finite")
+        prefill_s = [gen.seconds[0] for gen in gens]
+        decode_s = sorted(s for gen in gens for s in gen.seconds[1:])
+        out.update({
+            "launches": launches, "serve_s": wall,
+            "tokens": len(tokens), "tokens_per_s": len(tokens) / wall,
+            "prefill_ms": [s * 1e3 for s in prefill_s],
+            "decode_ms_median": decode_s[len(decode_s) // 2] * 1e3,
+            "decode_ms_min": decode_s[0] * 1e3,
+            "decode_ms_max": decode_s[-1] * 1e3,
+            "steps_per_generation": [len(g.steps) for g in gens]})
+    del kernel_routes[cfg.n_layers * MOE_NEW:]              # generation 1
+    gen = gens[0]
+
+    def replay(plain: bool):
+        """Generation 1 teacher-forced on the serve's routing: its logits
+        and the routes its own router picked."""
+        scope = layers.plain_attention() if plain else \
+            contextlib.nullcontext()
+        with torch.inference_mode(), scope, \
+                moe.routing_log(replay=kernel_routes) as own:
+            cache = init_cache(cfg, MOE_BATCH, MOE_MAX_SEQ, bf16, dev)
+            logits, cache = prefill(params, cfg,
+                                    torch.from_numpy(gen.prompts).to(dev),
+                                    cache)
+            seen = [logits]
+            for fed, pos in gen.steps:
+                logits, cache = decode_step(
+                    params, cfg, cache,
+                    torch.from_numpy(fed.astype(np.int64)).to(dev), pos)
+                seen.append(logits)
+        return seen, own
+
+    # every attention call of the kernel path against its plain version on
+    # the same operands
+    with AttentionCallCheck(ops, ref) as checked:
+        replay(plain=False)
+    out["attention_calls_checked"] = checked.summary()
+    if (checked.summary()["calls"] != cfg.n_layers * MOE_NEW
+            or checked.failures):
+        raise AssertionError(f"MoE replay: attention calls against the "
+                             f"plain version: {checked.summary()}")
+    # the plain path (teacher-forced, the serve's routing)
+    before = ops.attention_launches
+    want, plain_routes = replay(plain=True)
+    if ops.attention_launches != before:
+        raise AssertionError("the plain replay launched the kernel")
+    diffs = []
+    for i, (got, w) in enumerate(zip(gen.logits, want)):
+        w = w[:, :cfg.vocab].float()
+        err = float((got[:, :cfg.vocab].float() - w).abs().max())
+        scale = float(w.abs().max())
+        layer_calls = slice(i * cfg.n_layers, (i + 1) * cfg.n_layers)
+        differ = [(a.sort(-1).values != b.sort(-1).values).any(-1)
+                  .float().mean() for a, b in zip(
+                      kernel_routes[layer_calls], plain_routes[layer_calls])]
+        diffs.append({"call": "prefill" if i == 0 else f"decode {i}",
+                      "max_abs_diff": err, "max_abs_logit": scale,
+                      "rel_diff": err / scale, "within_limit":
+                      bool(torch.isfinite(w).all()) and err <= MOE_TOL * scale,
+                      "router_flip_share": float(torch.stack(differ).mean())})
+    out["teacher_forced"] = {
+        "tolerance": f"{MOE_TOL} x max |plain logit| a call, the plain path "
+                     f"on the kernel path's routing (reported; a miss is "
+                     f"recorded with the router-flip share)",
+        "calls": diffs,
+        "max_rel_diff": max(x["rel_diff"] for x in diffs),
+        "calls_within_limit": sum(x["within_limit"] for x in diffs),
+        "max_router_flip_share": max(x["router_flip_share"] for x in diffs),
+        "calls_with_a_flip": sum(x["router_flip_share"] > 0 for x in diffs)}
+    del want, kernel_routes, plain_routes, results
+
+    # one prefill and one decode step under the profiler
+    with torch.inference_mode():
+        toks = torch.from_numpy(gen.prompts).to(dev)
+        cache = init_cache(cfg, MOE_BATCH, MOE_MAX_SEQ, bf16, dev)
+        out["profile_prefill"] = lm_profile(
+            lambda: prefill(params, cfg, toks, cache))
+        fed = torch.from_numpy(gen.steps[0][0].astype(np.int64)).to(dev)
+        pos = gen.steps[0][1]
+        decode_step(params, cfg, cache, fed, pos)          # warm
+        out["profile_decode"] = lm_profile(
+            lambda: decode_step(params, cfg, cache, fed, pos))
+        for key in ("profile_prefill", "profile_decode"):
+            prof = out[key]
+            want_n = cfg.n_layers * (
+                fa.plan(*shape, *((toks.shape[1],) * 2), d, bf16,
+                        sm_count=sms).launches
+                if key == "profile_prefill" else
+                fa.plan(*shape, 1, MOE_MAX_SEQ, d, bf16, q_offset=pos,
+                        sm_count=sms).launches)
+            if prof["attention_kernels"] not in (0, want_n):
+                raise AssertionError(f"{key}: {prof['attention_kernels']} "
+                                     f"attention kernels traced, planned "
+                                     f"{want_n}")
+        del cache
+    del params, gens, server, gen
+    torch.cuda.empty_cache()                # the weights go before rwkv6
+
+    out["calls"] = [
+        lm_call_case(ops, ref, fa, f"{MOE_ARCH} LM prefill bf16",
+                     (*shape, MOE_PROMPT[1], MOE_PROMPT[1], d), 0, sms, dev,
+                     bf16),
+        lm_call_case(ops, ref, fa, f"{MOE_ARCH} LM decode bf16",
+                     (*shape, 1, MOE_MAX_SEQ, d), MOE_DECODE_POS, sms, dev,
+                     bf16)]
+
+    # bounds.  Decode: the capacity dispatch runs every expert (capacity
+    # int(4·6·1.25/64) or 1 = 1), so a step reads every weight but the
+    # embedding table (4 of its rows) and the kept K/V.  Prefill: the
+    # products the code computes (every expert at its capacity, pad slots
+    # included) at the bf16 tensor-core peak.
+    m, dm, vp = cfg.moe, cfg.d_model, cfg.vocab_padded
+    hd = cfg.n_heads * cfg.head_dim
+    kv_bytes = (2 * cfg.n_layers * 2 * MOE_BATCH * cfg.n_kv_heads
+                * (MOE_PROMPT[1] + 1) * cfg.head_dim)
+    decode_bytes = 2 * (n_params - vp * dm + MOE_BATCH * dm) + kv_bytes
+    plen = plens[0]
+    tok = MOE_BATCH * plen
+    cap = int(tok * m.top_k * m.capacity_factor / m.n_experts) or 1
+    per_layer = (2 * tok * dm * (2 * hd + 2 * cfg.n_kv_heads
+                                 * cfg.head_dim)
+                 + 4 * MOE_BATCH * cfg.n_heads * cfg.head_dim
+                 * kept_pairs(plen, plen, True, None, 0)
+                 + 2 * tok * dm * m.n_experts
+                 + 2 * 3 * m.n_experts * cap * dm * m.d_ff_expert)
+    prefill_ops = cfg.n_layers * per_layer + 2 * MOE_BATCH * dm * vp
+    out["bounds"] = {
+        "decode_bytes": decode_bytes,
+        "decode_ms": decode_bytes / HBM_BYTES_PER_S * 1e3,
+        "prefill_ops": prefill_ops, "prefill_capacity": cap,
+        "prefill_ms": prefill_ops / BF16_OPS_PER_S * 1e3,
+        "prefill_tokens": tok}
+    bd, pp, pd = out["bounds"], out["profile_prefill"], out["profile_decode"]
+    tf = out["teacher_forced"]
+    print(f"  init {out['init_s']:.2f} s; {MOE_REQUESTS} requests x {MOE_NEW}"
+          f" tokens, prompts {out['prompt_lengths']}: {len(tokens)} tokens "
+          f"in {wall:.3f} s ({out['tokens_per_s']:.2f} tokens/s); prefill "
+          + ", ".join(f"{t:.1f}" for t in out["prefill_ms"])
+          + f" ms a generation; decode median {out['decode_ms_median']:.2f}"
+          f" ms a step (min {out['decode_ms_min']:.2f}, max "
+          f"{out['decode_ms_max']:.2f}); peak memory "
+          f"{out['peak_memory_bytes'] / 2**30:.2f} GiB")
+    ck = out["attention_calls_checked"]
+    print(f"  attention launches {launches} = planned {planned} over {calls}"
+          f" calls; the {ck['calls']} attention calls of a kernel-path replay "
+          f"of generation 1 against the plain version on their operands: "
+          f"max |diff| {ck['max_abs_err']:.3g}, values that differ at most "
+          f"{ck['max_mismatch_share']:.4f} (bf16 tolerance, all within)")
+    print(f"  teacher-forced logits, kernel path vs plain path (bf16, the "
+          f"serve's routing): max |diff| / max |logit| "
+          f"{tf['max_rel_diff']:.3g}, {tf['calls_within_limit']} of "
+          f"{len(tf['calls'])} calls within {MOE_TOL}; router picks another "
+          f"expert set in {tf['calls_with_a_flip']} calls; per call rel diff"
+          f" / flip share: "
+          + ", ".join(f"{x['rel_diff']:.3g}/{x['router_flip_share']:.4f}"
+                      for x in tf["calls"]))
+    print(f"  profiled prefill ({card}): attention kernels "
+          f"{pp['attention_kernel_ms']:.3f} ms of {pp['device_busy_ms']:.3f} "
+          f"ms device time, wall {pp['traced_wall_ms']:.3f} ms, idle share "
+          f"{pp['idle_share']:.4f}; decode step: attention "
+          f"{pd['attention_kernel_ms']:.4f} ms of {pd['device_busy_ms']:.3f} "
+          f"ms, wall {pd['traced_wall_ms']:.3f} ms, idle share "
+          f"{pd['idle_share']:.4f}")
+    for key, prof in (("prefill", pp), ("decode step", pd)):
+        print(f"  top device ops, {key} ({prof['device_events']} events): "
+              + "; ".join(f"{o['name'][:48]} {o['ms']:.3f} ms x{o['count']}"
+                          for o in prof["top_device_ops"]))
+    print(f"  bounds: decode reads {bd['decode_bytes'] / 1e9:.2f} GB >= "
+          f"{bd['decode_ms']:.3f} ms at 3.35 TB/s; prefill of "
+          f"{bd['prefill_tokens']} tokens (expert capacity {cap}) "
+          f"{bd['prefill_ops'] / 1e12:.2f} TFLOP >= {bd['prefill_ms']:.2f} "
+          f"ms at 989 TFLOP/s")
+    for row in out["calls"]:
+        print(f"  {row['case']} {tuple(row['shape_b_h_hkv_sq_skv_d'])} "
+              f"q_offset {row['q_offset']} ({card}): {row['path']} blocks "
+              f"{row['blocks']} splits {row['splits']} launches "
+              f"{row['launches']}: kernel {row['kernel_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}, share "
+              f"{row['share_of_bound']:.3f}), max |diff| "
+              f"{row['max_abs_err']:.3g}")
+    return out
+
+
+def rwkv_phase(ops, card: str, dev) -> dict:
+    """Phase 16: rwkv6-7b at full width in float32 (seeded weights, TF32
+    off) served by the port's ``Server``: one generation of 4 prompts (the
+    longest a multiple of the WKV chunk), 16 new tokens; every logit
+    finite.  Then the recurrent state check: a ``RWKV_SPLIT[0]``-token
+    prefill followed by ``RWKV_SPLIT[1]`` teacher-forced decode steps must
+    leave every layer's ``wkv`` state and the last logits within
+    ``RWKV_TOL`` × max |value| of one prefill of the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import strict_float32
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.engine import decode_step, prefill
+
+    cfg = get_config(RWKV_ARCH)
+    defs = model_defs(cfg)
+    n_params = param_count(defs)
+    print(f"RWKV-6 LM ({card}): {RWKV_ARCH} full width: {cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} WKV "
+          f"heads of {cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}: {n_params / 1e9:.3f} B parameters, "
+          f"{4 * n_params / 1e9:.2f} GB of float32 weights")
+    rng = np.random.default_rng(16)
+    lengths = [int(rng.integers(RWKV_PROMPT[0], RWKV_PROMPT[1] + 1))
+               for _ in range(RWKV_BATCH)]
+    top = int(np.argmax(lengths))
+    lengths[top] = 64 * -(-lengths[top] // 64)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in lengths]
+    out = {"arch": RWKV_ARCH, "card": card, "params": n_params,
+           "weight_bytes": 4 * n_params, "dtype": "float32",
+           "batch": RWKV_BATCH, "new_tokens": RWKV_NEW,
+           "prompt_lengths": lengths}
+    max_seq = max(lengths) + RWKV_NEW
+    with strict_float32():
+        t0 = time.perf_counter()
+        params = init_params(defs, seed=0, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        server = Server(cfg, params, batch_size=RWKV_BATCH, max_seq=max_seq,
+                        device=dev, record=True)
+        for rid, p in enumerate(prompts):
+            server.submit(Request(rid, p, RWKV_NEW))
+        with torch.inference_mode():        # warm: a prefill and a step
+            warm = init_cache(cfg, RWKV_BATCH, max_seq, torch.float32, dev)
+            toks = torch.zeros((RWKV_BATCH, max(lengths)), dtype=torch.long,
+                               device=dev)
+            prefill(params, cfg, toks, warm)
+            decode_step(params, cfg, warm, toks[:, 0], max(lengths))
+            del warm, toks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        results = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if ops.attention_launches or ops.launches:
+            raise AssertionError("rwkv6 serve launched a kernel")
+        tokens = [t for rid in sorted(results) for t in results[rid]]
+        gen = server.generations[0]
+        if (sorted(results) != list(range(RWKV_BATCH))
+                or any(len(results[r]) != RWKV_NEW for r in results)
+                or max(tokens) >= cfg.vocab or min(tokens) < 0
+                or not all(torch.isfinite(l[:, :cfg.vocab]).all()
+                           for l in gen.logits)):
+            raise AssertionError(f"rwkv6 serve: results {results}")
+        decode_s = sorted(gen.seconds[1:])
+        out.update({
+            "serve_s": wall, "tokens": len(tokens),
+            "tokens_per_s": len(tokens) / wall,
+            "prefill_ms": gen.seconds[0] * 1e3,
+            "decode_ms_median": decode_s[len(decode_s) // 2] * 1e3,
+            "decode_ms_min": decode_s[0] * 1e3,
+            "decode_ms_max": decode_s[-1] * 1e3})
+        del server, gen
+
+        # the state check: prefill then teacher-forced steps = one prefill
+        n0, steps = RWKV_SPLIT
+        seq = torch.from_numpy(np.random.default_rng(161).integers(
+            0, cfg.vocab, (RWKV_BATCH, n0 + steps))).to(dev)
+        with torch.inference_mode():
+            whole = init_cache(cfg, RWKV_BATCH, n0 + steps, torch.float32,
+                               dev)
+            want, whole = prefill(params, cfg, seq, whole)
+            part = init_cache(cfg, RWKV_BATCH, n0 + steps, torch.float32,
+                              dev)
+            got, part = prefill(params, cfg, seq[:, :n0], part)
+            for t in range(steps):
+                got, part = decode_step(params, cfg, part, seq[:, n0 + t],
+                                        n0 + t)
+        layers = [(a["wkv"][r], b["wkv"][r])       # stacked repeats
+                  for a, b in zip(part.blocks, whole.blocks)
+                  for r in range(a["wkv"].shape[0])]
+        layers += [(a["wkv"], b["wkv"]) for a, b in zip(part.tail,
+                                                        whole.tail)]
+        rows = []
+        for name, a, b in [("logits", got[:, :cfg.vocab],
+                            want[:, :cfg.vocab])] + [
+                (f"wkv layer {i}", a, b) for i, (a, b) in enumerate(layers)]:
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            rows.append({"leaf": name, "max_abs_diff": err,
+                         "max_abs_value": scale, "rel_diff": err / scale})
+            if not (torch.isfinite(a).all() and err <= RWKV_TOL * scale):
+                raise AssertionError(f"rwkv6 state check, {name}: max |diff|"
+                                     f" {err:.3g} > {RWKV_TOL} × {scale:.3g}")
+        out["state_check"] = {
+            "split": list(RWKV_SPLIT), "tolerance": f"{RWKV_TOL} x max "
+            f"|value|", "max_rel_diff": max(r["rel_diff"] for r in rows),
+            "logits_rel_diff": rows[0]["rel_diff"],
+            "wkv_max_rel_diff": max(r["rel_diff"] for r in rows[1:]),
+            "leaves": rows}
+        del params, whole, part, layers
+    torch.cuda.empty_cache()
+    sc = out["state_check"]
+    print(f"  init {out['init_s']:.2f} s; 4 prompts {lengths} x {RWKV_NEW} "
+          f"tokens: {len(tokens)} tokens in {wall:.3f} s "
+          f"({out['tokens_per_s']:.2f} tokens/s); prefill "
+          f"{out['prefill_ms']:.1f} ms; decode median "
+          f"{out['decode_ms_median']:.2f} ms a step (min "
+          f"{out['decode_ms_min']:.2f}, max {out['decode_ms_max']:.2f}); "
+          f"peak memory {out['peak_memory_bytes'] / 2**30:.2f} GiB")
+    print(f"  state check, prefill {RWKV_SPLIT[0]} + {RWKV_SPLIT[1]} "
+          f"teacher-forced steps vs one prefill of {sum(RWKV_SPLIT)}: wkv "
+          f"max rel diff {sc['wkv_max_rel_diff']:.3g}, logits "
+          f"{sc['logits_rel_diff']:.3g} (limit {RWKV_TOL})")
     return out
 
 
@@ -2611,6 +3162,18 @@ def main() -> int:
         "lm_serve": record["lm_serve"]["launches"]}
     attn_entry["launches"] += record["lm_serve"]["launches"]
     attn_entry["lm_calls"] = record["lm_serve"]["calls"]
+    # -- 16. the quickstart; the LM smoke configs; MoE and RWKV-6 at full
+    # width ------------------------------------------------------------------
+    record["quickstart"] = quickstart_phase(ops, dev)
+    entry["launches"] += record["quickstart"]["launches"]
+    entry["launches_by_path"]["quickstart"] = record["quickstart"]["launches"]
+    record["lm_smoke_card"] = smoke_card_phase()
+    record["moe_serve"] = moe_phase(ops, ref, attn_kernel, card, dev)
+    attn_entry["launches_by_path"]["moe_serve"] = \
+        record["moe_serve"]["launches"]
+    attn_entry["launches"] += record["moe_serve"]["launches"]
+    attn_entry["lm_calls"] += record["moe_serve"]["calls"]
+    record["rwkv_serve"] = rwkv_phase(ops, card, dev)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -290,7 +290,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor,
             constraint="kernel-gqa-heads")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported; the kernel takes "
-                         f"{SUPPORTED_HEAD_DIMS}")
+                         f"{SUPPORTED_HEAD_DIMS} (flash_attention pads any "
+                         f"other D up to {SUPPORTED_HEAD_DIMS[-1]})")
     if max(b, h) > _GRID_LIMIT:
         raise ValueError(f"batch {b} or heads {h} exceed the grid limit "
                          f"{_GRID_LIMIT}")
@@ -310,6 +311,37 @@ def check_alignment(*tensors: torch.Tensor) -> None:
                              f"{t.storage_offset()})")
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernel runs a call of head dim ``d`` at: the
+    smallest of ``SUPPORTED_HEAD_DIMS`` that is at least ``d``.  Raises
+    ``ValueError`` above the largest."""
+    for dp in SUPPORTED_HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"head dim {d} exceeds the kernel's largest, "
+                     f"{SUPPORTED_HEAD_DIMS[-1]}")
+
+
+def call_padded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                sm_scale: Optional[float] = None, **kw) -> torch.Tensor:
+    """``fn(q, k, v, sm_scale=..., **kw)`` at ``padded_head_dim(D)``: q, k
+    and v get zero columns along D up to it, the scale stays ``D**-0.5``
+    unless given, and the output is sliced back to D.  Exact: a zero
+    column adds nothing to Q·Kᵀ or to P·V.  Operands whose head dims
+    differ, or that the kernel takes as they are, go to ``fn`` unchanged
+    (``check_inputs`` then names what is wrong)."""
+    d = q.shape[-1]
+    if q.dim() != 4 or k.shape[-1] != d or v.shape[-1] != d:
+        return fn(q, k, v, sm_scale=sm_scale, **kw)
+    dp = padded_head_dim(d)
+    if dp == d:
+        return fn(q, k, v, sm_scale=sm_scale, **kw)
+    pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))
+    out = fn(pad(q), pad(k), pad(v),
+             sm_scale=d ** -0.5 if sm_scale is None else sm_scale, **kw)
+    return out[..., :d].contiguous()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     window: Optional[int] = None,
@@ -318,14 +350,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q`` (B, H, Sq, D) over ``k``/``v`` (B, Hkv, Skv, D), output in q's
     dtype.
 
-    Ragged Sq and Skv need no padding.  Launches on the current stream and
-    does not synchronise.  A path that splits the keys writes float32
-    partials to a ``torch.empty`` scratch on q's device; the caching
-    allocator keeps it from being reused before the launch on this stream
-    has read it."""
+    A head dim the kernel has no instantiation for (any D ≤ 256) runs at
+    ``padded_head_dim(D)`` through :func:`call_padded`; ``plan`` and the
+    launches are those of the padded call.  Ragged Sq and Skv need no
+    padding.  Launches on the current stream and does not synchronise.  A
+    path that splits the keys writes float32 partials to a
+    ``torch.empty`` scratch on q's device; the caching allocator keeps it
+    from being reused before the launch on this stream has read it."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention launches on CUDA tensors, got "
                          f"{q.device}")
+    return call_padded(_flash_attention, q, k, v, sm_scale=sm_scale,
+                       causal=causal, window=window, q_offset=q_offset)
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, sm_scale: Optional[float],
+                     window: Optional[int], q_offset: int) -> torch.Tensor:
     b, h, hkv, sq, skv, d = check_inputs(q, k, v)
     for name, val in (("window", window or 0), ("q_offset", q_offset)):
         if abs(int(val)) >= _POSITION_LIMIT:

@@ -95,6 +95,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     split-TF32 ``mma.sync`` tensor-core products, bfloat16 on the ``wgmma``
     tiles or the split-KV decode path; ``attention_launches`` rises by every kernel the call launches
     (2 where a combine kernel follows a split), as the library reports.
+    Any head dim up to 256 is taken: one the kernel has no instantiation
+    for runs zero-padded to the next (``flash_attention.call_padded``).
 
     ``q_offset`` is the absolute position of ``q[..., 0, :]`` (chunked
     prefill, decode); ``window`` keeps keys with ``q_pos - k_pos <

@@ -9,7 +9,14 @@ reference.  Runs on the card unless ``device`` names another; with no card
 and no device named, :class:`~repro_torch.device.NoDeviceError` is raised
 before any work.
 
+A generation's prompt length (its longest prompt) must be one the
+reference's recurrent prefill takes: for RWKV-6 at most 64 or a multiple
+of 64 (the WKV chunk), for Mamba at most 128 or a multiple of 128 (the
+scan chunk); another raises ``ValueError``.  ``main``'s prompts are 4–11
+tokens.
+
     python -m repro_torch.launch.serve --arch lm100m [--device cpu]
+        [--dtype float32|bf16]
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from repro_torch.models.transformer import model_defs
 from repro_torch.serving.cache import init_cache
 from repro_torch.serving.engine import decode_step, prefill
 
+DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16}
 
 @dataclasses.dataclass
 class Request:
@@ -147,13 +155,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
+                    help="weights and KV cache (default float32)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    dtype = DTYPES[args.dtype]
 
     cfg = get_smoke(args.arch)
-    params = init_params(model_defs(cfg), seed=0, dtype=torch.float32,
-                         device=device)
-    server = Server(cfg, params, batch_size=4, max_seq=128, device=device)
+    params = init_params(model_defs(cfg), seed=0, dtype=dtype, device=device)
+    server = Server(cfg, params, batch_size=4, max_seq=128, dtype=dtype,
+                    device=device)
     rng = np.random.default_rng(0)
     t0 = time.time()
     for rid in range(args.requests):
@@ -165,7 +176,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     dt = time.time() - t0
     total = sum(len(v) for v in results.values())
     print(f"served {len(results)} requests, {total} tokens "
-          f"in {dt:.1f}s ({total / dt:.1f} tok/s) on {device}")
+          f"in {dt:.1f}s ({total / dt:.1f} tok/s) on {device}, "
+          f"{args.arch} smoke, {args.dtype}")
     for rid in sorted(results):
         print(f"  req {rid}: {results[rid][:8]}...")
     return 0

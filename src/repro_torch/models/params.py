@@ -80,13 +80,21 @@ def _leaf_seed(seed: int, index: int) -> int:
         1, np.uint64)[0] & ((1 << 63) - 1))
 
 
+# a leaf in a dtype other than float32 is drawn this many float32 values
+# at a time (whole rows of its leading axis), so no float32 copy of a
+# large leaf is held beside it (moonshot's expert stacks: 35 GB a leaf)
+DRAW_CHUNK = 1 << 27
+
+
 def init_params(defs, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
                 device: DeviceLike = None):
     """Materialise real parameter tensors on ``device`` (the card unless
     named): zeros, ones, or a normal draw × ``scale`` (1/√fan_in when
     None), each normal leaf from its own ``torch.Generator`` on the
-    device, seeded from ``(seed, leaf index)``.  Drawn in float32, then
-    cast to ``dtype``."""
+    device, seeded from ``(seed, leaf index)``.  Drawn in float32: a
+    float32 leaf at once; a leaf in another ``dtype`` into a tensor of
+    that dtype, ``DRAW_CHUNK`` values (whole rows of the leading axis) at
+    a time from the same generator, each chunk cast as it is drawn."""
     device = resolve_device(device)
     index = iter(range(param_leaves(defs)))
 
@@ -102,9 +110,18 @@ def init_params(defs, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
             scale = 1.0 / np.sqrt(max(1, fan_in))
         gen = torch.Generator(device=device)
         gen.manual_seed(_leaf_seed(seed, i))
-        x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                        device=device)
-        return x.mul_(float(scale)).to(dtype)
+        if dtype == torch.float32 or len(d.shape) < 2:
+            x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                            device=device)
+            return x.mul_(float(scale)).to(dtype)
+        out = torch.empty(d.shape, dtype=dtype, device=device)
+        rows = max(1, DRAW_CHUNK // int(np.prod(d.shape[1:])))
+        for lo in range(0, d.shape[0], rows):
+            part = out[lo:lo + rows]
+            part.copy_(torch.randn(part.shape, generator=gen,
+                                   dtype=torch.float32,
+                                   device=device).mul_(float(scale)))
+        return out
 
     return tree_map(make, defs)
 

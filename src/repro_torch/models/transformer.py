@@ -1,5 +1,5 @@
-"""Model assembly: decoder-only LMs and encoder-decoders (port of the
-reference's ``models/transformer.py``, the dense families).
+"""Model assembly: decoder-only LMs, hybrids and encoder-decoders (port
+of the reference's ``models/transformer.py``).
 
 The layer stack is expressed as (pattern × repeats) + tail: the smallest
 repeating period of the per-layer schedule is detected and parameters for
@@ -7,12 +7,9 @@ each pattern position are *stacked* over the repeats, as in the reference,
 so that its parameter tree carries over leaf for leaf
 (``params.params_from_numpy``).  Where the reference scans over the
 repeats, the forward pass here loops over them, taking each stacked leaf
-at ``[r]``.  Non-periodic tails apply as individual layers.
-
-RWKV-6 and Mamba layers and MoE feed-forwards are not ported yet
-(ROADMAP Queue 1 item 8b): :func:`block_defs` and :func:`block_apply`
-raise ``NotImplementedError`` for them, so such a config fails at
-:func:`model_defs`.
+at ``[r]``.  Non-periodic tails apply as individual layers.  A layer's
+mixer is attention, RWKV-6 (which carries its own channel mix) or Mamba;
+its feed-forward a dense MLP or MoE.
 """
 
 from __future__ import annotations
@@ -25,21 +22,10 @@ import torch
 from .config import ModelConfig
 from .layers import (attention_apply, attention_defs, mlp_apply, mlp_defs,
                      norm_apply, norm_defs)
+from .mamba import mamba_apply, mamba_defs
+from .moe import moe_apply, moe_defs
 from .params import ParamDef, tree_map
-
-NOT_PORTED = ("not ported yet: MoE, Mamba and RWKV-6 layers wait for "
-              "ROADMAP Queue 1 item 8b")
-
-
-def require_dense(kind: str, is_moe: bool) -> None:
-    """Raise ``NotImplementedError`` for a layer the port has no path
-    for (a recurrent kind or an MoE feed-forward)."""
-    if not kind.startswith("attn"):
-        if kind in ("rwkv6", "mamba"):
-            raise NotImplementedError(f"{kind} layers are {NOT_PORTED}")
-        raise ValueError(kind)
-    if is_moe:
-        raise NotImplementedError(f"MoE layers are {NOT_PORTED}")
+from .rwkv6 import rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 
 # ---------------------------------------------------------------------------
@@ -86,33 +72,64 @@ def stack_layout(cfg: ModelConfig
 
 def block_defs(cfg: ModelConfig, kind: str, is_moe: bool, *,
                cross: bool = False) -> Dict[str, Any]:
-    require_dense(kind, is_moe)
-    defs: Dict[str, Any] = {"norm1": norm_defs(cfg),
-                            "mix": attention_defs(cfg)}
+    defs: Dict[str, Any] = {"norm1": norm_defs(cfg)}
+    if kind.startswith("attn"):
+        defs["mix"] = attention_defs(cfg)
+    elif kind == "rwkv6":
+        defs["mix"] = rwkv6_defs(cfg)
+    elif kind == "mamba":
+        defs["mix"] = mamba_defs(cfg)
+    else:
+        raise ValueError(kind)
     if cross:
         defs["norm_x"] = norm_defs(cfg)
         defs["cross"] = attention_defs(cfg, cross=True)
     defs["norm2"] = norm_defs(cfg)
-    defs["ffn"] = mlp_defs(cfg)
+    if kind != "rwkv6":                       # rwkv6 carries its channel mix
+        defs["ffn"] = moe_defs(cfg) if is_moe else mlp_defs(cfg)
     return defs
+
+
+def ffn_apply(bp, cfg: ModelConfig, hf: torch.Tensor, kind: str,
+              is_moe: bool, cm_shift: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The feed-forward half of a layer on the normed ``hf``: RWKV-6's
+    channel mix (its token shift from ``cm_shift``), MoE or the dense MLP.
+    Returns (out, moe aux scalar, the channel mix's last input or None)."""
+    aux = torch.zeros((), dtype=torch.float32, device=hf.device)
+    if kind == "rwkv6":
+        out, last = rwkv6_channel_mix(bp["mix"], cfg, hf,
+                                      shift_prev=cm_shift, return_state=True)
+        return out, aux, last
+    if is_moe:
+        out, moe_aux = moe_apply(bp["ffn"], cfg, hf)
+        return (out, aux + moe_aux["load_balance"]
+                + 1e-3 * moe_aux["router_z"], None)
+    return mlp_apply(bp["ffn"], cfg, hf), aux, None
 
 
 def block_apply(bp, cfg: ModelConfig, h: torch.Tensor, kind: str,
                 is_moe: bool, *, enc_out: Optional[torch.Tensor] = None,
                 q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer; returns (h, moe_aux_scalar)."""
-    require_dense(kind, is_moe)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     hin = norm_apply(bp["norm1"], cfg, h)
-    h = h + attention_apply(bp["mix"], cfg, hin, kind=kind,
-                            q_offset=q_offset)
+    if kind.startswith("attn"):
+        mix = attention_apply(bp["mix"], cfg, hin, kind=kind,
+                              q_offset=q_offset)
+    elif kind == "rwkv6":
+        mix = rwkv6_time_mix(bp["mix"], cfg, hin)
+    elif kind == "mamba":
+        mix = mamba_apply(bp["mix"], cfg, hin)
+    else:
+        raise ValueError(kind)
+    h = h + mix
     if enc_out is not None and "cross" in bp:
         hx = norm_apply(bp["norm_x"], cfg, h)
         h = h + attention_apply(bp["cross"], cfg, hx, kv_input=enc_out,
                                 causal=False)
     hf = norm_apply(bp["norm2"], cfg, h)
-    h = h + mlp_apply(bp["ffn"], cfg, hf)
-    return h, aux
+    out, aux, _ = ffn_apply(bp, cfg, hf, kind, is_moe)
+    return h + out, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,18 @@
-"""KV caches for LM serving (port of the reference's ``serving/cache.py``,
-the attention kinds).
+"""KV caches and recurrent states for LM serving (port of the reference's
+``serving/cache.py``).
 
-Two cache kinds, chosen per layer from the architecture's schedule:
+Cache kinds, chosen per layer from the architecture's schedule:
 
 * **dense**    — (B, KV, S_max, D) k/v for global-attention layers;
 * **windowed** — (B, KV, W, D) ring buffer with absolute-position slots
-  (``slot_pos``, shared across the batch) for SWA / local-attention layers.
+  (``slot_pos``, shared across the batch) for SWA / local-attention layers;
+* **recurrent** — Mamba (``conv`` tail + SSM state ``h``) or RWKV-6
+  (``shift``, ``wkv`` state, ``cm_shift``): O(1) in sequence length, the
+  SSM and WKV states in float32 whatever the cache's dtype.
 
-The recurrent kinds (Mamba, RWKV-6) are not ported yet and raise
-``NotImplementedError`` (ROADMAP Queue 1 item 8b).  Caches are built with
-the same (pattern × repeats) stacking as the model parameters, on an
-explicit device; :mod:`repro_torch.serving.engine` writes them in place.
+Caches are built with the same (pattern × repeats) stacking as the model
+parameters, on an explicit device; :mod:`repro_torch.serving.engine`
+writes them in place.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import NOT_PORTED, stack_layout
+from repro_torch.models.mamba import mamba_init_state
+from repro_torch.models.rwkv6 import rwkv6_init_state
+from repro_torch.models.transformer import stack_layout
 
 
 def layer_cache_kind(cfg: ModelConfig, kind: str) -> str:
@@ -52,8 +56,11 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                                  device=device),
                 "slot_pos": torch.full((w,), -1, dtype=torch.int32,
                                        device=device)}
-    if ck in ("mamba", "rwkv6"):
-        raise NotImplementedError(f"{ck} caches are {NOT_PORTED}")
+    if ck == "mamba":
+        conv, h = mamba_init_state(cfg, batch, dtype, device)
+        return {"conv": conv, "h": h}
+    if ck == "rwkv6":
+        return rwkv6_init_state(cfg, batch, dtype, device)
     raise ValueError(kind)
 
 
@@ -67,8 +74,11 @@ def cache_logical(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
         return {"k": ("batch", None, None, None),
                 "v": ("batch", None, None, None),
                 "slot_pos": (None,)}
-    if ck in ("mamba", "rwkv6"):
-        raise NotImplementedError(f"{ck} caches are {NOT_PORTED}")
+    if ck == "mamba":
+        return {"conv": ("batch", None, "tp"), "h": ("batch", "tp", None)}
+    if ck == "rwkv6":
+        return {"shift": ("batch", None), "wkv": ("batch", None, None, None),
+                "cm_shift": ("batch", None)}
     raise ValueError(kind)
 
 

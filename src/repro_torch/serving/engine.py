@@ -1,15 +1,18 @@
 """LM serving engine: prefill + single-token decode over the cache tree
-(port of the reference's ``serving/engine.py``, the attention kinds).
+(port of the reference's ``serving/engine.py``).
 
-``prefill``     — runs the prompt through the parallel forward while
-writing each layer's cache; returns the last-position logits and the
-filled cache.
+``prefill``     — runs the prompt through the parallel (chunked attention /
+chunked WKV / chunked scan) forward while writing each layer's cache;
+returns the last-position logits and the filled cache.
 
-``decode_step`` — one new token against the caches.  A dense layer on CUDA
-tensors runs the ``flash_attention`` kernel over the whole contiguous cache
-(B, KV, S_max, D) with ``causal=True`` and ``q_offset=pos``: its causal
-mask keeps exactly the reference's ``arange(S_max) <= pos``, and the plan's
-kept range keeps it from reading tiles above ``pos``.  On CPU tensors (or
+``decode_step`` — one new token against the caches.  Mamba and RWKV-6
+layers advance their O(1) states (the same calls as prefill, on one
+token), and MoE feed-forwards dispatch the batch's tokens.  A dense
+layer on CUDA tensors runs the ``flash_attention`` kernel over the whole
+contiguous cache (B, KV, S_max, D) with ``causal=True`` and
+``q_offset=pos``: its causal mask keeps exactly the reference's
+``arange(S_max) <= pos``, and the plan's kept range keeps it from reading
+tiles above ``pos``.  On CPU tensors (or
 inside ``layers.plain_attention``) it runs :func:`_attn_scores_decode`, the
 reference's masked softmax over the whole cache.  A windowed ring buffer's
 slots are not in position order, so its decode stays on
@@ -30,10 +33,11 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention, attention_apply,
                                        attention_qkv, attention_window,
-                                       mlp_apply, norm_apply, rope,
-                                       uses_kernel)
-from repro_torch.models.transformer import (embed, encode, layer_slice,
-                                            require_dense, stack_layout,
+                                       norm_apply, rope, uses_kernel)
+from repro_torch.models.mamba import mamba_apply
+from repro_torch.models.rwkv6 import rwkv6_time_mix
+from repro_torch.models.transformer import (embed, encode, ffn_apply,
+                                            layer_slice, stack_layout,
                                             unembed_logits)
 from repro_torch.kernels import ops
 
@@ -132,30 +136,58 @@ def attn_prefill(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
 # Per-layer prefill / decode
 # ---------------------------------------------------------------------------
 
-def _block(bp, cfg: ModelConfig, h, kind: str, is_moe: bool, mix_fn,
-           enc_out):
-    require_dense(kind, is_moe)
+def _recurrent_mix(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                   cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A Mamba or RWKV-6 mixer over x (B, S, d) from the layer's states,
+    which it advances in place."""
+    if kind == "mamba":
+        mix, (conv, hs) = mamba_apply(bp, cfg, x,
+                                      state=(cache["conv"], cache["h"]),
+                                      return_state=True)
+        cache["conv"].copy_(conv)
+        cache["h"].copy_(hs)
+    elif kind == "rwkv6":
+        mix, (shift, wkv) = rwkv6_time_mix(
+            bp, cfg, x, shift_prev=cache["shift"], wkv_state=cache["wkv"],
+            return_state=True)
+        cache["shift"].copy_(shift)
+        cache["wkv"].copy_(wkv)
+    else:
+        raise ValueError(kind)
+    return mix
+
+
+def _block(bp, cfg: ModelConfig, h, kind: str, is_moe: bool, cache,
+           attn_fn, enc_out):
     hin = norm_apply(bp["norm1"], cfg, h)
-    mix, cache = mix_fn(hin)
+    if kind.startswith("attn"):
+        mix, cache = attn_fn(hin)
+    else:
+        mix = _recurrent_mix(bp["mix"], cfg, kind, hin, cache)
     h = h + mix
     if enc_out is not None and "cross" in bp:
         hx = norm_apply(bp["norm_x"], cfg, h)
         h = h + attention_apply(bp["cross"], cfg, hx, kv_input=enc_out,
                                 causal=False)
     hf = norm_apply(bp["norm2"], cfg, h)
-    return h + mlp_apply(bp["ffn"], cfg, hf), cache
+    out, _, cm_last = ffn_apply(
+        bp, cfg, hf, kind, is_moe,
+        cm_shift=cache["cm_shift"] if kind == "rwkv6" else None)
+    if cm_last is not None:
+        cache["cm_shift"].copy_(cm_last)
+    return h + out, cache
 
 
 def block_prefill(bp, cfg: ModelConfig, h, kind: str, is_moe: bool, cache,
                   *, enc_out=None, q_offset: int = 0):
-    return _block(bp, cfg, h, kind, is_moe,
+    return _block(bp, cfg, h, kind, is_moe, cache,
                   lambda hin: attn_prefill(bp["mix"], cfg, kind, hin, cache,
                                            q_offset=q_offset), enc_out)
 
 
 def block_decode(bp, cfg: ModelConfig, h, kind: str, is_moe: bool, cache,
                  pos: int, *, enc_out=None):
-    return _block(bp, cfg, h, kind, is_moe,
+    return _block(bp, cfg, h, kind, is_moe, cache,
                   lambda hin: attn_decode(bp["mix"], cfg, kind, hin, cache,
                                           pos), enc_out)
 

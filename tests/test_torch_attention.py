@@ -256,6 +256,43 @@ def test_kernel_input_checks():
     assert exc.value.constraint == "kernel-gqa-heads"
 
 
+@pytest.mark.parametrize("d, kw", [
+    (8, dict(causal=True)),                      # qwen1.5-110b smoke
+    (24, dict(causal=True, q_offset=5, window=7)),
+    (8, dict(causal=False)),
+])
+def test_wrapper_pads_head_dims(d, kw):
+    """A head dim the kernel has no instantiation for runs at the next
+    one: ``call_padded`` over the plain version returns
+    ``chunked_attention``'s result (the model's CPU path), and the padded
+    operands are what ``check_inputs`` and ``plan`` take.  Above 256 the
+    wrapper raises, naming the limit."""
+    from repro_torch.models.layers import chunked_attention
+    b, h, hkv, sq, skv = 2, 4, 2, 12, 17 if not kw["causal"] else 12
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    padded = []
+
+    def plain(qp, kp, vp, **kwargs):
+        padded.append(tkernel.check_inputs(qp, kp, vp))
+        return tref.attention_ref(qp, kp, vp, **kwargs)
+
+    got = tkernel.call_padded(plain, q, k, v, **kw)
+    dp = tkernel.padded_head_dim(d)
+    assert padded == [(b, h, hkv, sq, skv, dp)] and dp == {8: 16, 24: 32}[d]
+    assert tkernel.plan(*padded[0], torch.float32).shape[5] == dp
+    assert got.shape == q.shape and got.is_contiguous()
+    want = chunked_attention(q, k, v, q_chunk=4, kv_chunk=4, **kw)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(got, tref.attention_ref(q, k, v, **kw),
+                               atol=2e-5, rtol=2e-5)
+    with pytest.raises(ValueError, match="largest, 256"):
+        tkernel.padded_head_dim(320)
+    for dk in tkernel.SUPPORTED_HEAD_DIMS:
+        assert tkernel.padded_head_dim(dk) == dk
+
+
 def test_cpu_call_leaves_launch_counters():
     before = (tops.launches, tops.attention_launches)
     q = torch.ones((1, 2, 4, 16))

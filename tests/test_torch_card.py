@@ -441,6 +441,53 @@ def test_interpreters_on_the_card_match_the_host(model):
                 for r in host_reps])
 
 
+LM_SMOKE = ["lm100m", "qwen2.5-3b", "qwen1.5-110b", "nemotron-4-340b",
+            "gemma3-1b", "internvl2-26b", "whisper-base", "mixtral-8x22b",
+            "moonshot-v1-16b-a3b", "jamba-1.5-large-398b", "rwkv6-7b"]
+# whisper-base smoke is ill-conditioned (the JAX package's own float32
+# logits lie 1.3e-3 of max |logit| from float64): on the CPU its bf16 plain
+# path lies 0.13 of max |logit| from the same path on ``ref.attention_ref``,
+# which the kernel holds to one bf16 ulp; the other configs 0.005-0.024
+BF16_TOL = {"whisper-base": 0.25}
+
+
+def lm_planned_launches(fa, cfg, b: int, s: int, max_seq: int, steps: int,
+                        dtype, cache_dtype, sms: int) -> int:
+    """The attention launches of one prefill of ``s`` tokens (after the
+    config's modality prefix) and ``steps`` decode steps, summed over the
+    plans of every call at the padded head dim: a causal self-attention a
+    layer in prefill (windowed on local/SWA layers), a dense decode over
+    the cache (the windowed ring's decode is plain), and on an
+    encoder-decoder the encoder twice (inside prefill, and once for the
+    decode steps' ``enc_out``) and a cross-attention a layer and call."""
+    d = fa.padded_head_dim(cfg.head_dim)
+    heads = (b, cfg.n_heads, cfg.n_kv_heads)
+    s_all = s + cfg.frontend_prefix
+    n = 0
+    if cfg.encoder_layers:
+        t_enc = cfg.encoder_seq
+        n += 2 * cfg.encoder_layers * fa.plan(
+            *heads, t_enc, t_enc, d, dtype, causal=False,
+            sm_count=sms).launches
+        n += cfg.n_layers * (
+            fa.plan(*heads, s_all, t_enc, d, dtype, causal=False,
+                    sm_count=sms).launches
+            + steps * fa.plan(*heads, 1, t_enc, d, dtype, causal=False,
+                              sm_count=sms).launches)
+    for kind in cfg.layer_schedule():
+        if not kind.startswith("attn"):
+            continue
+        window = (cfg.local_window if kind in ("attn_local", "attn_swa")
+                  else None)
+        n += fa.plan(*heads, s_all, s_all, d, dtype, window=window,
+                     sm_count=sms).launches
+        if window is None:
+            n += sum(fa.plan(*heads, 1, max_seq, d, cache_dtype,
+                             q_offset=s_all + t, sm_count=sms).launches
+                     for t in range(steps))
+    return n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, cache_dtype, tol", [
     (torch.float32, torch.float32, 1e-4),
@@ -450,54 +497,70 @@ def test_interpreters_on_the_card_match_the_host(model):
     # bf16 weights over a float32 cache: decode casts q to the cache's
     # dtype for the kernel
     (torch.bfloat16, torch.float32, 5e-2)])
-def test_lm_prefill_and_decode_kernel_matches_plain(dtype, cache_dtype, tol):
-    """qwen2.5 smoke on the card: prefill and 3 teacher-forced decode
-    steps through the ``flash_attention`` kernel against the same steps
-    on the plain path (``layers.plain_attention``), logits within ``tol``
-    × max(1, max |logit|); the attention launches equal the sum of the
-    plans' launches, one plan a layer and call (prefill in the weights'
-    dtype, decode in the cache's)."""
+@pytest.mark.parametrize("arch", LM_SMOKE)
+def test_lm_prefill_and_decode_kernel_matches_plain(arch, dtype, cache_dtype,
+                                                    tol):
+    """Each LM smoke config on the card: prefill and 3 teacher-forced
+    decode steps through the ``flash_attention`` kernel against the same
+    steps on the plain path (``layers.plain_attention``; an MoE layer on
+    the kernel path's routing, ``moe.routing_log``, so that a near-tie
+    bf16 rounding flips does not hide the difference measured), logits
+    within ``tol`` × max(1, max |logit|) (``BF16_TOL`` where a config
+    needs more in bf16); the attention launches equal the sum of the
+    plans' launches (``lm_planned_launches``: prefill in the weights'
+    dtype, dense decode in the cache's).  qwen1.5-110b smoke has head dim
+    8, which the kernel runs padded to 16; rwkv6 smoke has no attention
+    (0 launches) and runs its recurrent states on the card."""
     dev = _card()
     from repro_torch.configs import get_smoke
     from repro_torch.device import strict_float32
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import layers
+    from repro_torch.models import layers, moe
     from repro_torch.models.params import init_params
-    from repro_torch.models.transformer import model_defs
+    from repro_torch.models.transformer import encode, model_defs
     from repro_torch.serving.cache import init_cache
     from repro_torch.serving.engine import decode_step, prefill
 
-    cfg = get_smoke("qwen2.5-3b")
+    cfg = get_smoke(arch)
     b, s, max_seq = 2, 20, 48
     params = init_params(model_defs(cfg), seed=0, dtype=dtype, device=dev)
     rng = np.random.default_rng(11)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
     steps = torch.from_numpy(rng.integers(0, cfg.vocab, (3, b))).to(dev)
-    sms = fa.device_sm_count(dev)
-    shape = (b, cfg.n_heads, cfg.n_kv_heads)
-    planned = cfg.n_layers * (
-        fa.plan(*shape, s, s, cfg.head_dim, dtype, sm_count=sms).launches
-        + sum(fa.plan(*shape, 1, max_seq, cfg.head_dim, cache_dtype,
-                      q_offset=s + t, sm_count=sms).launches
-              for t in range(3)))
+    extra = {}
+    if cfg.frontend_prefix:
+        extra["prefix_embed"] = torch.from_numpy(rng.normal(
+            0, 0.5, (b, cfg.frontend_prefix, cfg.d_model))).to(dev, dtype)
+    if cfg.encoder_layers:
+        extra["frames"] = torch.from_numpy(rng.normal(
+            0, 0.5, (b, cfg.encoder_seq, cfg.d_model))).to(dev, dtype)
+    planned = lm_planned_launches(fa, cfg, b, s, max_seq, 3, dtype,
+                                  cache_dtype, fa.device_sm_count(dev))
+    pos = s + cfg.frontend_prefix
 
     def run():
         cache = init_cache(cfg, b, max_seq, cache_dtype, dev)
-        logits, cache = prefill(params, cfg, prompt, cache)
+        logits, cache = prefill(params, cfg, prompt, cache, **extra)
+        enc_out = (encode(params, cfg, extra["frames"])
+                   if cfg.encoder_layers else None)
         out = [logits]
         for t in range(3):
-            logits, cache = decode_step(params, cfg, cache, steps[t], s + t)
+            logits, cache = decode_step(params, cfg, cache, steps[t],
+                                        pos + t, enc_out=enc_out)
             out.append(logits)
         return out
 
     with strict_float32(), torch.inference_mode():
         before = ops.attention_launches
-        got = run()
+        with moe.routing_log() as routes:
+            got = run()
         torch.cuda.synchronize()
         launched = ops.attention_launches - before
-        with layers.plain_attention():
+        with layers.plain_attention(), moe.routing_log(replay=routes):
             want = run()
         assert ops.attention_launches - before == launched == planned
+    if dtype == torch.bfloat16:
+        tol = BF16_TOL.get(arch, tol)
     for g, w in zip(got, want):
         g, w = g[:, :cfg.vocab].float(), w[:, :cfg.vocab].float()
         assert torch.isfinite(g).all()

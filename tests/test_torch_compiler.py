@@ -155,6 +155,30 @@ def test_backend_programs_compile_identically(name):
         assert tprog.chunk_plan.n_chunks == jprog.chunk_plan.n_chunks
 
 
+def test_quickstart_program_compiles_identically():
+    """``python -m repro_torch.quickstart``'s program against
+    ``examples/quickstart.py``'s: the same bytes, and the same regions,
+    instruction stream and UOPs printed."""
+    import contextlib
+    import io
+    import pathlib
+    import runpy
+
+    from repro_torch import quickstart
+
+    tprog = quickstart.quickstart_program()
+    a, b = quickstart.operands()
+    jprog = jgc.compile_matmul(a, b, alu_ops=[jgc.AluImmOp.relu()],
+                               name="quickstart")
+    assert_programs_identical(tprog, jprog)
+    script = pathlib.Path(__file__).resolve().parents[1] / "examples" \
+        / "quickstart.py"
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        runpy.run_path(str(script), run_name="__main__")
+    assert "\n".join(quickstart.describe(tprog)) in said.getvalue()
+    np.testing.assert_array_equal(quickstart.expected(), tprog.expected_out)
+
+
 def compile_cifar_reference():
     """The reference's CIFAR CNN as ``examples/cifar10_cnn_e2e.py`` builds
     it: ``(weights, shifts, net)``, the counterpart of the port's

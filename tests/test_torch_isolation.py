@@ -8,7 +8,8 @@
   on ``device="cpu"``, serves a guarded LeNet-5 batch on the batched
   interpreter (a fault injected, detected and recovered), replays a short
   trace through the serving engine, runs the projection driver and
-  trains, quantises and serves a float LeNet-5, and runs the LM server
+  trains, quantises and serves a float LeNet-5, runs the quickstart
+  (``python -m repro_torch.quickstart --device cpu``) and the LM server
   (``python -m repro_torch.launch.serve --arch lm100m --device cpu``);
 * with no CUDA card, entry points and drivers called without a device
   raise :class:`~repro_torch.device.NoDeviceError` before any work runs
@@ -64,7 +65,8 @@ def test_no_module_imports_jax_or_repro():
             "harden/faults.py", "harden/guards.py", "configs/__init__.py",
             "configs/qwen2_5_3b.py", "models/config.py", "models/params.py",
             "models/layers.py", "models/transformer.py", "serving/cache.py",
-            "serving/engine.py", "launch/serve.py"} <= names
+            "serving/engine.py", "launch/serve.py", "models/moe.py",
+            "models/mamba.py", "models/rwkv6.py", "quickstart.py"} <= names
     bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
            for path in files for line, name in _imports(path)
            if _forbidden(name)]
@@ -122,6 +124,10 @@ from repro_torch.quantize import (digit_dataset, float_model, int8_top1,
 with contextlib.redirect_stdout(io.StringIO()) as said:
     assert vta_lm_projection.main(["--device", "cpu"]) == 0
 assert "(bit-exact)" in said.getvalue()
+from repro_torch import quickstart
+with contextlib.redirect_stdout(io.StringIO()) as said:
+    assert quickstart.main(["--device", "cpu"]) == 0
+assert said.getvalue().rstrip().endswith("bit-exact ✓"), said.getvalue()
 x, y = digit_dataset(64, seed=0)
 params = train_float("lenet5", x, y, epochs=1, device="cpu")
 qm = quantize_network(float_model("lenet5", params), x[:4], margin=0)
@@ -233,7 +239,8 @@ DRIVER_ARGS = {
     "serve_vta": ["--requests", "2"], "resnet_e2e": ["--requests", "2"],
     "cifar10_cnn_e2e": ["--requests", "2"],
     "quantize_eval": ["--net", "lenet5", "--train-n", "64"],
-    "vta_lm_projection": [], "launch.serve": ["--arch", "lm100m"]}
+    "vta_lm_projection": [], "launch.serve": ["--arch", "lm100m"],
+    "quickstart": []}
 
 
 @pytest.mark.parametrize("module", list(DRIVER_ARGS))
