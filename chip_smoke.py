@@ -217,7 +217,38 @@ In order it:
    multiple of the WKV chunk) and 16 new tokens, logits finite, and a
    960-token prefill plus 64 teacher-forced decode steps leaving every
    layer's ``wkv`` state and the last logits within ``RWKV_TOL`` of one
-   1024-token prefill (``rwkv_serve``).
+   1024-token prefill (``rwkv_serve``);
+17. trains on the card (``train`` in the record): the card tests of
+   training (``tests/test_torch_card.py -k "lm_train_step or
+   attention_grad"`` in a pytest process: one float32 train step of each
+   LM smoke config and two with remat, kernel path against plain path,
+   launches against the plans; the attention op under grad in float32
+   and bf16, its gradients exactly the plain version's); lm100m at its
+   published width (96 M float32 parameters, remat ``dots``) through
+   ``launch.train.train``: 200 steps of 32 × 256 tokens in 2
+   microbatches, lr 1e-3, a checkpoint every 50 steps and a failure
+   injected before step 120 — one restart, the replayed steps' losses
+   equal to their first pass (rtol 1e-5), the last loss below the first,
+   attention launches = (forward + recompute) × layers × microbatches ×
+   steps run × the plan's, step 1's loss within 1e-4 and grad norm
+   within 1e-3 of the same step inside ``layers.plain_attention``, steps
+   2-5 within those limits or ten times the distance of a control run
+   with the kernel's split-TF32 arithmetic emulated in its place (the
+   plain run goes on to step 200, its distance reported); qwen2.5-3b at
+   its published width (3.40 B float32 parameters, remat ``full``): 3 AdamW
+   steps on one 4 × 1024 batch, losses finite and falling, launches
+   against the plans, step 1 within 1e-3 of the plain path's; for both,
+   the median step time, tokens/s, peak memory, a profiled step (device
+   time, idle share, the attention kernels and the plain backward's
+   range, top device ops) and the step's bound (6 × N × tokens, 2 more
+   × the blocks' N under remat ``full``, plus attention, at 67
+   TFLOP/s); and the attention op alone at the two
+   training shapes: under grad its output within 2e-5 of
+   ``attention_ref`` and its gradients equal to ``chunked_attention``'s,
+   the kernel's forward beside SDPA's and the bound,
+   the plain recompute-and-backward beside SDPA's backward (the
+   attention entry's ``train_calls``; the training launches added to its
+   ``launches``).
 
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
 the last line.  Any failure raises and exits non-zero.  The last line is
@@ -237,6 +268,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1824,10 +1856,13 @@ ATTN_KERNEL_NAMES = ("f32_kernel", "tiles_kernel", "split_kernel",
                      "combine_kernel")      # the attention sources' kernels
 
 
-def lm_profile(fn) -> dict:
+def lm_profile(fn, range_name: Optional[str] = None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the attention kernels'
     device time (``ATTN_KERNEL_NAMES``), every device event's, the host
-    clock of the traced call and the idle share."""
+    clock of the traced call and the idle share; with ``range_name``, the
+    device span of the ``record_function`` ranges of that name
+    (``range_ms``; ``None`` where the trace carries no device-side
+    range), kept out of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1837,7 +1872,9 @@ def lm_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = [e for e in device if e.name == range_name]
+    events = [e for e in device if e.name != range_name]
     attn = [e for e in events
             if any(name in e.name for name in ATTN_KERNEL_NAMES)]
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
@@ -1846,14 +1883,19 @@ def lm_profile(fn) -> dict:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return {"attention_kernel_ms": sum(e.time_range.elapsed_us()
-                                       for e in attn) / 1e3,
-            "attention_kernels": len(attn),
-            "device_busy_ms": busy_ms, "traced_wall_ms": wall,
-            "idle_share": 1.0 - busy_ms / wall,
-            "device_events": len(events),
-            "top_device_ops": [{"name": name[:90], "ms": ms, "count": n}
-                               for name, (ms, n) in top]}
+    out = {"attention_kernel_ms": sum(e.time_range.elapsed_us()
+                                      for e in attn) / 1e3,
+           "attention_kernels": len(attn),
+           "device_busy_ms": busy_ms, "traced_wall_ms": wall,
+           "idle_share": 1.0 - busy_ms / wall,
+           "device_events": len(events),
+           "top_device_ops": [{"name": name[:90], "ms": ms, "count": n}
+                              for name, (ms, n) in top]}
+    if range_name is not None:
+        out["range_ms"] = (sum(e.time_range.elapsed_us() for e in ranges)
+                           / 1e3 if ranges else None)
+        out["ranges"] = len(ranges)
+    return out
 
 
 def lm_call_case(ops, ref, fa, name, shape, q_offset, sms, dev,
@@ -2650,6 +2692,576 @@ def rwkv_phase(ops, card: str, dev) -> dict:
     return out
 
 
+# -- phase 17: training at full width -----------------------------------------
+
+TRAIN_ARCH = "lm100m"              # src/repro_torch/configs/lm100m.py
+# the reference driver's usage line (global batch 32, seq 256) and the
+# example's microbatches and lr (examples/train_lm.py)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR = 32, 256, 2, 1e-3
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 200, 50, 120
+TRAIN_REPLAY_RTOL = 1e-5           # tests/test_fault_tolerance.py
+TRAIN_PLAIN_STEPS = 5              # kernel path against plain path, gated
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-4, 1e-3
+# from step 2 on a step may also lie this many times the emulated
+# control's distance from the plain path (float32 noise of the kernel's
+# size, spread by the steps before)
+TRAIN_CONTROL_FACTOR = 10
+QWEN_TRAIN_BATCH, QWEN_TRAIN_SEQ, QWEN_TRAIN_STEPS = 4, 1024, 3
+QWEN_TRAIN_RTOL = 1e-3             # step 1 against the plain path
+TRAIN_CARD_CASES = 21              # 13 train steps, 8 attention grads
+TRAIN_ATTN_ITERS = 20              # op-level backward timing, calls
+
+
+def train_bound(cfg, tokens: int, batch: int, seq: int) -> dict:
+    """Least time of a train step at 67 TFLOP/s float32: 6 operations a
+    token for each parameter a product reads (forward 2, backward 4; an
+    untied embedding table is gathered, not multiplied), 2 more for each
+    block parameter where remat ``full`` recomputes the blocks' products
+    (``dots`` keeps them and recomputes only attention and elementwise
+    work), and attention's 4·D operations a kept pair three times over
+    (forward, a backward of twice it), four where a remat recomputes it."""
+    from repro_torch.models.params import param_count
+    from repro_torch.models.transformer import model_defs
+    defs = model_defs(cfg)
+    gathered = (0 if cfg.tie_embeddings
+                else param_count({"embed": defs["embed"]}))
+    blocks = param_count([defs["blocks"], defs["tail"],
+                          defs.get("encoder", {}).get("blocks", [])])
+    linear = 6 * (param_count(defs) - gathered) * tokens
+    recompute = 2 * blocks * tokens if cfg.remat == "full" else 0
+    attn = ((3 if cfg.remat == "none" else 4) * 4 * cfg.head_dim
+            * kept_pairs(seq, seq, True, None, 0) * batch * cfg.n_heads
+            * cfg.n_layers)
+    total = linear + recompute + attn
+    return {"operations": total, "linear_operations": linear,
+            "recompute_operations": recompute,
+            "attention_operations": attn,
+            "ms": total / F32_OPS_PER_S * 1e3}
+
+
+def train_card_phase() -> dict:
+    """The card tests of training (``tests/test_torch_card.py``: one
+    float32 train step of each LM smoke config and two with remat, kernel
+    path against plain path, launches against the plans; the attention op
+    under grad in float32 and bf16) in a pytest process of its own."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "cuda",
+         "-p", "no:cacheprovider", "tests/test_torch_card.py", "-k",
+         "lm_train_step or attention_grad"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    seconds = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
+    if proc.returncode != 0 or f"{TRAIN_CARD_CASES} passed" not in tail:
+        raise AssertionError(f"training card tests: rc {proc.returncode}\n"
+                             f"{proc.stdout[-6000:]}\n{proc.stderr[-3000:]}")
+    print(f"training card tests (11 smoke configs + 2 with remat, float32 "
+          f"kernel vs plain; the op's gradients f32/bf16): {tail} in "
+          f"{seconds:.1f} s")
+    return {"result": tail, "seconds": seconds}
+
+
+def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
+    """Phase 17 (a): lm100m at its published width (14 layers, d 640, 10
+    heads over 2, head dim 64, d_ff 2560, vocab 4096, remat ``dots``;
+    seeded float32 weights) trained by the port's ``launch.train.train``:
+    global batch 32 of 256 tokens in 2 microbatches, lr 1e-3, float32
+    AdamW, 200 steps, a checkpoint every 50 and one injected failure
+    before step 120 (restored from step 100, steps 100-119 replayed).
+    Gates: every loss finite, the last below the first, one restart, each
+    replayed step's loss its first pass's within ``TRAIN_REPLAY_RTOL``,
+    attention launches = (forward + remat recompute) × layers ×
+    microbatches × steps run × the plan's launches; the first
+    ``TRAIN_PLAIN_STEPS`` steps rerun from the same draw inside
+    ``layers.plain_attention``: step 1 (the same parameters on both
+    paths) within ``TRAIN_LOSS_RTOL`` (loss) and ``TRAIN_GNORM_RTOL``
+    (grad norm); steps 2-5 within those limits or within
+    ``TRAIN_CONTROL_FACTOR`` times a control's distance at that step: the
+    kernel path from the same draw with the kernel's split-TF32
+    arithmetic emulated in its place (``ref.attention_tf32_ref``,
+    terms=3), a run that parts from the plain one by float32 noise of the
+    kernel's size.  The plain run goes on to step 200 and its distance is
+    reported."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.device import strict_float32
+    from repro_torch.launch.train import build_trainer, train
+    from repro_torch.models import layers
+    from repro_torch.models.params import param_count
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    n_params = param_count(model_defs(cfg))
+    tc = TrainConfig(microbatches=TRAIN_MICRO, opt=adamw.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=max(1, TRAIN_STEPS // 10),
+        total_steps=TRAIN_STEPS))
+    sms = fa.device_sm_count(dev)
+    call = (TRAIN_BATCH // TRAIN_MICRO, cfg.n_heads, cfg.n_kv_heads,
+            TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim)
+    per_call = fa.plan(*call, torch.float32, sm_count=sms).launches
+    forwards = 1 if cfg.remat == "none" else 2      # + the remat recompute
+    restored = (TRAIN_FAIL_AT // TRAIN_CKPT_EVERY) * TRAIN_CKPT_EVERY
+    steps_run = TRAIN_STEPS + TRAIN_FAIL_AT - restored
+    per_step = forwards * cfg.n_layers * TRAIN_MICRO * per_call
+    planned = per_step * steps_run
+    formula = (f"{forwards} (forward + remat recompute) x {cfg.n_layers} "
+               f"layers x {TRAIN_MICRO} microbatches x {steps_run} steps "
+               f"run ({TRAIN_STEPS} + {TRAIN_FAIL_AT - restored} replayed) "
+               f"x {per_call} launch a call = {planned}")
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        report = train(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ, ckpt_dir=str(ckpt),
+                       ckpt_every=TRAIN_CKPT_EVERY, train_cfg=tc,
+                       fail_at=[TRAIN_FAIL_AT], log_every=0, device=dev,
+                       step_hook=lambda state, step: stamps.append(
+                           (step, time.perf_counter())))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, gemm = ops.attention_launches, ops.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = report.metrics_history
+    if launches != planned or gemm:
+        raise AssertionError(f"lm100m training: {launches} attention "
+                             f"launches, planned {formula} (vta_gemm {gemm})")
+    losses = [m["loss"] for m in hist]
+    if not all(np.isfinite(losses)) or not all(
+            np.isfinite(m["grad_norm"]) for m in hist):
+        raise AssertionError("lm100m training: a loss or grad norm is not "
+                             "finite")
+    first_pass = hist[:TRAIN_FAIL_AT]
+    replay = hist[TRAIN_FAIL_AT:TRAIN_FAIL_AT + TRAIN_FAIL_AT - restored]
+    if (report.restarts != 1 or report.final_step != TRAIN_STEPS
+            or [m["step"] for m in first_pass]
+            != list(range(1, TRAIN_FAIL_AT + 1))
+            or [m["step"] for m in replay]
+            != list(range(restored + 1, TRAIN_FAIL_AT + 1))):
+        raise AssertionError(f"lm100m training: restarts "
+                             f"{report.restarts}, steps "
+                             f"{[m['step'] for m in hist]}")
+    replay_rel = max(abs(r["loss"] - first_pass[r["step"] - 1]["loss"])
+                     / abs(first_pass[r["step"] - 1]["loss"])
+                     for r in replay)
+    if replay_rel > TRAIN_REPLAY_RTOL:
+        raise AssertionError(f"lm100m training: a replayed loss is "
+                             f"{replay_rel:.3g} from its first pass")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"lm100m training: loss {losses[0]} -> "
+                             f"{losses[-1]}")
+    durations = sorted(t1 - t0 for (s0, t0), (s1, t1)
+                       in zip(stamps, stamps[1:]) if s1 == s0 + 1)
+    step_s = durations[len(durations) // 2]
+    trajectory = first_pass[:restored] + hist[TRAIN_FAIL_AT:]
+
+    # the kernel path against the plain path from the same draw
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=0)
+    init_state, run_step = build_trainer(cfg, tc, data_cfg, 0, dev)
+    state = init_state()
+    plain, plain_times = [], []
+    before = ops.attention_launches
+    with strict_float32(), layers.plain_attention():
+        for step in range(TRAIN_STEPS):
+            t1 = time.perf_counter()
+            state = run_step(state, step)
+            plain_times.append(time.perf_counter() - t1)
+            plain.append(state.metrics)
+    if ops.attention_launches != before:
+        raise AssertionError("the plain run launched the kernel")
+    # the control: the kernel path from the same draw with the kernel's
+    # split-TF32 arithmetic emulated in its place (attention_tf32_ref,
+    # terms=3, within 2e-5 of attention_ref as the kernel is), so the run
+    # parts from the plain one by a forward error of the kernel's size
+    def emulated(q, k, v, *, backend, **kw):
+        return ref.attention_tf32_ref(q, k, v, terms=3, **kw)
+
+    state = init_state()
+    control, real = [], ops.attention
+    before = ops.attention_launches
+    ops.attention = emulated
+    try:
+        with strict_float32():
+            for step in range(TRAIN_PLAIN_STEPS):
+                state = run_step(state, step)
+                control.append(state.metrics)
+    finally:
+        ops.attention = real
+    if ops.attention_launches != before:
+        raise AssertionError("the emulated control launched the kernel")
+    rel = lambda a, b, key: abs(a[key] - b[key]) / abs(b[key])
+    gated, failed = [], []
+    for i in range(TRAIN_PLAIN_STEPS):
+        k, p, c = trajectory[i], plain[i], control[i]
+        row = {"step": i + 1, "loss_rel": rel(k, p, "loss"),
+               "grad_norm_rel": rel(k, p, "grad_norm"),
+               "control_loss_rel": rel(c, p, "loss"),
+               "control_grad_norm_rel": rel(c, p, "grad_norm")}
+        gated.append(row)
+        # step 1 (the same parameters on both paths) within the limits;
+        # later steps within them or within TRAIN_CONTROL_FACTOR times
+        # the control's distance at that step
+        for key, limit in (("loss", TRAIN_LOSS_RTOL),
+                           ("grad_norm", TRAIN_GNORM_RTOL)):
+            allowed = limit if i == 0 else max(
+                limit, TRAIN_CONTROL_FACTOR * row[f"control_{key}_rel"])
+            if row[f"{key}_rel"] > allowed:
+                failed.append((i + 1, key, row[f"{key}_rel"], allowed))
+    if failed:
+        raise AssertionError(f"lm100m: kernel path vs plain path beyond "
+                             f"(step, metric, distance, allowed) {failed}; "
+                             f"{gated}")
+    end = {"loss_kernel": trajectory[-1]["loss"],
+           "loss_plain": plain[-1]["loss"],
+           "loss_rel": abs(trajectory[-1]["loss"] - plain[-1]["loss"])
+           / abs(plain[-1]["loss"])}
+
+    # one profiled step on the kernel path, after a warm one
+    with strict_float32():
+        state = run_step(state, TRAIN_STEPS)
+        prof = lm_profile(lambda: run_step(state, TRAIN_STEPS + 1),
+                          ops.PLAIN_BACKWARD_RANGE)
+    del state
+    if prof["attention_kernels"] not in (0, per_step):
+        raise AssertionError(f"profiled step: {prof['attention_kernels']} "
+                             f"attention kernels traced, planned {per_step}")
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound = train_bound(cfg, tokens, TRAIN_BATCH, TRAIN_SEQ)
+    out = {"arch": TRAIN_ARCH, "card": card, "params": n_params,
+           "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "microbatches": TRAIN_MICRO, "lr": TRAIN_LR,
+           "steps": TRAIN_STEPS, "ckpt_every": TRAIN_CKPT_EVERY,
+           "fail_at": TRAIN_FAIL_AT, "restarts": report.restarts,
+           "launches": launches, "planned_launches": planned,
+           "launch_formula": formula, "train_s": wall,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses_every_10": [m["loss"] for m in trajectory[9::10]],
+           "replay_max_rel": replay_rel,
+           "step_ms_median": step_s * 1e3,
+           "step_ms_min": durations[0] * 1e3,
+           "step_ms_max": durations[-1] * 1e3,
+           "tokens_per_s": tokens / step_s,
+           "peak_memory_bytes": peak,
+           "plain_step_ms_median": sorted(plain_times)[
+               len(plain_times) // 2] * 1e3,
+           "kernel_vs_plain": gated, "end_of_run": end,
+           "profile_step": prof, "bound": bound,
+           "share_of_bound": bound["ms"] / (step_s * 1e3)}
+    print(f"lm100m training ({card}): full width, {n_params / 1e6:.2f} M "
+          f"float32 parameters, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens ({TRAIN_MICRO} microbatches, remat "
+          f"{cfg.remat}) in {wall:.1f} s: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; restarts {report.restarts}, replayed steps "
+          f"{restored + 1}-{TRAIN_FAIL_AT} within {replay_rel:.3g} of their "
+          f"first pass; step median {step_s * 1e3:.1f} ms (min "
+          f"{durations[0] * 1e3:.1f}, max {durations[-1] * 1e3:.1f}), "
+          f"{tokens / step_s:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"  attention launches {launches} = {formula}")
+    print(f"  kernel vs plain, step 1: loss {gated[0]['loss_rel']:.3g} "
+          f"(limit {TRAIN_LOSS_RTOL}), grad norm "
+          f"{gated[0]['grad_norm_rel']:.3g} (limit {TRAIN_GNORM_RTOL}); "
+          f"steps 1-{TRAIN_PLAIN_STEPS} loss "
+          + ", ".join(f"{r['loss_rel']:.3g}" for r in gated)
+          + ", grad norm "
+          + ", ".join(f"{r['grad_norm_rel']:.3g}" for r in gated)
+          + "; the emulated control's loss "
+          + ", ".join(f"{r['control_loss_rel']:.3g}" for r in gated)
+          + ", grad norm "
+          + ", ".join(f"{r['control_grad_norm_rel']:.3g}" for r in gated)
+          + f"; after {TRAIN_STEPS} steps loss {end['loss_kernel']:.5f} vs "
+          f"plain {end['loss_plain']:.5f} ({end['loss_rel']:.3g}); plain "
+          f"step median {out['plain_step_ms_median']:.1f} ms")
+    print(f"  profiled step ({card}): device {prof['device_busy_ms']:.1f} "
+          f"ms of {prof['traced_wall_ms']:.1f} ms (idle share "
+          f"{prof['idle_share']:.4f}); attention kernels "
+          f"{prof['attention_kernel_ms']:.2f} ms ({prof['attention_kernels']}"
+          f" launches), plain backward "
+          + (f"{prof['range_ms']:.2f} ms"
+             if prof["range_ms"] is not None
+             else "not measured (no device-side range)")
+          + f"; bound {bound['ms']:.1f} ms (share {out['share_of_bound']:.3f}"
+          f" of the median step)")
+    for op in prof["top_device_ops"]:
+        print(f"    {op['ms']:9.3f} ms {op['count']:5d}x {op['name']}")
+    return out
+
+
+def train_qwen_phase(ops, fa, card: str, dev) -> dict:
+    """Phase 17 (b): qwen2.5-3b at its published width (36 layers, d 2048,
+    16 heads over 2, head dim 128, d_ff 11008, vocab 151936, remat
+    ``full``; seeded float32 weights, 3.398 B parameters) takes 3 steps of
+    the port's train step on one seeded batch of 4 × 1024 from
+    ``make_batch``, with the reference's default train config for the
+    arch (float32 moments, one microbatch, warmup 1 of 3).  Gates: losses
+    and grad norms finite, step 3's loss below step 1's, attention
+    launches = 2 × layers × 3 × the plan's, and step 1's loss and grad
+    norm within ``QWEN_TRAIN_RTOL`` of the same step inside
+    ``layers.plain_attention`` (taken first: the step updates in place)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import strict_float32
+    from repro_torch.launch.train import default_train_config
+    from repro_torch.models import layers
+    from repro_torch.models.params import init_params, param_count, tree_items
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_grad_fn, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    defs = model_defs(cfg)
+    n_params = param_count(defs)
+    tc = default_train_config(LM_ARCH, QWEN_TRAIN_BATCH, QWEN_TRAIN_STEPS)
+    if (tc.microbatches, tc.opt.eightbit, tc.opt.warmup_steps) != (1, False, 1):
+        raise AssertionError(f"qwen2.5-3b train config {tc}")
+    sms = fa.device_sm_count(dev)
+    call = (QWEN_TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, QWEN_TRAIN_SEQ,
+            QWEN_TRAIN_SEQ, cfg.head_dim)
+    per_call = fa.plan(*call, torch.float32, sm_count=sms).launches
+    forwards = 1 if cfg.remat == "none" else 2
+    per_step = forwards * cfg.n_layers * per_call
+    planned = per_step * QWEN_TRAIN_STEPS
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=QWEN_TRAIN_SEQ,
+                          global_batch=QWEN_TRAIN_BATCH, seed=0)
+    with strict_float32():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_params(defs, seed=0, dtype=torch.float32, device=dev)
+        for _, p in tree_items(params, lambda x: isinstance(x, torch.Tensor)):
+            p.requires_grad_(True)
+        opt = adamw.init(tc.opt, params)
+        batch = make_batch(data_cfg, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        before = ops.attention_launches
+        t0 = time.perf_counter()
+        with layers.plain_attention():
+            loss, _, grads = make_grad_fn(cfg, tc)(params, batch)
+            plain = {"loss": float(loss),
+                     "grad_norm": float(adamw.global_norm(grads))}
+        del grads, loss
+        plain_s = time.perf_counter() - t0
+        if ops.attention_launches != before:
+            raise AssertionError("the plain step launched the kernel")
+        step = make_train_step(cfg, tc)
+        ops.reset_launches()
+        hist, times = [], []
+        for _ in range(QWEN_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            names = sorted(met)
+            values = torch.stack([met[k].float() for k in names]).tolist()
+            times.append(time.perf_counter() - t0)
+            hist.append(dict(zip(names, values)))
+        launches, gemm = ops.attention_launches, ops.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        prof = lm_profile(lambda: step(params, opt, batch),
+                          ops.PLAIN_BACKWARD_RANGE)
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    if launches != planned or gemm:
+        raise AssertionError(f"qwen2.5-3b training: {launches} attention "
+                             f"launches, planned {planned} (vta_gemm {gemm})")
+    if not (np.isfinite([m["loss"] for m in hist]).all()
+            and np.isfinite([m["grad_norm"] for m in hist]).all()):
+        raise AssertionError(f"qwen2.5-3b training: {hist}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"qwen2.5-3b training: loss {hist[0]['loss']} "
+                             f"-> {hist[-1]['loss']}")
+    rel = {k: abs(hist[0][k] - plain[k]) / abs(plain[k])
+           for k in ("loss", "grad_norm")}
+    if max(rel.values()) > QWEN_TRAIN_RTOL:
+        raise AssertionError(f"qwen2.5-3b step 1: kernel path vs plain "
+                             f"path {rel}")
+    if prof["attention_kernels"] not in (0, per_step):
+        raise AssertionError(f"profiled step: {prof['attention_kernels']} "
+                             f"attention kernels traced, planned {per_step}")
+    tokens = QWEN_TRAIN_BATCH * QWEN_TRAIN_SEQ
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    bound = train_bound(cfg, tokens, QWEN_TRAIN_BATCH, QWEN_TRAIN_SEQ)
+    out = {"arch": LM_ARCH, "card": card, "params": n_params,
+           "batch": QWEN_TRAIN_BATCH, "seq_len": QWEN_TRAIN_SEQ,
+           "steps": QWEN_TRAIN_STEPS, "remat": cfg.remat,
+           "init_s": init_s, "losses": [m["loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "step_ms": [t * 1e3 for t in times],
+           "step_ms_median_after_first": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, "peak_memory_bytes": peak,
+           "launches": launches, "planned_launches": planned,
+           "plain_step1": plain, "plain_grad_step_s": plain_s,
+           "kernel_vs_plain_step1": rel, "profile_step": prof,
+           "bound": bound, "share_of_bound": bound["ms"] / (step_s * 1e3)}
+    print(f"qwen2.5-3b training ({card}): full width, {n_params / 1e9:.3f} B "
+          f"float32 parameters, remat {cfg.remat}, {QWEN_TRAIN_STEPS} AdamW "
+          f"steps on {QWEN_TRAIN_BATCH} x {QWEN_TRAIN_SEQ} tokens: losses "
+          + ", ".join(f"{m['loss']:.4f}" for m in hist)
+          + "; grad norms " + ", ".join(f"{m['grad_norm']:.4g}" for m in hist)
+          + "; steps " + ", ".join(f"{t * 1e3:.0f}" for t in times)
+          + f" ms ({tokens / step_s:.0f} tokens/s after the first); peak "
+          f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    print(f"  attention launches {launches} = {forwards} x {cfg.n_layers} "
+          f"layers x {QWEN_TRAIN_STEPS} steps x {per_call}; step 1 vs plain "
+          f"path: loss {rel['loss']:.3g}, grad norm {rel['grad_norm']:.3g} "
+          f"(limit {QWEN_TRAIN_RTOL}; plain grads {plain_s:.1f} s)")
+    print(f"  profiled step ({card}): device {prof['device_busy_ms']:.1f} "
+          f"ms of {prof['traced_wall_ms']:.1f} ms (idle share "
+          f"{prof['idle_share']:.4f}); attention kernels "
+          f"{prof['attention_kernel_ms']:.2f} ms ({prof['attention_kernels']}"
+          f" launches), plain backward "
+          + (f"{prof['range_ms']:.2f} ms"
+             if prof["range_ms"] is not None
+             else "not measured (no device-side range)")
+          + f"; bound {bound['ms']:.0f} ms (share {out['share_of_bound']:.3f}"
+          f" of the median step)")
+    for op in prof["top_device_ops"]:
+        print(f"    {op['ms']:9.3f} ms {op['count']:5d}x {op['name']}")
+    return out
+
+
+def backward_bound(case) -> float:
+    """Least time (ms) of the attention backward with its recompute:
+    q, k, v, o and dO read, dQ, dK, dV written at the memory rate, or
+    10·D operations a kept pair (Q Kᵀ again, dV, dP, dQ, dK) at the
+    float32 rate of ``attention_bound``, the larger."""
+    b, h, hkv, sq, skv, d = case["shape"]
+    nbytes = 4 * d * (4 * b * h * sq + 4 * b * hkv * skv)
+    ops = 10 * b * h * d * kept_pairs(sq, skv, True, None, 0)
+    t_ops = min(ops / F32_OPS_PER_S, 3 * ops / TF32_OPS_PER_S)
+    return max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
+
+
+def train_attention_case(ops, ref, name, shape, chunk, dev) -> dict:
+    """One attention call of a train step alone, float32 causal.  Gates:
+    the op under grad (``ops.with_plain_backward``) carries a ``grad_fn``,
+    its output lies within ``attention_err``'s float32 tolerance of
+    ``attention_ref`` and its q/k/v gradients equal the plain
+    ``chunked_attention``'s.  Times: the kernel's forward, SDPA's (every
+    backend, the fastest within 2e-5) and the bound; the op's backward as training runs it (the plain
+    ``chunked_attention`` recomputed and differentiated, ``chunk`` its q
+    and kv chunk) beside SDPA's backward on that backend (its forward and
+    backward less its forward), each between CUDA events over
+    ``TRAIN_ATTN_ITERS`` calls."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.models import layers
+    b, h, hkv, sq, skv, d = shape
+    x = attention_inputs(np.random.default_rng(170), shape, torch.float32,
+                         dev)
+    kw = dict(causal=True, window=None, q_offset=0)
+    case = {"shape": shape, "dtype": torch.float32, "causal": True,
+            "window": None, "q_offset": 0, "sdpa_causal": True}
+    sd = sdpa_backends(ref, x, kw, case)
+    fwd_bound, fwd_by = attention_bound(case)
+    plain = functools.partial(layers.chunked_attention, q_chunk=chunk,
+                              kv_chunk=chunk, **kw)
+    leaves = [t.detach().requires_grad_(True) for t in x]
+    ct = torch.from_numpy(np.random.default_rng(171).standard_normal(
+        (b, h, sq, d)).astype(np.float32)).to(dev)
+
+    launch = functools.partial(ops.attention, **kw)
+
+    def plain_backward():
+        return torch.autograd.grad(plain(*leaves), leaves, ct)
+
+    def kernel_train_call():
+        out = ops.with_plain_backward(launch, plain, *leaves)
+        return torch.autograd.grad(out, leaves, ct)
+
+    # the op as training calls it, held to its plain versions at this
+    # shape: the output against attention_ref at the float32 tolerance,
+    # the gradients equal to chunked_attention's own
+    out = ops.with_plain_backward(launch, plain, *leaves)
+    if out.grad_fn is None:
+        raise AssertionError(f"{name}: the op's output has no grad_fn")
+    fwd_err = attention_err(out.detach(), ref.attention_ref(*x, **kw))
+    got = torch.autograd.grad(out, leaves, ct)
+    want = plain_backward()
+    grad_diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: the op's q/k/v gradients differ "
+                             f"from chunked_attention's by {grad_diff:.3g}")
+    del out, got, want
+    row = {"case": name, "shape_b_h_hkv_sq_skv_d": list(shape),
+           "forward_max_abs_err": fwd_err["max_abs_err"],
+           "grads_equal_plain": True,
+           "kernel_ms": graph_ms(lambda: ops.attention(*x, **kw),
+                                 *ATTN_WINDOW),
+           "sdpa": sd, "bound_ms": fwd_bound, "bound_by": fwd_by,
+           "bound_cuda_cores_ms": attention_bound(case, True)[0],
+           "plain_backward_ms": cuda_ms(plain_backward, TRAIN_ATTN_ITERS, 3),
+           "train_call_ms": cuda_ms(kernel_train_call, TRAIN_ATTN_ITERS, 3),
+           "backward_bound_ms": backward_bound(case)}
+    backend = sd["fastest_within_2e-5"]
+    if backend is not None:
+        gqa = sd["backends"][backend]["enable_gqa"]
+        group = h // hkv
+        kk, vv = ((leaves[1], leaves[2]) if gqa else
+                  (leaves[1].detach().repeat_interleave(group, 1)
+                   .requires_grad_(True),
+                   leaves[2].detach().repeat_interleave(group, 1)
+                   .requires_grad_(True)))
+        args = (leaves[0], kk, vv)
+
+        def sdpa_fwd():
+            with sdpa_kernel(getattr(SDPBackend, backend)):
+                return F.scaled_dot_product_attention(
+                    *args, is_causal=True, scale=d ** -0.5, enable_gqa=gqa)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa_fwd(), args, ct)
+
+        fwd_ms = cuda_ms(sdpa_fwd, TRAIN_ATTN_ITERS, 3)
+        both_ms = cuda_ms(sdpa_fwd_bwd, TRAIN_ATTN_ITERS, 3)
+        row.update({"sdpa_backend": backend, "sdpa_forward_call_ms": fwd_ms,
+                    "sdpa_forward_backward_ms": both_ms,
+                    "sdpa_backward_ms": both_ms - fwd_ms})
+    print(f"  {name} {tuple(shape)} float32 causal: under grad the "
+          f"output within {fwd_err['max_abs_err']:.3g} of attention_ref "
+          f"(2e-5), q/k/v gradients equal to chunked_attention's; kernel "
+          f"forward {row['kernel_ms']:.4f} ms, SDPA {sd['fastest_ms']} "
+          f"({backend}), bound {fwd_bound:.4f} ({fwd_by}; CUDA cores "
+          f"{row['bound_cuda_cores_ms']:.4f}); backward: plain recompute + "
+          f"backward {row['plain_backward_ms']:.3f} ms, SDPA backward "
+          + (f"{row['sdpa_backward_ms']:.3f}" if backend else "n/a")
+          + f" ms, bound {row['backward_bound_ms']:.4f}; the op in training "
+          f"(kernel forward + plain backward) {row['train_call_ms']:.3f} ms")
+    return row
+
+
+def train_phase(ops, ref, fa, card: str, dev) -> dict:
+    """Phase 17: the training card tests, lm100m and qwen2.5-3b trained at
+    full width, and the attention op at their training shapes."""
+    from repro_torch.configs import get_config
+    out = {"card_tests": train_card_phase(),
+           "lm100m": train_lm_phase(ops, ref, fa, card, dev),
+           "qwen": train_qwen_phase(ops, fa, card, dev)}
+    lm, qwen = get_config(TRAIN_ARCH), get_config(LM_ARCH)
+    out["calls"] = [
+        train_attention_case(
+            ops, ref, "lm100m training microbatch",
+            (TRAIN_BATCH // TRAIN_MICRO, lm.n_heads, lm.n_kv_heads,
+             TRAIN_SEQ, TRAIN_SEQ, lm.head_dim), lm.q_chunk, dev),
+        train_attention_case(
+            ops, ref, "qwen2.5-3b training",
+            (QWEN_TRAIN_BATCH, qwen.n_heads, qwen.n_kv_heads,
+             QWEN_TRAIN_SEQ, QWEN_TRAIN_SEQ, qwen.head_dim), qwen.q_chunk,
+            dev)]
+    out["launches"] = out["lm100m"]["launches"] + out["qwen"]["launches"]
+    return out
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -3174,6 +3786,13 @@ def main() -> int:
     attn_entry["launches"] += record["moe_serve"]["launches"]
     attn_entry["lm_calls"] += record["moe_serve"]["calls"]
     record["rwkv_serve"] = rwkv_phase(ops, card, dev)
+    # -- 17. training at full width -----------------------------------------
+    record["train"] = train_phase(ops, ref, attn_kernel, card, dev)
+    for key in ("lm100m", "qwen"):
+        attn_entry["launches_by_path"][f"train_{key}"] = \
+            record["train"][key]["launches"]
+    attn_entry["launches"] += record["train"]["launches"]
+    attn_entry["train_calls"] = record["train"]["calls"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -7,12 +7,20 @@ kernel launches made through :func:`vta_matmul` and ``attention_launches``
 the attention kernels launched (``flash_attention.launches``: the count
 the C entry points report), so a run can show that its main path went
 through the kernels.
+
+The attention kernel has no backward (nor has the reference's).  Under
+grad it is launched through :func:`with_plain_backward`: the output
+carries a ``grad_fn`` whose backward recomputes the attention through a
+plain version under grad and backpropagates through that, so the kernel
+path's gradients are the plain path's.  :func:`attention` on CUDA
+operands that require grad, outside it, raises rather than return an
+output that gradients would skip.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -85,6 +93,52 @@ def vta_matmul(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                     torch.Tensor]
+# the profiler range around the plain recompute and backward of the op
+PLAIN_BACKWARD_RANGE = "attention_plain_backward"
+
+
+class _PlainBackward(torch.autograd.Function):
+    """``launch``'s output with ``plain``'s gradients (q, k, v saved)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, launch: Attention, plain: Attention):
+        ctx.save_for_backward(q, k, v)
+        ctx.plain = plain
+        return launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad(), \
+                torch.profiler.record_function(PLAIN_BACKWARD_RANGE):
+            out = ctx.plain(*inputs)
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None, None)
+
+
+def _needs_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def with_plain_backward(launch: Attention, plain: Attention,
+                        q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """``launch(q, k, v)``; where grad is enabled and an operand requires
+    it, through an ``autograd.Function`` whose backward recomputes
+    ``plain(q, k, v)`` under grad and backpropagates through it.  The
+    forward runs ``launch`` once, as without grad: the kernel's launches
+    are counted where they happen, one call's worth per forward (and per
+    recompute of a checkpointed block around it)."""
+    if _needs_grad(q, k, v):
+        return _PlainBackward.apply(q, k, v, launch, plain)
+    return launch(q, k, v)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, sm_scale: Optional[float] = None,
               window: Optional[int] = None, q_offset: int = 0,
@@ -102,7 +156,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     prefill, decode); ``window`` keeps keys with ``q_pos - k_pos <
     window``.  backend: ``"auto"`` picks by the tensors' device, ``"cuda"``
     requires CUDA tensors (kernel), ``"torch"`` requires CPU tensors
-    (plain)."""
+    (plain).  The kernel has no backward: under grad, launch it through
+    :func:`with_plain_backward` (``layers.attention`` does)."""
     _check_backend(backend)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"attention takes 4-D q and k, got "
@@ -122,5 +177,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("backend='torch' is the plain version for CPU "
                          f"tensors; got {q.device} (call "
                          f"ref.attention_ref directly to compare on the card)")
+    if _needs_grad(q, k, v):
+        raise RuntimeError("the attention kernel has no backward: launch it "
+                           "through ops.with_plain_backward under grad")
     return _flash.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
                                   window=window, q_offset=q_offset)

@@ -13,13 +13,18 @@ card-side check of the kernel path.
 The reference's ``constrain``/``constrain_seq`` are sharding annotations,
 identities without a mesh: the port runs on one device and leaves them
 out.  Its ``grad_cast`` (a gradient-dtype boundary) is an identity in the
-forward pass, and so it is here.
+forward pass whose backward casts the cotangent to the input's dtype, and
+so it is here.  Under grad the kernel's attention output backpropagates
+through :func:`chunked_attention` with the same arguments
+(``ops.with_plain_backward``): the kernel path's gradients are the plain
+path's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
@@ -36,15 +41,27 @@ _PLAIN = contextvars.ContextVar("plain_attention", default=False)
 
 
 @contextlib.contextmanager
-def plain_attention() -> Iterator[None]:
-    """Inside this scope every attention call of the model (prefill,
-    decode, cross and encoder attention) runs its plain torch version on
-    either device, not the kernel."""
-    token = _PLAIN.set(True)
+def attention_mode(plain: bool) -> Iterator[None]:
+    """Inside this scope attention runs as it would inside
+    :func:`plain_attention` (``plain``) or outside every such scope: a
+    checkpointed block's recompute runs under the mode of its forward."""
+    token = _PLAIN.set(plain)
     try:
         yield
     finally:
         _PLAIN.reset(token)
+
+
+def plain_attention():
+    """Inside this scope every attention call of the model (prefill,
+    decode, cross and encoder attention) runs its plain torch version on
+    either device, not the kernel."""
+    return attention_mode(True)
+
+
+def plain_mode() -> bool:
+    """True inside :func:`plain_attention`."""
+    return _PLAIN.get()
 
 
 def uses_kernel(x: torch.Tensor) -> bool:
@@ -52,9 +69,22 @@ def uses_kernel(x: torch.Tensor) -> bool:
     return x.device.type == "cuda" and not _PLAIN.get()
 
 
+class _GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(ctx.dtype)
+
+
 def grad_cast(x: torch.Tensor) -> torch.Tensor:
-    """The reference's bf16 cotangent boundary; identity in the forward
-    pass.  Its backward returns with training."""
+    """The reference's bf16 cotangent boundary: identity in the forward
+    pass; the backward casts the cotangent to ``x``'s dtype."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GradCast.apply(x)
     return x
 
 
@@ -186,12 +216,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal_skip: bool = False) -> torch.Tensor:
     """Attention of q (B, H, Sq, D) over k/v (B, KV, Skv, D).  On CUDA
     tensors the ``flash_attention`` kernel (contiguous operands, as it
-    takes them; ``q_offset`` from the host); on CPU tensors, or inside
-    :func:`plain_attention`, :func:`chunked_attention`."""
+    takes them; ``q_offset`` from the host), backpropagating through
+    :func:`chunked_attention` with the same arguments; on CPU tensors, or
+    inside :func:`plain_attention`, :func:`chunked_attention`."""
     if uses_kernel(q):
-        return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                             causal=causal, window=window, q_offset=q_offset,
-                             backend="cuda")
+        plain = functools.partial(
+            chunked_attention, causal=causal, window=window,
+            q_offset=q_offset, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            causal_skip=causal_skip)
+        launch = functools.partial(ops.attention, causal=causal,
+                                   window=window, q_offset=q_offset,
+                                   backend="cuda")
+        return ops.with_plain_backward(launch, plain, q.contiguous(),
+                                       k.contiguous(), v.contiguous())
     return chunked_attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, q_chunk=q_chunk,
                              kv_chunk=kv_chunk, causal_skip=causal_skip)

@@ -57,6 +57,29 @@ def routing_log(replay: Optional[List[torch.Tensor]] = None
         _ROUTES.reset(token)
 
 
+@contextlib.contextmanager
+def block_routing(taken: List[torch.Tensor]) -> Iterator[None]:
+    """The forward of a checkpointed block: inside this scope every
+    :func:`moe_apply` call routes as it would outside it (logged to an open
+    :func:`routing_log`, replaying its ``replay``), and ``taken`` receives
+    the experts each call dispatched to.  The block's recompute runs inside
+    ``routing_log(replay=taken)``: the same dispatch, and nothing added to
+    the outer log a second time."""
+    outer = _ROUTES.get()
+    log: List[torch.Tensor] = []
+    replay = None
+    if outer is not None and outer[1] is not None:
+        replay = outer[1][len(outer[0]):]
+    token = _ROUTES.set((log, replay))
+    try:
+        yield
+    finally:
+        _ROUTES.reset(token)
+        if outer is not None:
+            outer[0].extend(log)
+        taken.extend(log if replay is None else replay[:len(log)])
+
+
 def moe_defs(cfg: ModelConfig, *, expert_parallel: bool = False
              ) -> Dict[str, ParamDef]:
     d = cfg.d_model
@@ -128,14 +151,17 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
 
     logits = (xt @ p["router"].to(xt.dtype)).float()
     probs = torch.softmax(logits, dim=-1)                    # (G, tg, E)
-    gate_vals, expert_ids = top_k(probs, k)                  # (G, tg, k)
+    _, expert_ids = top_k(probs, k)                          # (G, tg, k)
     routes = _ROUTES.get()
     if routes is not None:
         log, replay = routes
         log.append(expert_ids)
         if replay is not None:
             expert_ids = replay[len(log) - 1]
-            gate_vals = torch.gather(probs, -1, expert_ids)
+    # the top-k values, read back at the experts dispatched to: the same
+    # operations whether the experts were picked or replayed (a
+    # checkpointed block's recompute replays its forward's)
+    gate_vals = torch.gather(probs, -1, expert_ids)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
 

@@ -61,6 +61,15 @@ def tree_items(tree, is_leaf: Callable[[Any], bool] = _is_def,
                         f"({type(tree).__name__})")
 
 
+def is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def tensors(tree) -> List[torch.Tensor]:
+    """The tensor leaves of a tree, in ``tree_items`` order."""
+    return [leaf for _, leaf in tree_items(tree, is_tensor)]
+
+
 def tree_map(fn: Callable[[Any], Any], tree,
              is_leaf: Callable[[Any], bool] = _is_def):
     """``tree`` with every leaf replaced by ``fn(leaf)``, the leaves
@@ -181,8 +190,11 @@ def params_from_numpy(defs, arrays, *, device: DeviceLike = None,
                                constraint="weights-shape")
 
     def carry(path: str) -> torch.Tensor:
+        # a copy on every device: training updates its parameters in place,
+        # and must not write through to the caller's arrays
         arr = np.ascontiguousarray(np.asarray(have[path], np.float32))
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+        return torch.from_numpy(arr).to(device=device, dtype=dtype,
+                                        copy=True)
 
     paths = iter(want)
     return tree_map(lambda d: carry(next(paths)), defs)

@@ -10,21 +10,30 @@ repeats, the forward pass here loops over them, taking each stacked leaf
 at ``[r]``.  Non-periodic tails apply as individual layers.  A layer's
 mixer is attention, RWKV-6 (which carries its own channel mix) or Mamba;
 its feed-forward a dense MLP or MoE.
+
+Where grad is enabled, every block (decoder, tail and encoder) runs
+under ``torch.utils.checkpoint`` by ``cfg.remat``, as the reference wraps
+its scanned blocks in ``jax.checkpoint`` (:func:`remat`); serving, under
+``torch.inference_mode``, is not wrapped.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from . import layers, moe
 from .config import ModelConfig
 from .layers import (attention_apply, attention_defs, mlp_apply, mlp_defs,
                      norm_apply, norm_defs)
 from .mamba import mamba_apply, mamba_defs
 from .moe import moe_apply, moe_defs
-from .params import ParamDef, tree_map
+from .params import ParamDef, is_tensor, tree_map
 from .rwkv6 import rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 
@@ -174,6 +183,66 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
 # Forward
 # ---------------------------------------------------------------------------
 
+# the reference's ``dots_with_no_batch_dims_saveable``: keep the outputs of
+# products without batch dims (``x @ W`` reaches aten as ``mm``), recompute
+# the rest (attention's and the experts' batched products among them)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) by
+    ``cfg.remat`` where grad is enabled: ``"none"`` leaves it as it is,
+    ``"full"`` keeps nothing of it for the backward pass but its inputs,
+    ``"dots"`` keeps its ``mm`` outputs.  The recompute, which runs during
+    ``backward()``, runs under the attention mode of the forward
+    (``layers.attention_mode``) and dispatches each MoE call to the
+    experts its forward took (``moe.block_routing``), adding nothing to an
+    open ``moe.routing_log``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, got "
+                         f"{cfg.remat!r}")
+    extra = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+        if cfg.remat == "dots" else {})
+
+    def wrapped(*args):
+        plain = layers.plain_mode()
+        taken: List[torch.Tensor] = []
+        forward_done = False
+
+        def run(*inner):
+            nonlocal forward_done
+            if not forward_done:            # the forward
+                forward_done = True
+                with moe.block_routing(taken):
+                    return fn(*inner)
+            with layers.attention_mode(plain), \
+                    moe.routing_log(replay=taken):
+                return fn(*inner)
+
+        # the block draws no random numbers: no RNG state to restore
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False, **extra)
+
+    return wrapped
+
+
+def unstack(tree, reps: int) -> List[Any]:
+    """The ``reps`` repeats of a stacked tree, one ``unbind`` a leaf
+    (views): the gradient of a stacked leaf is then one ``stack`` of its
+    repeats' gradients, not a leaf-sized zero tensor a repeat."""
+    parts = tree_map(lambda x: x.unbind(0), tree, is_tensor)
+    return [tree_map(lambda t, r=r: t[r], parts,
+                     lambda x: isinstance(x, tuple)) for r in range(reps)]
+
+
 def layer_slice(tree, r: int):
     """Repeat ``r`` of a stacked tree: every leaf indexed at ``[r]``
     (views, so a cache written through them is written in place)."""
@@ -187,12 +256,15 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     enc = params["encoder"]
     h = frames + enc["pos"][None, :frames.shape[1]]
     enc_cfg = dataclasses.replace(cfg, qkv_bias=False)
-    for r in range(cfg.encoder_layers):
-        bp = layer_slice(enc["blocks"], r)
+
+    def body(bp, h):
         hin = norm_apply(bp["norm1"], cfg, h)
         h = h + attention_apply(bp["mix"], enc_cfg, hin, causal=False)
         hf = norm_apply(bp["norm2"], cfg, h)
-        h = h + mlp_apply(bp["ffn"], cfg, hf)
+        return h + mlp_apply(bp["ffn"], cfg, hf)
+
+    for bp in unstack(enc["blocks"], cfg.encoder_layers):
+        h = remat(functools.partial(body, bp), cfg)(h)
     return norm_apply(enc["final_norm"], cfg, h)
 
 
@@ -216,15 +288,17 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     pattern, reps, tail_items = stack_layout(cfg)
     h = embed(params, tokens, prefix_embed)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for r in range(reps):
-        bp_slice = layer_slice(params["blocks"], r)
-        for pos, (kind, moe) in enumerate(pattern):
-            h, a = block_apply(bp_slice[pos], cfg, h, kind, moe,
-                               enc_out=enc_out, q_offset=q_offset)
-            aux_total = aux_total + a
-    for bp, (kind, moe) in zip(params["tail"], tail_items):
-        h, a = block_apply(bp, cfg, h, kind, moe, enc_out=enc_out,
-                           q_offset=q_offset)
+    layers_in_order = [
+        (bp_slice[pos], kind, is_moe)
+        for bp_slice in unstack(params["blocks"], reps)
+        for pos, (kind, is_moe) in enumerate(pattern)]
+    layers_in_order += [(bp, kind, is_moe) for bp, (kind, is_moe)
+                        in zip(params["tail"], tail_items)]
+    for bp, kind, is_moe in layers_in_order:
+        block = functools.partial(block_apply, bp, cfg, kind=kind,
+                                  is_moe=is_moe, enc_out=enc_out,
+                                  q_offset=q_offset)
+        h, a = remat(block, cfg)(h)
         aux_total = aux_total + a
     h = norm_apply(params["final_norm"], cfg, h)
     return h, aux_total

@@ -566,3 +566,177 @@ def test_lm_prefill_and_decode_kernel_matches_plain(arch, dtype, cache_dtype,
         assert torch.isfinite(g).all()
         bound = tol * max(1.0, float(w.abs().max()))
         assert float((g - w).abs().max()) <= bound
+
+
+# A train step's gradients move with float32 rounding alone by up to this
+# share of max |leaf| (``F32_DEVIATION`` of tests/test_torch_train_archs.py,
+# measured against a float64 run on the CPU), and the kernel's forward
+# differs from the plain one by more than a rounding (2e-5 a call): the
+# kernel-vs-plain tolerance is twice that noise, at least 1e-4.  On the
+# CPU, with the kernel's split-TF32 products emulated
+# (``ref.attention_tf32_ref``, terms=3) in place of the launch, whisper-base
+# and gemma3 lie 8.9e-4 and 6.8e-4 of max |leaf| from the plain path (2e-3
+# allowed), the other configs ≤ 5.2e-5; on the card moonshot lay 1.09e-4
+F32_TRAIN_NOISE = {
+    "lm100m": 6.41e-5, "qwen2.5-3b": 8.44e-5, "qwen1.5-110b": 6.42e-5,
+    "nemotron-4-340b": 4.20e-5, "gemma3-1b": 5.11e-4,
+    "internvl2-26b": 1.27e-4, "whisper-base": 2.31e-3,
+    "mixtral-8x22b": 1.43e-4, "moonshot-v1-16b-a3b": 2.73e-4,
+    "jamba-1.5-large-398b": 9.39e-4, "rwkv6-7b": 1.49e-4}
+TRAIN_F32_TOL = {"whisper-base": 2e-3, "gemma3-1b": 2e-3}
+
+
+def train_tolerance(arch: str) -> float:
+    return max(TRAIN_F32_TOL.get(arch, 1e-4), 2 * F32_TRAIN_NOISE[arch])
+
+
+def lm_train_planned_launches(fa, cfg, b: int, s_all: int, dtype,
+                              sms: int, recompute: int = 1) -> int:
+    """The attention launches of one forward of a train step (``recompute``
+    forwards: 2 where remat recomputes each block), summed over the plans
+    of every call at the padded head dim: a causal self-attention a
+    decoder layer (windowed on local/SWA layers), and on an
+    encoder-decoder a non-causal one an encoder layer and a
+    cross-attention a decoder layer."""
+    d = fa.padded_head_dim(cfg.head_dim)
+    heads = (b, cfg.n_heads, cfg.n_kv_heads)
+    n = 0
+    if cfg.encoder_layers:
+        t_enc = cfg.encoder_seq
+        n += cfg.encoder_layers * fa.plan(*heads, t_enc, t_enc, d, dtype,
+                                          causal=False, sm_count=sms).launches
+        n += cfg.n_layers * fa.plan(*heads, s_all, t_enc, d, dtype,
+                                    causal=False, sm_count=sms).launches
+    for kind in cfg.layer_schedule():
+        if kind.startswith("attn"):
+            window = (cfg.local_window if kind in ("attn_local", "attn_swa")
+                      else None)
+            n += fa.plan(*heads, s_all, s_all, d, dtype, window=window,
+                         sm_count=sms).launches
+    return recompute * n
+
+
+def _train_batch(cfg, b, s, dtype, dev, seed=12):
+    rng = np.random.default_rng(seed)
+    s_tok = s - cfg.frontend_prefix
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s_tok)),
+             "labels": rng.integers(0, cfg.vocab, (b, s_tok))}
+    if cfg.frontend_prefix:
+        batch["prefix_embed"] = rng.normal(
+            0, 0.5, (b, cfg.frontend_prefix, cfg.d_model))
+    if cfg.encoder_layers:
+        batch["frames"] = rng.normal(0, 0.5, (b, cfg.encoder_seq,
+                                              cfg.d_model))
+    return {k: torch.from_numpy(v).to(dev, dtype if v.dtype.kind == "f"
+                                      else torch.long)
+            for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, remat", [(a, "none") for a in LM_SMOKE]
+                         + [("lm100m", "dots"), ("qwen2.5-3b", "full")])
+def test_lm_train_step_kernel_matches_plain(arch, remat):
+    """One float32 train step's gradients on the card, the kernel path
+    against the same step inside ``layers.plain_attention`` (MoE layers on
+    the kernel path's routing, ``moe.routing_log``): loss and grad norm
+    within ``tol`` relative, every gradient leaf within ``tol`` × its max
+    |value| (``train_tolerance``).
+    The attention launches equal the plans' sum, twice it where remat
+    recomputes the blocks, and the plain step launches none.  (A bf16
+    step's gradients are not compared: bf16 rounding through the layers
+    moves them 0.07-2.6 of max |leaf| between any two attention
+    schedules, measured on the CPU; ``test_attention_grad_kernel_
+    matches_plain`` holds the bf16 op to its gate.)"""
+    import dataclasses
+    dev = _card()
+    from repro_torch.configs import get_smoke
+    from repro_torch.device import strict_float32
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers, moe
+    from repro_torch.models.params import init_params, tree_items
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.train_step import TrainConfig, make_grad_fn
+
+    cfg = dataclasses.replace(get_smoke(arch), remat=remat)
+    b, s = 2, 32
+    params = init_params(model_defs(cfg), seed=0, dtype=torch.float32,
+                         device=dev)
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    for _, p in tree_items(params, is_t):
+        p.requires_grad_(True)
+    batch = _train_batch(cfg, b, s, torch.float32, dev)
+    planned = lm_train_planned_launches(
+        fa, cfg, b, s, torch.float32, fa.device_sm_count(dev),
+        recompute=1 if remat == "none" else 2)
+    grad_fn = make_grad_fn(cfg, TrainConfig())
+    with strict_float32():
+        before = ops.attention_launches
+        with moe.routing_log() as routes:
+            loss, _, grads = grad_fn(params, batch)
+        torch.cuda.synchronize()
+        launched = ops.attention_launches - before
+        with layers.plain_attention(), moe.routing_log(replay=routes):
+            want_loss, _, want = grad_fn(params, batch)
+        assert ops.attention_launches - before == launched == planned
+    tol = train_tolerance(arch)
+    assert torch.isfinite(loss)
+    assert abs(float(loss - want_loss)) <= tol * abs(float(want_loss))
+    gn, wn = float(global_norm(grads)), float(global_norm(want))
+    assert abs(gn - wn) <= tol * wn
+    for (path, g), (_, w) in zip(tree_items(grads, is_t),
+                                 tree_items(want, is_t)):
+        assert torch.isfinite(g).all(), path
+        assert float((g - w).abs().max()) <= tol * max(
+            1e-30, float(w.abs().max())), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 10, 2, 256, 256, 64), dict(causal=True)),
+    ((1, 4, 1, 300, 300, 256), dict(causal=True, window=64)),
+    ((2, 8, 8, 40, 96, 64), dict(causal=False)),
+    ((2, 4, 2, 64, 160, 8), dict(causal=True, q_offset=96))])
+def test_attention_grad_kernel_matches_plain(shape, kw, dtype):
+    """The op under grad on the card, launched through
+    ``ops.with_plain_backward``: the output carries a ``grad_fn``, is the
+    kernel's (the launches of its plan; the attention gate against
+    ``attention_ref``), and q, k and v get exactly the gradients of the
+    plain ``chunked_attention`` on the same operands.  ``ops.attention``
+    alone refuses operands that require grad, launching nothing."""
+    import functools
+    dev = _card()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+    b, h, hkv, sq, skv, d = shape
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev, dtype).requires_grad_(True)
+               for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    plain = functools.partial(layers.chunked_attention, q_chunk=64,
+                              kv_chunk=64, **kw)
+    before = ops.attention_launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.attention(q, k, v, **kw)
+    assert ops.attention_launches == before
+    out = ops.with_plain_backward(functools.partial(ops.attention, **kw),
+                                  plain, q, k, v)
+    launched = ops.attention_launches - before
+    assert out.grad_fn is not None
+    assert launched == fa.plan(b, h, hkv, sq, skv, fa.padded_head_dim(d),
+                               dtype, sm_count=fa.device_sm_count(dev),
+                               **kw).launches
+    want = ref.attention_ref(q.detach(), k.detach(), v.detach(), **kw)
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (4e-3, 2 ** -7)
+    diff = (out.detach().float() - want.float()).abs()
+    assert bool((diff <= atol + rtol * want.float().abs()).all())
+    ct = torch.from_numpy(rng.standard_normal(out.shape).astype(
+        np.float32)).to(dev, dtype)
+    got = torch.autograd.grad(out, (q, k, v), ct)
+    qd, kd, vd = (t.detach().requires_grad_(True) for t in (q, k, v))
+    wanted = torch.autograd.grad(plain(qd, kd, vd), (qd, kd, vd), ct)
+    torch.cuda.synchronize()
+    assert ops.attention_launches - before == launched
+    for g, w in zip(got, wanted):
+        assert g.dtype == dtype and torch.equal(g, w)

@@ -9,8 +9,10 @@
   interpreter (a fault injected, detected and recovered), replays a short
   trace through the serving engine, runs the projection driver and
   trains, quantises and serves a float LeNet-5, runs the quickstart
-  (``python -m repro_torch.quickstart --device cpu``) and the LM server
-  (``python -m repro_torch.launch.serve --arch lm100m --device cpu``);
+  (``python -m repro_torch.quickstart --device cpu``), the LM server
+  (``python -m repro_torch.launch.serve --arch lm100m --device cpu``)
+  and the trainer (``python -m repro_torch.launch.train --arch lm100m
+  --smoke --steps 2 ... --device cpu``, two steps);
 * with no CUDA card, entry points and drivers called without a device
   raise :class:`~repro_torch.device.NoDeviceError` before any work runs
   (the serving engine before any thread starts).
@@ -66,7 +68,11 @@ def test_no_module_imports_jax_or_repro():
             "configs/qwen2_5_3b.py", "models/config.py", "models/params.py",
             "models/layers.py", "models/transformer.py", "serving/cache.py",
             "serving/engine.py", "launch/serve.py", "models/moe.py",
-            "models/mamba.py", "models/rwkv6.py", "quickstart.py"} <= names
+            "models/mamba.py", "models/rwkv6.py", "quickstart.py",
+            "optim/adamw.py", "train/losses.py", "train/train_step.py",
+            "data/pipeline.py", "checkpoint/checkpointer.py",
+            "runtime/fault_tolerance.py", "launch/train.py",
+            "train_lm.py"} <= names
     bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
            for path in files for line, name in _imports(path)
            if _forbidden(name)]
@@ -144,11 +150,18 @@ try:
 finally:
     sys.argv = argv
 assert said.getvalue().startswith("served 6 requests, 96 tokens"), said.getvalue()
+from repro_torch.launch import train as launch_train
+with contextlib.redirect_stdout(io.StringIO()) as said:
+    assert launch_train.main(["--arch", "lm100m", "--smoke", "--steps", "2",
+                              "--global-batch", "2", "--seq-len", "32",
+                              "--device", "cpu"]) == 0
+trained = said.getvalue().splitlines()[-1]
+assert trained.startswith("done: 2 steps"), said.getvalue()
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
 print("served", len(out), net.gemm_loops(), len(r8_out), r8.gemm_loops(),
-      len(served), 0.0 <= acc <= 1.0)
+      len(served), 0.0 <= acc <= 1.0, "restarts=0" in trained)
 """
 
 
@@ -157,7 +170,7 @@ def test_runs_with_jax_and_repro_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "served 3 2942 2 53252 9 True"
+    assert proc.stdout.strip() == "served 3 2942 2 53252 9 True True"
 
 
 def test_no_device_raises_and_runs_nothing(monkeypatch):
@@ -240,7 +253,9 @@ DRIVER_ARGS = {
     "cifar10_cnn_e2e": ["--requests", "2"],
     "quantize_eval": ["--net", "lenet5", "--train-n", "64"],
     "vta_lm_projection": [], "launch.serve": ["--arch", "lm100m"],
-    "quickstart": []}
+    "quickstart": [],
+    "launch.train": ["--arch", "lm100m", "--smoke", "--steps", "2"],
+    "train_lm": ["--steps", "2"]}
 
 
 @pytest.mark.parametrize("module", list(DRIVER_ARGS))
@@ -332,4 +347,39 @@ def test_lm_server_without_card_raises(monkeypatch):
         init_params(model_defs(cfg), seed=0)
     with pytest.raises(tdevice.NoDeviceError):
         cache.init_cache(cfg, 2, 16)
+    assert work == []
+
+
+def test_trainer_without_card_raises(monkeypatch):
+    """No card and no device named: the trainer, its parts and both
+    training drivers raise :class:`NoDeviceError` before any parameter is
+    drawn or any batch built."""
+    from repro_torch import device as tdevice
+    from repro_torch import train_lm
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+
+    cfg = get_smoke("lm100m")
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    work = []
+    for mod, name in ((launch_train, "init_params"),
+                      (launch_train, "make_batch"),
+                      (pipeline, "host_batch")):
+        monkeypatch.setattr(mod, name,
+                            lambda *a, name=name, **kw: work.append(name))
+    for call in (
+            lambda: launch_train.train(cfg, steps=1, global_batch=2,
+                                       seq_len=8),
+            lambda: launch_train.build_trainer(
+                cfg, launch_train.default_train_config("lm100m", 2, 1),
+                dcfg),
+            lambda: pipeline.make_batch(dcfg, 0),
+            lambda: adamw.state_from_numpy((0, {}, {})),
+            lambda: launch_train.main(["--smoke", "--steps", "1"]),
+            lambda: train_lm.main(["--steps", "1"])):
+        with pytest.raises(tdevice.NoDeviceError):
+            call()
     assert work == []
