@@ -30,7 +30,12 @@ In order it:
    A·B wraps past 2**31, int32 and truncating int8 out, through the
    wrapper's plan and with one warp summing all of K), every instantiation
    of ``vta_gemm.INSTANTIATIONS`` forced at a shape that fits it, and
-   operands at an odd address (the bytes path);
+   operands at an odd address (the bytes path); then repeats the
+   one-stage ``vec16`` geometries (``repeat_check``: the grid's first
+   case, (25088, 32, 16), and every ``vec16`` tile forced with one ring
+   stage) ``REPEAT_RUNS`` times each into fresh output buffers filled
+   with a sentinel byte, counting the elements that differ from the plain
+   version and those never written — any difference fails the run;
 4. compiles LeNet-5 (random seeded weights, calibrated shifts) with the
    port's compiler and serves 64 seeded requests on the card — four
    batches of 8 and one of 32 — through ``NetworkProgram.serve``; every
@@ -225,16 +230,16 @@ In order it:
    launches against the plans; the attention op under grad in float32
    and bf16, its gradients exactly the plain version's); lm100m at its
    published width (96 M float32 parameters, remat ``dots``) through
-   ``launch.train.train``: 200 steps of 32 × 256 tokens in 2
-   microbatches, lr 1e-3, a checkpoint every 50 steps and a failure
-   injected before step 120 — one restart, the replayed steps' losses
+   ``launch.train.train``: 100 steps of 32 × 256 tokens in 2
+   microbatches, lr 1e-3, a checkpoint every 25 steps and a failure
+   injected before step 60 — one restart, the replayed steps' losses
    equal to their first pass (rtol 1e-5), the last loss below the first,
    attention launches = (forward + recompute) × layers × microbatches ×
    steps run × the plan's, step 1's loss within 1e-4 and grad norm
    within 1e-3 of the same step inside ``layers.plain_attention``, steps
    2-5 within those limits or ten times the distance of a control run
    with the kernel's split-TF32 arithmetic emulated in its place (the
-   plain run goes on to step 200, its distance reported); qwen2.5-3b at
+   plain run goes on to step 100, its distance reported); qwen2.5-3b at
    its published width (3.40 B float32 parameters, remat ``full``): 3 AdamW
    steps on one 4 × 1024 batch, losses finite and falling, launches
    against the plans, step 1 within 1e-3 of the plain path's; for both,
@@ -248,10 +253,36 @@ In order it:
    the kernel's forward beside SDPA's and the bound,
    the plain recompute-and-backward beside SDPA's backward (the
    attention entry's ``train_calls``; the training launches added to its
-   ``launches``).
+   ``launches``);
+18. runs the mesh layer (``mesh`` in the record) with one rank a visible
+   card, W = ``torch.cuda.device_count()`` (at most 4), spawned from here
+   over NCCL (W printed): lm100m at its published width through
+   ``launch.train.train`` on mesh (1, W), phase 17's configuration for 20
+   steps, a checkpoint every 10 written under the mesh and a failure
+   before step 15 (one restart onto the mesh, the replayed losses within
+   1e-5 of the first pass), attention launches a rank equal to the plans'
+   sum on the local shapes, the losses within 1e-6 (W = 1) or 2e-4 of
+   phase 17's unsharded first 20 (bit-equality reported), the median
+   step and tokens/s, and one profiled step on the mesh (device time and
+   idle share beside phase 17's profiled step); the same run's first 5
+   steps with
+   ``grad_compression="int8_pod"`` on a (1, 1, W) pod mesh, every
+   compressed gradient equal to ``compress_replica`` (the reference's
+   ``_compress_body`` in numpy, n_pods = 1) bit for bit and the losses
+   within ``MESH_POD_RTOL`` of the uncompressed run's (step 1 within
+   1e-6), the parameters after step 1 equal to an AdamW step from the
+   initial state on step 1's compressed gradients; and qwen2.5-3b at full width in float32: a 4 × 128 prefill and
+   7 greedy decode steps through ``serving.engine`` unsharded (phase 15's
+   path), then the same tokens on mesh (1, W) with the
+   ``cache_pack``-placed cache, every step's logits within 1e-3 × max
+   |logit| of the unsharded ones, launches equal to the plans' sum, and
+   one more decode step profiled on each path; the phase's launches are
+   added to the attention entry's.
 
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
-the last line.  Any failure raises and exits non-zero.  The last line is
+the last line.  ``python3 chip_smoke.py --only 3,18`` builds and runs
+phase 3 and/or phase 18 alone (a development run: phase 18 then computes
+its own unsharded baseline, and no kernel line is printed).  Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -310,6 +341,7 @@ RESNET_TINY_GEMMS = [("stem", 32768, 32, 16, "int32"),
                      ("head", 32, 2048, 16, "int8")]
 CNN_BATCHES = (8, 32)              # phase 4b: a batch of each a model
 WRAP_K = 139_264                   # 32 · 16384 · K crosses 2**31
+REPEAT_RUNS = 256                  # phase 3's one-stage vec16 repeat
 ATTN_WINDOW = (20, 10)             # phase 9: 20 calls a graph, 10 replays
 
 
@@ -535,6 +567,64 @@ def check_kernel_grid(ops, ref, dev) -> int:
     torch.cuda.synchronize()
     print(f"kernel grid: {cases} cases exact (max |diff| {worst})")
     return worst
+
+
+def repeat_check(ref, dev, reps: int = REPEAT_RUNS) -> dict:
+    """Phase 3's repeat of the one-stage ``vec16`` geometries: phase 3's
+    first case, (M, K, N) = (25088, 32, 16) through its own plan, and
+    every ``vec16`` instantiation forced with one ring stage at (196·bm,
+    32·k_split, bn), int8 out with no bias, relu, shift or saturation,
+    ``reps`` times each.  Every run writes into a fresh output buffer
+    filled with a sentinel byte (0x5A and 0xA5 in turns: an element the
+    kernel never wrote is caught by the turn whose sentinel its true value
+    is not), and is compared with the plain version.  Counts the elements
+    that differ and, of them, those that still hold the sentinel (never
+    written); any difference raises after all the runs."""
+    from repro_torch.kernels import vta_gemm as vg
+    rng = np.random.default_rng(3)
+    sms = vg.device_sm_count(dev)
+    cases = [(25088, 32, 16, vg.plan(25088, 32, 16, sm_count=sms))]
+    for bm, bn, ks, load in vg.INSTANTIATIONS:
+        if load == "vec16":
+            m, k, n = 196 * bm, 32 * ks, bn
+            cases.append((m, k, n, vg.make_plan(m, k, n, bm, bn, ks, load)))
+    runs = differing = unwritten = 0
+    bad = []
+    for m, k, n, p in cases:
+        if p.stages != 1 or p.load != "vec16":
+            raise AssertionError(f"repeat case {(m, k, n)}: plan {p} is not "
+                                 f"one-stage vec16")
+        a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(
+            np.int8)).to(dev)
+        b = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(
+            np.int8)).to(dev)
+        kw = dict(relu=False, shift=0, saturate=False)
+        want = ref.vta_gemm_ref(a, b, None, out_dtype=torch.int8, **kw)
+        case_diff = case_unwritten = 0
+        for r in range(reps):
+            sentinel = (0x5A, -0x5B)[r % 2]         # 0x5A, 0xA5
+            out = torch.full((m, n), sentinel, dtype=torch.int8, device=dev)
+            vg._launch(a, b, None, out, p, **kw)
+            wrong = out != want
+            case_diff += int(wrong.sum())
+            case_unwritten += int((wrong & (out == sentinel)).sum())
+            runs += 1
+        if case_diff:
+            bad.append({"shape": [m, k, n], "tile": [p.bm, p.bn, p.k_split],
+                        "differing": case_diff, "unwritten": case_unwritten})
+        differing += case_diff
+        unwritten += case_unwritten
+    torch.cuda.synchronize()
+    out = {"cases": len(cases), "reps_per_case": reps, "runs": runs,
+           "differing_elements": differing, "unwritten_elements": unwritten,
+           "faulty_cases": bad}
+    print(f"vta_gemm one-stage vec16 repeat: {len(cases)} geometries x "
+          f"{reps} runs = {runs} runs on fresh sentinel-filled buffers; "
+          f"{differing} elements differ from the plain version, "
+          f"{unwritten} of them never written")
+    if differing:
+        raise AssertionError(f"vta_gemm repeat check: {bad}")
+    return out
 
 
 def check_accumulator_wrap(ops, ref, dev) -> int:
@@ -2698,7 +2788,7 @@ TRAIN_ARCH = "lm100m"              # src/repro_torch/configs/lm100m.py
 # the reference driver's usage line (global batch 32, seq 256) and the
 # example's microbatches and lr (examples/train_lm.py)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR = 32, 256, 2, 1e-3
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 200, 50, 120
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 100, 25, 60
 TRAIN_REPLAY_RTOL = 1e-5           # tests/test_fault_tolerance.py
 TRAIN_PLAIN_STEPS = 5              # kernel path against plain path, gated
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-4, 1e-3
@@ -2767,8 +2857,8 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
     heads over 2, head dim 64, d_ff 2560, vocab 4096, remat ``dots``;
     seeded float32 weights) trained by the port's ``launch.train.train``:
     global batch 32 of 256 tokens in 2 microbatches, lr 1e-3, float32
-    AdamW, 200 steps, a checkpoint every 50 and one injected failure
-    before step 120 (restored from step 100, steps 100-119 replayed).
+    AdamW, 100 steps, a checkpoint every 25 and one injected failure
+    before step 60 (restored from step 50, steps 50-59 replayed).
     Gates: every loss finite, the last below the first, one restart, each
     replayed step's loss its first pass's within ``TRAIN_REPLAY_RTOL``,
     attention launches = (forward + remat recompute) × layers ×
@@ -2781,7 +2871,7 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
     kernel path from the same draw with the kernel's split-TF32
     arithmetic emulated in its place (``ref.attention_tf32_ref``,
     terms=3), a run that parts from the plain one by float32 noise of the
-    kernel's size.  The plain run goes on to step 200 and its distance is
+    kernel's size.  The plain run goes on to step 100 and its distance is
     reported."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
@@ -2867,7 +2957,7 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
     # the kernel path against the plain path from the same draw
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH, seed=0)
-    init_state, run_step = build_trainer(cfg, tc, data_cfg, 0, dev)
+    init_state, run_step, _ = build_trainer(cfg, tc, data_cfg, 0, dev)
     state = init_state()
     plain, plain_times = [], []
     before = ops.attention_launches
@@ -2947,6 +3037,7 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
            "launch_formula": formula, "train_s": wall,
            "first_loss": losses[0], "last_loss": losses[-1],
            "losses_every_10": [m["loss"] for m in trajectory[9::10]],
+           "first_losses": [m["loss"] for m in first_pass[:MESH_STEPS]],
            "replay_max_rel": replay_rel,
            "step_ms_median": step_s * 1e3,
            "step_ms_min": durations[0] * 1e3,
@@ -3262,6 +3353,473 @@ def train_phase(ops, ref, fa, card: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the mesh layer — sharded training and decode over NCCL
+# ---------------------------------------------------------------------------
+
+MESH_MAX_RANKS = 4
+MESH_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 20, 10, 15
+MESH_W1_RTOL = 1e-6        # one rank against phase 17's unsharded losses
+MESH_RTOL = 2e-4           # several ranks: tests/test_multidevice.py's
+MESH_POD_STEPS = 5
+# int8_pod at one pod against the uncompressed run, steps 2-5: a gradient
+# element under half a quantum (its leaf's absmax / 254) is sent as 0, so
+# AdamW's first, sign-like steps skip it.  Measured on the H100 at most
+# 8.48e-5; lm100m's loss itself moves only ~1e-3 over these steps, so this
+# gate alone cannot tell a step that drops the compressed gradients: the
+# parameters after step 1 are held to an AdamW step on them, bit for bit
+MESH_POD_RTOL = 1e-3
+MESH_DECODE_BATCH, MESH_DECODE_PROMPT = 4, 128
+MESH_DECODE_NEW, MESH_DECODE_MAX_SEQ = 8, 256
+MESH_TIMEOUT_S = 600
+
+
+def compress_replica(partials: np.ndarray) -> np.ndarray:
+    """The reference's ``_compress_body`` (``src/repro/train/
+    distributed.py:30-37``) in numpy float32 over the pods' partials
+    stacked on axis 0, as XLA compiles it (its divisions by the constants
+    ``limit`` and ``n_pods`` as multiplications by their float32
+    reciprocals)."""
+    n = partials.shape[0]
+    limit = max(1, 127 // n)
+    scale = np.float32(np.max(np.abs(partials.astype(np.float32))))
+    scale = np.float32(np.maximum(scale, np.float32(1e-12))
+                       * np.float32(1.0 / limit))
+    q = np.clip(np.round(partials.astype(np.float32) / scale), -limit,
+                limit).astype(np.int8)
+    s = q.sum(axis=0, dtype=np.int8)
+    return ((s.astype(np.float32) * scale) * np.float32(1.0 / n)).astype(
+        partials.dtype)
+
+
+def _mesh_heads(h: int, hkv: int, tp: int):
+    """(query heads, KV heads) of one rank's attention call at model =
+    ``tp`` (``layers.mesh_attention``'s rule)."""
+    if h % tp:
+        return h, hkv
+    return h // tp, (hkv // tp if hkv % tp == 0 else h // tp)
+
+
+def _mesh_train_cfg():
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig
+    return TrainConfig(microbatches=TRAIN_MICRO, opt=adamw.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=max(1, TRAIN_STEPS // 10),
+        total_steps=TRAIN_STEPS))
+
+
+def _median_step(stamps) -> float:
+    durations = sorted(t1 - t0 for (s0, t0), (s1, t1)
+                       in zip(stamps, stamps[1:]) if s1 == s0 + 1)
+    return durations[len(durations) // 2]
+
+
+def mesh_train_lm(ops, fa, dev, world: int, baseline) -> dict:
+    """lm100m at full width through ``launch.train.train`` on mesh
+    (1, W): ``MESH_STEPS`` steps of phase 17's configuration, a
+    checkpoint every ``MESH_CKPT_EVERY`` written under the mesh, a failure
+    before step ``MESH_FAIL_AT`` and one restart onto the mesh."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_mesh((1, world), ("data", "model"))
+    h_l, kv_l = _mesh_heads(cfg.n_heads, cfg.n_kv_heads, world)
+    call = (TRAIN_BATCH // TRAIN_MICRO, h_l, kv_l, TRAIN_SEQ, TRAIN_SEQ,
+            cfg.head_dim)
+    per_call = fa.plan(*call, torch.float32,
+                       sm_count=fa.device_sm_count(dev)).launches
+    forwards = 1 if cfg.remat == "none" else 2
+    restored = (MESH_FAIL_AT // MESH_CKPT_EVERY) * MESH_CKPT_EVERY
+    steps_run = MESH_STEPS + MESH_FAIL_AT - restored
+    planned = forwards * cfg.n_layers * TRAIN_MICRO * steps_run * per_call
+    ckpt = ROOT / "build" / "chip_smoke_mesh_ckpt"
+    if dist.get_rank() == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    dist.barrier()
+    stamps = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    report = train(cfg, steps=MESH_STEPS, global_batch=TRAIN_BATCH,
+                   seq_len=TRAIN_SEQ, ckpt_dir=str(ckpt),
+                   ckpt_every=MESH_CKPT_EVERY, train_cfg=_mesh_train_cfg(),
+                   fail_at=[MESH_FAIL_AT], log_every=0, device=dev,
+                   mesh=mesh, step_hook=lambda state, step: stamps.append(
+                       (step, time.perf_counter())))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, gemm = ops.attention_launches, ops.launches
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if launches != planned or gemm:
+        raise AssertionError(f"mesh lm100m: {launches} attention launches "
+                             f"on a rank, planned {planned} (vta_gemm "
+                             f"{gemm})")
+    hist = report.metrics_history
+    first = hist[:MESH_FAIL_AT]
+    replay = hist[MESH_FAIL_AT:MESH_FAIL_AT + MESH_FAIL_AT - restored]
+    if (report.restarts != 1 or report.final_step != MESH_STEPS
+            or [m["step"] for m in replay]
+            != list(range(restored + 1, MESH_FAIL_AT + 1))):
+        raise AssertionError(f"mesh lm100m: restarts {report.restarts}, "
+                             f"steps {[m['step'] for m in hist]}")
+    replay_rel = max(abs(r["loss"] - first[r["step"] - 1]["loss"])
+                     / abs(first[r["step"] - 1]["loss"]) for r in replay)
+    if replay_rel > TRAIN_REPLAY_RTOL:
+        raise AssertionError(f"mesh lm100m: a replayed loss is "
+                             f"{replay_rel:.3g} from its first pass")
+    losses = [m["loss"] for m in first[:restored] + hist[MESH_FAIL_AT:]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError("mesh lm100m: a loss is not finite")
+    limit = MESH_W1_RTOL if world == 1 else MESH_RTOL
+    base_rel = [abs(a - b) / abs(b) for a, b in zip(losses, baseline)]
+    if len(base_rel) != MESH_STEPS or max(base_rel) > limit:
+        raise AssertionError(f"mesh lm100m: losses {losses} against the "
+                             f"unsharded {baseline}: {base_rel} (limit "
+                             f"{limit})")
+    step_s = _median_step(stamps)
+    prof = mesh_profile_step(ops, cfg, dev, mesh)
+    per_step = planned // steps_run
+    if prof["attention_kernels"] not in (0, per_step):
+        raise AssertionError(f"mesh lm100m profiled step: "
+                             f"{prof['attention_kernels']} attention "
+                             f"kernels traced, planned {per_step}")
+    return {"mesh": [1, world], "steps": MESH_STEPS,
+            "ckpt_every": MESH_CKPT_EVERY, "fail_at": MESH_FAIL_AT,
+            "restarts": report.restarts, "launches": launches,
+            "planned_launches": planned, "call": list(call),
+            "per_call": per_call, "losses": losses,
+            "unsharded_losses": list(baseline),
+            "max_rel_to_unsharded": max(base_rel),
+            "bit_equal_to_unsharded": losses == list(baseline),
+            "rtol": limit, "replay_max_rel": replay_rel, "train_s": wall,
+            "step_ms_median": step_s * 1e3,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+            "profile_step": prof}
+
+
+def mesh_profile_step(ops, cfg, dev, mesh) -> dict:
+    """One lm100m step on ``mesh`` under ``lm_profile``, after a warm one,
+    from a fresh state (phase 17's profiled step, on the mesh)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.device import strict_float32
+    from repro_torch.launch.train import build_trainer
+    init_state, run_step, _ = build_trainer(
+        cfg, _mesh_train_cfg(), DataConfig(cfg.vocab, TRAIN_SEQ,
+                                           TRAIN_BATCH), 0, dev, mesh)
+    with strict_float32():
+        state = run_step(init_state(), 0)
+        prof = lm_profile(lambda: run_step(state, 1),
+                          ops.PLAIN_BACKWARD_RANGE)
+    del state
+    torch.cuda.empty_cache()
+    return prof
+
+
+def mesh_int8_pod(ops, dev, world: int, uncompressed) -> dict:
+    """lm100m, ``MESH_POD_STEPS`` steps of the same run with
+    ``grad_compression="int8_pod"`` on a (1, 1, W) pod mesh: every
+    compressed gradient against ``compress_replica`` of its input with
+    n_pods = 1, bit for bit; the parameters after step 1 against an AdamW
+    step from the initial state on step 1's compressed gradients, bit for
+    bit (the step applies what the all-reduce returned); the losses
+    against the uncompressed run's."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.device import strict_float32
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import build_trainer, train
+    from repro_torch.models.params import tensors
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_mesh((1, 1, world), ("pod", "data", "model"))
+    tc = dc.replace(_mesh_train_cfg(), grad_compression="int8_pod")
+    real = ts.compressed_pod_allreduce
+    seen = {"calls": 0, "leaves": 0, "elements": 0, "differing": 0}
+    first = {}
+
+    def full(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def snapshot(tree):
+        return [t.detach().clone() for t in tensors(tree)]
+
+    def checked(grads, m):
+        out = real(grads, m)
+        seen["calls"] += 1
+        if "grads" not in first:
+            first["grads"] = snapshot(out)
+        for g, o in zip(tensors(grads), tensors(out)):
+            want = compress_replica(full(g).float().cpu().numpy()[None])
+            got = full(o).cpu().numpy()
+            seen["leaves"] += 1
+            seen["elements"] += got.size
+            seen["differing"] += int(np.sum(want.view(np.int32)
+                                            != got.view(np.int32)))
+        return out
+
+    def after(state, step):          # ``step`` counts from 0
+        if step == 0:
+            first["params"] = snapshot(state.params)
+
+    ops.reset_launches()
+    ts.compressed_pod_allreduce = checked
+    try:
+        report = train(cfg, steps=MESH_POD_STEPS, global_batch=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ, ckpt_every=10 * MESH_POD_STEPS,
+                       train_cfg=tc, log_every=0, device=dev, mesh=mesh,
+                       step_hook=after)
+    finally:
+        ts.compressed_pod_allreduce = real
+    launches = ops.attention_launches
+    losses = [m["loss"] for m in report.metrics_history]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, uncompressed)]
+    if seen["calls"] != MESH_POD_STEPS or seen["differing"]:
+        raise AssertionError(f"int8_pod: {seen} against the numpy replica")
+    # step 1 again from the run's initial state, on a copy of its
+    # compressed gradients as the all-reduce returned them
+    init_state, _, _ = build_trainer(
+        cfg, tc, DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH), 0, dev, mesh)
+    state = init_state()
+    with strict_float32():
+        params, _, _ = adamw.apply_updates(tc.opt, state.params,
+                                           first["grads"], state.opt_state)
+    params_off = sum(int((full(a) != full(b)).sum()) for a, b in zip(
+        tensors(params), first["params"]))
+    if params_off:
+        raise AssertionError(f"int8_pod: {params_off} parameters after "
+                             f"step 1 differ from an AdamW step on the "
+                             f"compressed gradients")
+    if rel[0] > MESH_W1_RTOL or max(rel) > MESH_POD_RTOL:
+        raise AssertionError(f"int8_pod: losses {losses} against the "
+                             f"uncompressed {uncompressed}: {rel}")
+    return {"mesh": [1, 1, world], "steps": MESH_POD_STEPS,
+            "replica": seen, "losses": losses,
+            "uncompressed_losses": list(uncompressed), "loss_rel": rel,
+            "rtol": MESH_POD_RTOL, "step1_params_off": params_off,
+            "launches": launches}
+
+
+def mesh_decode(ops, fa, dev, world: int) -> dict:
+    """qwen2.5-3b at full width in float32: a prefill of
+    ``MESH_DECODE_PROMPT`` tokens and ``MESH_DECODE_NEW`` - 1 greedy
+    decode steps through ``serving.engine`` unsharded (phase 15's path),
+    then the same tokens on mesh (1, W) with the ``cache_pack``-placed
+    cache, each after a warm prefill; every step's logits within ``LM_TOL`` × max |logit| of the
+    unsharded ones; the mesh run's attention launches against the plans."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import strict_float32
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import init_params, shard_params
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.engine import decode_step, prefill
+    cfg = get_config(LM_ARCH)
+    defs = model_defs(cfg)
+    b, plen = MESH_DECODE_BATCH, MESH_DECODE_PROMPT
+    toks = torch.from_numpy(np.random.default_rng(18).integers(
+        0, cfg.vocab, (b, plen)).astype(np.int32)).to(dev)
+    sms = fa.device_sm_count(dev)
+    h_l, kv_l = _mesh_heads(cfg.n_heads, cfg.n_kv_heads, world)
+    planned = cfg.n_layers * fa.plan(b, h_l, kv_l, plen, plen, cfg.head_dim,
+                                     torch.float32, sm_count=sms).launches
+    for t in range(MESH_DECODE_NEW - 1):
+        planned += cfg.n_layers * fa.plan(
+            b, cfg.n_heads, cfg.n_kv_heads, 1, MESH_DECODE_MAX_SEQ,
+            cfg.head_dim, torch.float32, q_offset=plen + t,
+            sm_count=sms).launches
+
+    def run(params, cache, chosen=None):
+        """(logits, tokens, seconds a call, cache, the last token)."""
+        times, logits, picked = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill(params, cfg, toks, cache)
+        for t in range(MESH_DECODE_NEW):
+            lg = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            logits.append(lg[:, :cfg.vocab].float().cpu())
+            tok = (chosen[t] if chosen is not None
+                   else torch.argmax(lg[:, :cfg.vocab], -1))
+            picked.append(tok)
+            if t == MESH_DECODE_NEW - 1:
+                break
+            t0 = time.perf_counter()
+            lg, cache = decode_step(params, cfg, cache, tok, plen + t)
+        return logits, picked, times, cache, tok
+
+    last = plen + MESH_DECODE_NEW - 1         # one more step, profiled
+
+
+    with strict_float32(), torch.no_grad():
+        params = init_params(defs, seed=0, dtype=torch.float32, device=dev)
+        # warm: one prefill on each path before the timed ones
+        prefill(params, cfg, toks, init_cache(
+            cfg, b, MESH_DECODE_MAX_SEQ, torch.float32, dev))
+        cache = init_cache(cfg, b, MESH_DECODE_MAX_SEQ, torch.float32, dev)
+        want, chosen, plain_times, cache, tok = run(params, cache)
+        plain_prof = lm_profile(
+            lambda: decode_step(params, cfg, cache, tok, last))
+        del cache
+        mesh = make_mesh((1, world), ("data", "model"))
+        dparams = shard_params(params, defs, mesh)
+        prefill(dparams, cfg, toks, init_cache(
+            cfg, b, MESH_DECODE_MAX_SEQ, torch.float32, dev, mesh=mesh))
+        cache = init_cache(cfg, b, MESH_DECODE_MAX_SEQ, torch.float32, dev,
+                           mesh=mesh)
+        ops.reset_launches()
+        got, _, mesh_times, cache, _ = run(dparams, cache, chosen)
+        torch.cuda.synchronize()
+        launches = ops.attention_launches
+        mesh_prof = lm_profile(
+            lambda: decode_step(dparams, cfg, cache, tok, last))
+        del cache, dparams, params
+    torch.cuda.empty_cache()
+    rel = [float((g - w).abs().max() / w.abs().max())
+           for g, w in zip(got, want)]
+    if launches != planned or max(rel) > LM_TOL:
+        raise AssertionError(f"mesh decode: launches {launches} (planned "
+                             f"{planned}), logits {rel} of max |logit| "
+                             f"(limit {LM_TOL})")
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    return {"arch": LM_ARCH, "mesh": [1, world], "batch": b,
+            "prompt": plen, "new_tokens": MESH_DECODE_NEW,
+            "max_seq": MESH_DECODE_MAX_SEQ, "launches": launches,
+            "planned_launches": planned, "logit_rel": rel,
+            "max_logit_rel": max(rel), "tol": LM_TOL,
+            "prefill_ms": mesh_times[0] * 1e3,
+            "decode_ms_median": med(mesh_times[1:]) * 1e3,
+            "unsharded_prefill_ms": plain_times[0] * 1e3,
+            "unsharded_decode_ms_median": med(plain_times[1:]) * 1e3,
+            "profile_decode": mesh_prof, "unsharded_profile_decode":
+            plain_prof}
+
+
+def mesh_rank(rank: int, world: int, store: str, out_path: str,
+              baseline) -> None:
+    """One rank of phase 18 (spawned): the process group over NCCL, then
+    lm100m on (1, W), int8_pod on (1, 1, W) and the qwen2.5-3b decode on
+    (1, W); rank 0 writes the results to ``out_path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed
+    dev = init_distributed(torch.device("cuda", rank),
+                           init_method=f"file://{store}", rank=rank,
+                           world_size=world, timeout_s=MESH_TIMEOUT_S)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"phase 18 runs {dist.get_backend()}")
+    if baseline is None:            # a run of this phase alone
+        from repro_torch.configs import get_config
+        from repro_torch.launch.train import train
+        report = train(get_config(TRAIN_ARCH), steps=MESH_STEPS,
+                       global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       ckpt_every=10 * MESH_STEPS,
+                       train_cfg=_mesh_train_cfg(), log_every=0, device=dev)
+        baseline = [m["loss"] for m in report.metrics_history]
+    out = {"world": world, "backend": dist.get_backend()}
+    out["lm100m"] = mesh_train_lm(ops, fa, dev, world, baseline)
+    out["int8_pod"] = mesh_int8_pod(
+        ops, dev, world, out["lm100m"]["losses"][:MESH_POD_STEPS])
+    out["decode"] = mesh_decode(ops, fa, dev, world)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_phase(card: str, unsharded: Optional[dict] = None) -> dict:
+    """Phase 18: the mesh layer at full width, one rank a visible card
+    (W = ``torch.cuda.device_count()``, at most ``MESH_MAX_RANKS``),
+    spawned from here over NCCL.  ``unsharded``: phase 17's lm100m record
+    (its first ``MESH_STEPS`` losses the baseline, its median step and
+    tokens/s printed beside the mesh's; the ranks compute the baseline
+    when None)."""
+    import gc
+    import torch.multiprocessing as mp
+    baseline = unsharded["first_losses"] if unsharded else None
+    world = min(torch.cuda.device_count(), MESH_MAX_RANKS)
+    print(f"phase 18: W = {world} rank{'s' if world > 1 else ''} over NCCL "
+          f"({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    store = build / f"chip_smoke_mesh_store_{os.getpid()}"
+    result = build / f"chip_smoke_mesh_{os.getpid()}.json"
+    for f in (store, result):
+        f.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(mesh_rank, args=(world, str(store), str(result), baseline),
+                 nprocs=world, join=True)
+        out = json.loads(result.read_text())
+    finally:
+        for f in (store, result):
+            f.unlink(missing_ok=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card
+    lm, pod, dec = out["lm100m"], out["int8_pod"], out["decode"]
+    if unsharded:
+        lm["phase17_step_ms_median"] = unsharded["step_ms_median"]
+        lm["phase17_tokens_per_s"] = unsharded["tokens_per_s"]
+    print(f"  lm100m on mesh {lm['mesh']} ({card}): {lm['steps']} steps, "
+          f"restarts {lm['restarts']}, replayed steps within "
+          f"{lm['replay_max_rel']:.3g} of their first pass; attention "
+          f"launches {lm['launches']} a rank = planned "
+          f"{lm['planned_launches']} (local call {lm['call']}, "
+          f"{lm['per_call']} a call); losses against phase 17's unsharded "
+          f"run: max rel {lm['max_rel_to_unsharded']:.3g} (gate "
+          f"{lm['rtol']}), bit-equal {lm['bit_equal_to_unsharded']}; "
+          f"median step {lm['step_ms_median']:.1f} ms, "
+          f"{lm['tokens_per_s']:.0f} tokens/s (phase 17 unsharded: "
+          + (f"{unsharded['step_ms_median']:.1f} ms, "
+             f"{unsharded['tokens_per_s']:.0f} tokens/s)" if unsharded
+             else "not run)"))
+    lp = lm["profile_step"]
+    p17 = unsharded["profile_step"] if unsharded else None
+    print(f"  lm100m profiled step on mesh {lm['mesh']} ({card}): device "
+          f"{lp['device_busy_ms']:.1f} ms of {lp['traced_wall_ms']:.1f} ms "
+          f"(idle share {lp['idle_share']:.3f}, {lp['device_events']} "
+          f"device events; phase 17 unsharded: "
+          + (f"{p17['device_busy_ms']:.1f} ms of "
+             f"{p17['traced_wall_ms']:.1f} ms, idle "
+             f"{p17['idle_share']:.3f}, {p17['device_events']} events)"
+             if p17 else "not run)"))
+    print(f"  int8_pod on mesh {pod['mesh']}: {pod['replica']['calls']} "
+          f"calls, {pod['replica']['leaves']} gradients, "
+          f"{pod['replica']['differing']} of {pod['replica']['elements']} "
+          f"values off the numpy replica; {pod['step1_params_off']} "
+          f"parameters after step 1 off an AdamW step on the compressed "
+          f"gradients; losses against the uncompressed "
+          f"run " + ", ".join(f"{r:.3g}" for r in pod["loss_rel"])
+          + f" (gate {pod['rtol']}; step 1 {MESH_W1_RTOL})")
+    print(f"  qwen2.5-3b decode on mesh {dec['mesh']}: launches "
+          f"{dec['launches']} = planned {dec['planned_launches']}; logits "
+          f"within {dec['max_logit_rel']:.3g} of max |logit| of the "
+          f"unsharded path (limit {dec['tol']}); prefill "
+          f"{dec['prefill_ms']:.1f} ms (unsharded "
+          f"{dec['unsharded_prefill_ms']:.1f}), decode step median "
+          f"{dec['decode_ms_median']:.1f} ms (unsharded "
+          f"{dec['unsharded_decode_ms_median']:.1f})")
+    mp_, up_ = dec["profile_decode"], dec["unsharded_profile_decode"]
+    print(f"  qwen2.5-3b profiled decode step: mesh device "
+          f"{mp_['device_busy_ms']:.2f} ms of {mp_['traced_wall_ms']:.1f} ms "
+          f"(idle {mp_['idle_share']:.3f}, {mp_['device_events']} events), "
+          f"unsharded {up_['device_busy_ms']:.2f} ms of "
+          f"{up_['traced_wall_ms']:.1f} ms (idle {up_['idle_share']:.3f}, "
+          f"{up_['device_events']} events)")
+    out["launches"] = lm["launches"] + pod["launches"] + dec["launches"]
+    return out
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -3335,6 +3893,19 @@ def f32_ptxas(log: str) -> list:
             cur["registers"] = int(re.search(r"Used (\d+) registers",
                                              line).group(1))
     return rows
+
+
+def only_phases(argv) -> set:
+    """``--only 3,18``: the phases a development run takes (after the
+    build); none without the option."""
+    if not argv:
+        return set()
+    if len(argv) != 2 or argv[0] != "--only":
+        raise SystemExit("usage: chip_smoke.py [--only 3,18]")
+    phases = {int(x) for x in argv[1].split(",")}
+    if not phases <= {3, 18}:
+        raise SystemExit("--only takes phases 3 and 18")
+    return phases
 
 
 def main() -> int:
@@ -3413,8 +3984,24 @@ def main() -> int:
     if record["sass_bf16"].get("HGMMA") == 0:
         raise AssertionError("the bf16 attention library holds no HGMMA")
 
+    only = only_phases(sys.argv[1:])
+    if only:                        # a development run of some phases
+        if 3 in only:
+            record["grid_worst"] = check_kernel_grid(ops, ref, dev)
+            record["vta_gemm_repeat"] = repeat_check(ref, dev)
+        if 18 in only:
+            record["mesh"] = mesh_phase(card)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_only.json").write_text(
+            json.dumps(record, indent=1))
+        print(f"phases {sorted(only)} passed (a partial run: no kernel "
+              f"line)")
+        return 0
+
     # -- 3. kernel vs plain ----------------------------------------------
     worst = check_kernel_grid(ops, ref, dev)
+    record["vta_gemm_repeat"] = repeat_check(ref, dev)
 
     # -- 4. main path: LeNet-5 served on the card -------------------------
     weights, net = compile_lenet5()
@@ -3793,6 +4380,10 @@ def main() -> int:
             record["train"][key]["launches"]
     attn_entry["launches"] += record["train"]["launches"]
     attn_entry["train_calls"] = record["train"]["calls"]
+    # -- 18. the mesh layer: sharded training and decode over NCCL ----------
+    record["mesh"] = mesh_phase(card, record["train"]["lm100m"])
+    attn_entry["launches_by_path"]["mesh"] = record["mesh"]["launches"]
+    attn_entry["launches"] += record["mesh"]["launches"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

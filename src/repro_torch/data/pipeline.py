@@ -8,10 +8,11 @@ restart-after-failure needs: the pipeline is stateless, resuming at step N
 regenerates the same batches a failed run saw.
 
 The token stream is an order-2 Markov chain over the vocab (so models can
-actually learn structure), with labels = next token.  The reference builds
-a sharded global batch from per-shard callbacks; one device has one
-shard, so :func:`make_batch` puts ``host_batch``'s arrays on the device
-as they are.
+actually learn structure), with labels = next token.  On one device
+:func:`make_batch` puts ``host_batch``'s arrays on the device as they
+are.  On a mesh :func:`make_global_batch` builds, as the reference's
+per-shard callbacks do, only the rows of this rank's ``(pod, data)``
+coordinate, as a DTensor sharded over the batch.
 """
 
 from __future__ import annotations
@@ -87,3 +88,43 @@ def make_batch(cfg: DataConfig, step: int, device: DeviceLike = None
     return {name: torch.from_numpy(arr).to(device)
             for name, arr in host_batch(cfg, step, 0,
                                         cfg.global_batch).items()}
+
+
+def batch_rows(cfg: DataConfig, mesh) -> tuple:
+    """``[lo, hi)`` of the global batch that this rank's ``(pod, data)``
+    coordinate holds (pod major)."""
+    names = mesh.mesh_dim_names
+    index, count = 0, 1
+    for axis in ("pod", "data"):
+        if axis in names:
+            size = mesh.size(names.index(axis))
+            index = index * size + mesh.get_local_rank(axis)
+            count *= size
+    if cfg.global_batch % count:
+        raise ValueError(f"a global batch of {cfg.global_batch} does not "
+                         f"split over {count} (pod, data) shards")
+    rows = cfg.global_batch // count
+    return index * rows, (index + 1) * rows
+
+
+def make_global_batch(cfg: DataConfig, step: int, mesh
+                      ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the batch of ``step`` (:func:`batch_rows`), as
+    DTensors ``Shard(0)`` over ``data`` on the in-pod mesh (``mesh``
+    without its ``pod`` axis): a pod's replica sees its own rows as its
+    batch.  Tokens and labels int32, prefix embeddings and frames
+    float32, on the mesh's device."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    names = mesh.mesh_dim_names
+    sub = mesh[tuple(a for a in names if a != "pod")] if "pod" in names \
+        else mesh
+    lo, hi = batch_rows(cfg, mesh)
+    places = [Shard(0) if a == "data" else Replicate()
+              for a in sub.mesh_dim_names]
+    device = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    out = {}
+    for name, arr in host_batch(cfg, step, lo, hi).items():
+        out[name] = DTensor.from_local(torch.from_numpy(arr).to(device),
+                                       sub, places)
+    return out

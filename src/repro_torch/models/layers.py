@@ -10,11 +10,19 @@ with its chunk schedule.  There is no fallback from one to the other;
 :func:`plain_attention` runs the plain version on either device, for the
 card-side check of the kernel path.
 
-The reference's ``constrain``/``constrain_seq`` are sharding annotations,
-identities without a mesh: the port runs on one device and leaves them
-out.  Its ``grad_cast`` (a gradient-dtype boundary) is an identity in the
-forward pass whose backward casts the cotangent to the input's dtype, and
-so it is here.  Under grad the kernel's attention output backpropagates
+On a mesh the parameters are DTensors (``models.params``), and so are
+the activations.  The reference's ``constrain``/``constrain_seq``
+sharding annotations are :func:`constrain`/:func:`constrain_seq` here,
+at the same points: an explicit ``redistribute`` of a DTensor to the
+spec's placements, an identity on a plain tensor; and the products'
+inputs are gathered over the sequence first (``constrain(x, "batch",
+None, None)``: sequence parallelism's all-gather, which DTensor's
+flattening view of a sequence-sharded (B, S, d) would otherwise refuse).
+Attention on a mesh runs the same op on each rank's local (batch, head)
+shard through ``local_map`` (:func:`mesh_attention`).  The reference's
+``grad_cast`` (a gradient-dtype boundary) is an identity in the forward
+pass whose backward casts the cotangent to the input's dtype, and so it
+is here.  Under grad the kernel's attention output backpropagates
 through :func:`chunked_attention` with the same arguments
 (``ops.with_plain_backward``): the kernel path's gradients are the plain
 path's.
@@ -31,6 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import (P, fit_spec, is_dtensor,
+                                           logical_to_spec, mesh_axes,
+                                           placements)
 
 from .config import ModelConfig
 from .params import ParamDef
@@ -67,6 +78,23 @@ def plain_mode() -> bool:
 def uses_kernel(x: torch.Tensor) -> bool:
     """True where attention over ``x``'s device launches the kernel."""
     return x.device.type == "cuda" and not _PLAIN.get()
+
+
+def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """The reference's sharding constraint: a DTensor redistributed to the
+    placements of ``logical``'s spec on its mesh (mesh axes that do not
+    divide their dim dropped); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    spec = fit_spec(logical_to_spec(logical, mesh), x.shape, mesh)
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def constrain_seq(x: torch.Tensor) -> torch.Tensor:
+    """Sequence-parallel residual-stream constraint: (B, S, d) sharded
+    ("batch", "seq", None)."""
+    return constrain(x, "batch", "seq", None)
 
 
 class _GradCast(torch.autograd.Function):
@@ -219,6 +247,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     takes them; ``q_offset`` from the host), backpropagating through
     :func:`chunked_attention` with the same arguments; on CPU tensors, or
     inside :func:`plain_attention`, :func:`chunked_attention`."""
+    if is_dtensor(q):
+        return mesh_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, causal_skip=causal_skip)
     if uses_kernel(q):
         plain = functools.partial(
             chunked_attention, causal=causal, window=window,
@@ -232,6 +264,65 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return chunked_attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, q_chunk=q_chunk,
                              kv_chunk=kv_chunk, causal_skip=causal_skip)
+
+
+def _grad_places(places, mesh, partial_axes):
+    """``places`` with ``Partial()`` on the mesh dims named in
+    ``partial_axes`` (an input every rank of them uses a different part
+    of has a gradient each of them holds a part of)."""
+    from torch.distributed.tensor import Partial
+    names = mesh.mesh_dim_names
+    return tuple(Partial() if names[i] in partial_axes else pl
+                 for i, pl in enumerate(places))
+
+
+def mesh_attention(q, k, v, **kw) -> torch.Tensor:
+    """:func:`attention` of DTensor operands, on each rank's local shard
+    through ``local_map``: batch over the batch axes, query heads over
+    ``model`` where it divides them.
+
+    * ``model`` divides the KV heads: each rank holds whole KV heads and
+      the query heads of their groups (qwen2.5-smoke's 4 heads over 2 KV
+      heads at model = 2: one KV head and its two query heads a rank), and
+      the local call is the op's own GQA.
+    * ``model`` divides the query heads but not the KV heads (model = 4
+      there: ``wk``'s kv·hd columns split inside a head): K and V are
+      redistributed to ``Replicate`` over ``model`` first, as GSPMD
+      gathers them, and each rank takes the KV head of each of its query
+      heads (a local group of 1).  Their gradients are partial over
+      ``model``.
+    * ``model`` divides neither: every rank of ``model`` computes all
+      heads.
+
+    The local call is :func:`attention` on plain tensors: the kernel on a
+    card, :func:`chunked_attention` on the CPU."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    tp = mesh_axes(mesh).get("model", 1)
+    h, hkv = q.shape[1], k.shape[1]
+    q_spec = fit_spec(logical_to_spec(("batch", "tp", None, None), mesh),
+                      q.shape, mesh)
+    heads_split = q_spec[1] is not None
+    kv_split = heads_split and hkv % tp == 0
+    kv_spec = q_spec if kv_split else P(q_spec[0], None, None, None)
+    q_pl, kv_pl = placements(q_spec, mesh), placements(kv_spec, mesh)
+    pick = None
+    kv_grad = kv_pl
+    if heads_split and not kv_split:
+        rank, local = mesh.get_local_rank("model"), h // tp
+        pick = torch.arange(rank * local, (rank + 1) * local) // (h // hkv)
+        kv_grad = _grad_places(kv_pl, mesh, ("model",))
+
+    def local_call(ql, kl, vl):
+        if pick is not None:
+            idx = pick.to(kl.device)
+            kl, vl = kl.index_select(1, idx), vl.index_select(1, idx)
+        return attention(ql, kl, vl, **kw)
+
+    return local_map(local_call, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -254,15 +345,26 @@ def attention_defs(cfg: ModelConfig, *, cross: bool = False
     return defs
 
 
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) → (B, n, S, hd), a transposed view.  A DTensor whose
+    last dim ``model`` shards inside a head (``n`` heads do not split over
+    it: 2 KV heads at model = 4) is gathered over ``model`` first."""
+    b, s, _ = x.shape
+    if is_dtensor(x) and n % mesh_axes(x.device_mesh).get("model", 1):
+        x = constrain(x, "batch", None, None)
+    return x.reshape(b, s, n, hd).transpose(1, 2)
+
+
 def attention_qkv(p, cfg: ModelConfig, x: torch.Tensor,
                   kv_input: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project to (q, k, v) with head layout (B, H, S, D) (transposed
     views, not contiguous)."""
-    b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kv_in = x if kv_input is None else kv_input
-    skv = kv_in.shape[1]
+    # a sequence-sharded residual stream is gathered before the products
+    x = constrain(x, "batch", None, None)
+    kv_in = x if kv_input is None else constrain(kv_input, "batch", None,
+                                                 None)
     q = x @ p["wq"]
     k = kv_in @ p["wk"]
     v = kv_in @ p["wv"]
@@ -270,9 +372,10 @@ def attention_qkv(p, cfg: ModelConfig, x: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, h, hd).transpose(1, 2)
-    k = k.reshape(b, skv, kv, hd).transpose(1, 2)
-    v = v.reshape(b, skv, kv, hd).transpose(1, 2)
+    q = _split_heads(q, h, hd)
+    k = _split_heads(k, kv, hd)
+    v = _split_heads(v, kv, hd)
+    q = constrain(q, "batch", "tp", None, None)
     return q, k, v
 
 
@@ -312,7 +415,7 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
         causal_skip=cfg.causal_skip)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"]
+    return constrain(out @ p["wo"], "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +435,7 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None
 
 
 def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = constrain(x, "batch", None, None)
     if cfg.act == "swiglu":
         hmid = F.silu(x @ p["wg"]) * (x @ p["wu"])
     elif cfg.act == "geglu":
@@ -341,4 +445,5 @@ def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         hmid = r * r                       # nemotron squared-ReLU
     else:
         hmid = F.gelu(x @ p["wu"], approximate="tanh")
-    return hmid @ p["wd"]
+    hmid = constrain(hmid, "batch", None, "tp")
+    return constrain(hmid @ p["wd"], "batch", None, None)

@@ -10,6 +10,12 @@ ways:
 * ``params_from_numpy`` — the reference package's parameter tree, carried
   over as numpy arrays and held to the descriptors leaf by leaf.
 
+With a ``mesh`` (a ``DeviceMesh`` named by the production axes) the
+first and last return DTensors with each leaf's spec's placements
+(:func:`shard_params`): every rank builds the same global values and
+keeps its own shard, so a sharded run starts where a single-device run
+starts.
+
 Leaves are visited in the reference's order (dict keys sorted, lists in
 order), so leaf ``i`` here is leaf ``i`` of ``jax.tree.flatten``.
 """
@@ -95,8 +101,18 @@ def _leaf_seed(seed: int, index: int) -> int:
 DRAW_CHUNK = 1 << 27
 
 
+def shard_params(params, defs, mesh):
+    """``params`` (full tensors, alike on every rank) as DTensors on
+    ``mesh``, each leaf with the placements of its logical axes' spec
+    (``parallel.sharding``); no communication."""
+    from repro_torch.parallel.sharding import distribute, logical_to_spec
+    leaves = iter(d for _, d in tree_items(defs))
+    return tree_map(lambda t: distribute(t, mesh, logical_to_spec(
+        next(leaves).logical, mesh)), params, is_tensor)
+
+
 def init_params(defs, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                device: DeviceLike = None):
+                device: DeviceLike = None, mesh=None):
     """Materialise real parameter tensors on ``device`` (the card unless
     named): zeros, ones, or a normal draw × ``scale`` (1/√fan_in when
     None), each normal leaf from its own ``torch.Generator`` on the
@@ -132,7 +148,8 @@ def init_params(defs, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
                                    device=device).mul_(float(scale)))
         return out
 
-    return tree_map(make, defs)
+    params = tree_map(make, defs)
+    return params if mesh is None else shard_params(params, defs, mesh)
 
 
 def abstract_params(defs, dtype: torch.dtype = torch.bfloat16):
@@ -163,7 +180,7 @@ def _array_items(arrays) -> List[Tuple[str, Any]]:
 
 
 def params_from_numpy(defs, arrays, *, device: DeviceLike = None,
-                      dtype: torch.dtype = torch.float32):
+                      dtype: torch.dtype = torch.float32, mesh=None):
     """The reference's parameter tree as numpy (nested dicts and lists,
     stacked leaves with their leading repeats axis) → the port's tree of
     the same structure on ``device`` in ``dtype``.  Every leaf is held to
@@ -197,4 +214,5 @@ def params_from_numpy(defs, arrays, *, device: DeviceLike = None,
                                         copy=True)
 
     paths = iter(want)
-    return tree_map(lambda d: carry(next(paths)), defs)
+    params = tree_map(lambda d: carry(next(paths)), defs)
+    return params if mesh is None else shard_params(params, defs, mesh)

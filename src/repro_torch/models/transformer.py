@@ -27,10 +27,15 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.parallel.sharding import (distribute, fit_spec,
+                                           is_dtensor, logical_to_spec,
+                                           mesh_axes, placements)
+
 from . import layers, moe
 from .config import ModelConfig
-from .layers import (attention_apply, attention_defs, mlp_apply, mlp_defs,
-                     norm_apply, norm_defs)
+from .layers import (attention_apply, attention_defs, constrain,
+                     constrain_seq, mlp_apply, mlp_defs, norm_apply,
+                     norm_defs)
 from .mamba import mamba_apply, mamba_defs
 from .moe import moe_apply, moe_defs
 from .params import ParamDef, is_tensor, tree_map
@@ -138,7 +143,7 @@ def block_apply(bp, cfg: ModelConfig, h: torch.Tensor, kind: str,
                                 causal=False)
     hf = norm_apply(bp["norm2"], cfg, h)
     out, aux, _ = ffn_apply(bp, cfg, hf, kind, is_moe)
-    return h + out, aux
+    return constrain_seq(h + out), aux
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +259,8 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """Whisper-style encoder over precomputed frame embeddings (the conv
     frontend is a stub, as in the reference).  frames (B, T, d)."""
     enc = params["encoder"]
-    h = frames + enc["pos"][None, :frames.shape[1]]
+    h = constrain(frames + enc["pos"][None, :frames.shape[1]], "batch",
+                  None, None)
     enc_cfg = dataclasses.replace(cfg, qkv_bias=False)
 
     def body(bp, h):
@@ -268,12 +274,68 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     return norm_apply(enc["final_norm"], cfg, h)
 
 
+def mesh_embed(table, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup of token ids (B, S) in a DTensor table (vocab, d) on its
+    mesh.  The ids are placed as the batch (a plain tensor is the global
+    batch, alike on every rank); the table is gathered over the axes that
+    shard ``d`` (``fsdp``, as every weight is at its use) and keeps vocab
+    over ``model``, where each rank looks up the ids its rows hold and
+    zeros the rest: the rows sum over ``model`` (a ``Partial``
+    placement), exactly, since one term of each sum is not zero."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    tok_spec = fit_spec(logical_to_spec(("batch", None), mesh),
+                        tokens.shape, mesh)
+    tok_pl = placements(tok_spec, mesh)
+    if is_dtensor(tokens):
+        tokens = tokens.redistribute(mesh, tok_pl)
+    else:
+        tokens = distribute(tokens.to(table.device), mesh, tok_spec)
+    tab_spec = fit_spec(logical_to_spec(("tp", None), mesh), table.shape,
+                        mesh)
+    tab_pl = placements(tab_spec, mesh)
+    out_pl, grad_pl = [], []
+    for i, name in enumerate(names):
+        if isinstance(tok_pl[i], Shard):
+            out_pl.append(Shard(0))
+            grad_pl.append(Partial())
+        elif isinstance(tab_pl[i], Shard):
+            out_pl.append(Partial())
+            grad_pl.append(Shard(0))
+        else:
+            out_pl.append(Replicate())
+            grad_pl.append(Replicate())
+    split = isinstance(tab_pl[names.index("model")], Shard) \
+        if "model" in names else False
+    rows = table.shape[0] // (mesh_axes(mesh)["model"] if split else 1)
+    lo = mesh.get_local_rank("model") * rows if split else 0
+
+    def lookup(tab, ids):
+        ids = ids.to(torch.long) - lo
+        if not split:
+            return tab[ids]
+        keep = (ids >= 0) & (ids < rows)
+        got = tab[torch.where(keep, ids, torch.zeros_like(ids))]
+        return torch.where(keep[..., None], got, torch.zeros_like(got))
+
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(tab_pl, tok_pl),
+                     in_grad_placements=(tuple(grad_pl), tok_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(table,
+                                                                 tokens)
+
+
 def embed(params, tokens: torch.Tensor,
           prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token ids (B, S) → embeddings, after an optional modality prefix
     (B, P, d)."""
     table = params["embed"]
-    h = table[tokens.to(device=table.device, dtype=torch.long)]
+    if is_dtensor(table):
+        h = mesh_embed(table, tokens)
+    else:
+        h = table[tokens.to(device=table.device, dtype=torch.long)]
     if prefix_embed is not None:
         h = torch.cat([prefix_embed.to(h.dtype), h], dim=1)
     return h
@@ -286,7 +348,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Token ids (B, S) [+ optional modality prefix embeddings (B, P, d)]
     → (hidden states (B, S(+P), d), moe aux loss scalar)."""
     pattern, reps, tail_items = stack_layout(cfg)
-    h = embed(params, tokens, prefix_embed)
+    h = constrain_seq(embed(params, tokens, prefix_embed))
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     layers_in_order = [
         (bp_slice[pos], kind, is_moe)
@@ -311,6 +373,15 @@ def unembed_logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
         logits = h @ params["embed"].T
     else:
         logits = h @ params["unembed"]
+    if is_dtensor(logits):
+        # vocab stays TP-sharded: the padding mask is a where, not a write
+        # into a slice of one rank's shard
+        if cfg.vocab_padded != cfg.vocab:
+            keep = torch.arange(cfg.vocab_padded,
+                                device=logits.device) < cfg.vocab
+            logits = torch.where(keep, logits, torch.full(
+                (), -1e30, dtype=logits.dtype, device=logits.device))
+        return constrain(logits, "batch", None, "vocab")
     if cfg.vocab_padded != cfg.vocab:
         logits[..., cfg.vocab:] = -1e30
     return logits

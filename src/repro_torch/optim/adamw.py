@@ -15,6 +15,17 @@ given and returns the same trees: a leaf is taken ``UPDATE_CHUNK``
 values (whole rows of its leading axis) at a time, so the float32
 temporaries of the largest leaf are never held at once beside the
 parameters, gradients and moments.
+
+On a mesh the leaves are DTensors, and the moments take their
+parameter's placements (an 8-bit moment's block scales those of
+``launch.specs._moment_spec``).  The update is elementwise, so it runs on
+each rank's local shards, ``UPDATE_CHUNK`` rows of the shard at a time.
+Two parts are not local: the global norm counts every element once — a
+rank adds a leaf's local sum of squares only where it holds the first
+copy of each replicated shard, and one all-reduce a mesh dim sums them —
+and an 8-bit moment whose 256-value blocks cross its shards' edges (a
+last dim sharded where the scales are not) is updated on that dim
+gathered, then its own shard taken back.
 """
 
 from __future__ import annotations
@@ -25,10 +36,13 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.params import (is_tensor, tensors, tree_items,
                                        tree_map)
+from repro_torch.parallel.sharding import (fit_spec, is_dtensor, spec_of,
+                                           zeros_on)
 
 BLOCK = 256
 # values of a leaf updated at once (whole rows of its leading axis): the
@@ -114,7 +128,20 @@ def _moments(tree) -> List[Any]:
     return [m for _, m in tree_items(tree, _is_moment)]
 
 
+def _scale_spec(p: torch.Tensor):
+    """The spec of a DTensor parameter's 8-bit block scales."""
+    shape = tuple(p.shape[:-1]) + (scale_blocks(p.shape[-1]),)
+    return shape, fit_spec(spec_of(p), shape, p.device_mesh)
+
+
 def _zeros_moment(p: torch.Tensor, eightbit: bool):
+    if is_dtensor(p):
+        if not eightbit:
+            return torch.zeros_like(p, dtype=torch.float32)
+        shape, spec = _scale_spec(p)
+        return Moment8(torch.zeros_like(p, dtype=torch.int8),
+                       zeros_on(shape, spec, p.device_mesh, torch.float32,
+                                p.to_local().device))
     if not eightbit:
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     return Moment8(torch.zeros(p.shape, dtype=torch.int8, device=p.device),
@@ -149,7 +176,7 @@ class AdamWState(NamedTuple):
 
 def init(cfg: AdamWConfig, params) -> AdamWState:
     """Zero moments beside each parameter, on its device."""
-    leaves = tensors(params)
+    leaves = [_local(p) for p in tensors(params)]
     device = leaves[0].device if leaves else torch.device("cpu")
     mk = lambda p: _zeros_moment(p, cfg.eightbit)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
@@ -167,14 +194,75 @@ def _rows(shape: Tuple[int, ...]) -> List[slice]:
     return [slice(lo, lo + step) for lo in range(0, shape[0], step)]
 
 
+def _local(x):
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _first_copy(x) -> bool:
+    """True where this rank holds the first copy of its shard of ``x``:
+    coordinate 0 on every mesh dim that does not shard it."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    return all(isinstance(pl, Shard) or mesh.get_local_rank(i) == 0
+               for i, pl in enumerate(x.placements))
+
+
 def global_norm(tree) -> torch.Tensor:
     """√(Σ g²) over every leaf in float32, a leaf ``UPDATE_CHUNK`` values
-    at a time (no leaf-sized square is held)."""
+    at a time (no leaf-sized square is held).  DTensor leaves count each
+    element once: local sums where this rank holds the first copy, summed
+    over the mesh."""
     total = 0
+    mesh = None
     for g in tensors(tree):
+        if is_dtensor(g):
+            mesh = g.device_mesh
+            if not _first_copy(g):
+                continue
+            g = g.to_local()
         for sl in _rows(tuple(g.shape)):
             total = total + torch.sum(torch.square(g[sl].to(torch.float32)))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    total = torch.as_tensor(total, dtype=torch.float32)
+    if mesh is not None:
+        total = total.to(mesh.device_type)
+        for i in range(mesh.ndim):
+            if mesh.size(i) > 1:
+                dist.all_reduce(total, group=mesh.get_group(i))
+    return torch.sqrt(total)
+
+
+def _crosses_blocks(p, mu) -> bool:
+    """True where an 8-bit moment's blocks cross its shards' edges."""
+    from torch.distributed.tensor import Shard
+    if not (is_dtensor(p) and isinstance(mu, Moment8)):
+        return False
+    last = p.ndim - 1
+    for pl, spl in zip(p.placements, mu.scale.placements):
+        if isinstance(pl, Shard) and pl.dim == last:
+            if spl != pl:
+                return True
+    return p.to_local().shape[-1] % BLOCK != 0 and any(
+        isinstance(pl, Shard) and pl.dim == last for pl in p.placements)
+
+
+def _gathered_last(x):
+    """A DTensor with its last dim gathered (its other shards kept)."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.ndim - 1
+    return x.redistribute(x.device_mesh, [
+        Replicate() if isinstance(pl, Shard) and pl.dim == last else pl
+        for pl in x.placements])
+
+
+def _take_back(dst, full) -> None:
+    """Write this rank's shard of ``full`` (``dst`` with its last dim
+    gathered) into ``dst``'s local tensor."""
+    from torch.distributed.tensor import DTensor
+    whole = DTensor.from_local(full, dst.device_mesh,
+                               _gathered_last(dst).placements,
+                               shape=dst.shape, stride=dst.stride())
+    dst.to_local().copy_(whole.redistribute(dst.device_mesh,
+                                            dst.placements).to_local())
 
 
 def _at(m, sl: slice):
@@ -216,6 +304,22 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState
                          f"gradients, {len(flat_mu)} and {len(flat_nu)} "
                          f"moments")
     for p, g, mu, nu in zip(flat_p, flat_g, flat_mu, flat_nu):
+        if _crosses_blocks(p, mu):
+            gathered = [_gathered_last(x).to_local()
+                        for x in (p, g, mu.q, nu.q)]
+            pl, gl, mq, nq = gathered
+            mu_l = Moment8(mq, mu.scale.to_local())
+            nu_l = Moment8(nq, nu.scale.to_local())
+            for sl in _rows(tuple(pl.shape)):
+                leaf(pl[sl], gl[sl], _at(mu_l, sl), _at(nu_l, sl))
+            for dst, full in ((p, pl), (mu.q, mq), (nu.q, nq)):
+                _take_back(dst, full)
+            continue
+        p, g = _local(p), _local(g)
+        mu = (Moment8(_local(mu.q), _local(mu.scale))
+              if isinstance(mu, Moment8) else _local(mu))
+        nu = (Moment8(_local(nu.q), _local(nu.scale))
+              if isinstance(nu, Moment8) else _local(nu))
         for sl in _rows(tuple(p.shape)):
             leaf(p[sl], g[sl], _at(mu, sl), _at(nu, sl))
     return params, AdamWState(step, state.mu, state.nu), {

@@ -12,7 +12,10 @@ Cache kinds, chosen per layer from the architecture's schedule:
 
 Caches are built with the same (pattern × repeats) stacking as the model
 parameters, on an explicit device; :mod:`repro_torch.serving.engine`
-writes them in place.
+writes them in place.  On a mesh (``init_cache(..., mesh=mesh)``) each
+leaf is a DTensor with ``launch.specs.cache_pack``'s placements — a dense
+cache's batch over ``data`` and its sequence over ``model`` — and each
+rank allocates only its shard.
 """
 
 from __future__ import annotations
@@ -95,10 +98,31 @@ def _stack(trees: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     return {key: torch.stack([t[key] for t in trees]) for key in trees[0]}
 
 
+def _mesh_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                dtype: torch.dtype, device: torch.device, mesh) -> CacheTree:
+    from repro_torch.launch.specs import cache_pack
+    from repro_torch.parallel.sharding import walk, is_spec, zeros_on
+    abstract, specs = cache_pack(cfg, mesh, batch, max_seq, dtype)
+    leaves = []
+    walk(abstract, leaves.append, lambda x: isinstance(x, torch.Tensor))
+    it = iter(leaves)
+
+    def make(spec):
+        like = next(it)
+        leaf = zeros_on(like.shape, spec, mesh, like.dtype, device)
+        if like.dtype == torch.int32:       # a ring's empty slots
+            leaf.to_local().fill_(-1)
+        return leaf
+
+    return walk(specs, make, is_spec)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: DeviceLike = None) -> CacheTree:
+               device: DeviceLike = None, mesh=None) -> CacheTree:
     device = resolve_device(device)
+    if mesh is not None:
+        return _mesh_cache(cfg, batch, max_seq, dtype, device, mesh)
     pattern, reps, tail = stack_layout(cfg)
     blocks = [_stack([init_layer_cache(cfg, kind, batch, max_seq, dtype,
                                        device) for _ in range(reps)])

@@ -22,6 +22,17 @@ Where the reference scans over the stacked repeats, this loops over them.
 Caches are written in place (each stacked leaf through its ``[r]`` view)
 and returned; ``pos`` is a host int, so no position is read back from the
 device.
+
+On a mesh the parameters are DTensors and the dense caches DTensors
+placed by ``launch.specs.cache_pack`` (``init_cache(..., mesh=mesh)``):
+batch over ``data``, sequence over ``model``.  A write at positions
+``[lo, hi)`` lands in the shards that own those slots, each rank writing
+its part of the range into its local shard (:func:`_write_slots`).  The
+decode's attention gathers K and V over ``model`` first (exact, simple)
+and runs the single-device call on each rank's batch rows; prefill's
+attention is ``layers.mesh_attention``.  Tokens are the global batch, alike
+on every rank; logits come back as DTensors.  Windowed and recurrent
+caches are not placed on a mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ from repro_torch.models.transformer import (embed, encode, ffn_apply,
                                             layer_slice, stack_layout,
                                             unembed_logits)
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import (is_dtensor, mesh_scope,
+                                           shard_range)
 
 from .cache import CacheTree, init_cache, layer_cache_kind
 
@@ -67,6 +80,52 @@ def _attn_scores_decode(cfg: ModelConfig, q: torch.Tensor,
     return o.reshape(b, h, 1, hd).to(q.dtype)
 
 
+def _write_slots(dst: torch.Tensor, src: torch.Tensor, lo: int) -> None:
+    """``dst[:, :, lo:lo + S] = src`` for a cache leaf (B, KV, S_max, D)
+    and new entries (B, KV, S, D).  A DTensor cache: ``src`` is brought to
+    the cache's batch placement (its other dims whole) and each rank
+    writes the part of ``[lo, lo + S)`` its sequence shard owns."""
+    if not is_dtensor(dst):
+        dst[:, :, lo:lo + src.shape[2]] = src.to(dst.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    want = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in dst.placements]
+    if not is_dtensor(src):
+        raise TypeError("a cache on a mesh takes DTensor entries")
+    local = src.redistribute(dst.device_mesh, want).to_local()
+    start, stop = shard_range(dst, 2)
+    a, b = max(lo, start), min(lo + src.shape[2], stop)
+    if a < b:
+        dst.to_local()[:, :, a - start:b - start] = \
+            local[:, :, a - lo:b - lo].to(dst.dtype)
+
+
+def _mesh_decode_attention(cfg: ModelConfig, q, k_cache, v_cache,
+                           pos: int):
+    """Decode attention of DTensor q (B, H, 1, D) over a sequence-sharded
+    DTensor cache: K and V gathered over every axis but the batch's, then
+    the single-device call on each rank's batch rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k_cache.device_mesh
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in k_cache.placements]
+
+    def local(ql, kl, vl):
+        if uses_kernel(ql):
+            return ops.attention(ql.to(kl.dtype).contiguous(), kl, vl,
+                                 causal=True, q_offset=pos,
+                                 backend="cuda").to(ql.dtype)
+        mask = (torch.arange(kl.shape[2], device=kl.device)
+                <= pos)[None, None, None, :]
+        return _attn_scores_decode(cfg, ql, kl, vl, mask)
+
+    return local_map(local, out_placements=rows,
+                     in_placements=(rows, rows, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k_cache, v_cache)
+
+
 def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 cache: Dict[str, torch.Tensor], pos: int
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -78,7 +137,13 @@ def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
     q = rope(q, posv, theta)
     k = rope(k, posv, theta)
 
-    if layer_cache_kind(cfg, kind) == "dense":
+    if layer_cache_kind(cfg, kind) != "dense" and is_dtensor(cache["k"]):
+        raise NotImplementedError(f"a {kind} cache is not placed on a mesh")
+    if is_dtensor(cache["k"]):
+        _write_slots(cache["k"], k, pos)
+        _write_slots(cache["v"], v, pos)
+        o = _mesh_decode_attention(cfg, q, cache["k"], cache["v"], pos)
+    elif layer_cache_kind(cfg, kind) == "dense":
         cache["k"][:, :, pos:pos + 1] = k.to(cache["k"].dtype)
         cache["v"][:, :, pos:pos + 1] = v.to(cache["v"].dtype)
         if uses_kernel(q):          # the kernel takes one dtype: the cache's
@@ -100,8 +165,11 @@ def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
         valid = (slot_pos >= 0) & (pos - slot_pos < cfg.local_window)
         o = _attn_scores_decode(cfg, q, cache["k"], cache["v"],
                                 valid[None, None, None, :])
-    out = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return out @ bp["wo"], cache
+    # a 2-D product: a plain (B, 1, n) @ W folds to this one, while
+    # DTensor's matmul of a (B, 1, n) takes another kernel, and a one-rank
+    # mesh would part from one device in the last bit
+    out = o.transpose(1, 2).reshape(b, cfg.n_heads * cfg.head_dim)
+    return (out @ bp["wo"]).reshape(b, 1, -1), cache
 
 
 def attn_prefill(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -118,8 +186,10 @@ def attn_prefill(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                   causal_skip=cfg.causal_skip)
     if layer_cache_kind(cfg, kind) == "dense":
-        cache["k"][:, :, q_offset:q_offset + s] = k.to(cache["k"].dtype)
-        cache["v"][:, :, q_offset:q_offset + s] = v.to(cache["v"].dtype)
+        _write_slots(cache["k"], k, q_offset)
+        _write_slots(cache["v"], v, q_offset)
+    elif is_dtensor(cache["k"]):
+        raise NotImplementedError(f"a {kind} cache is not placed on a mesh")
     else:
         w = cache["k"].shape[2]
         take = min(w, s)
@@ -214,12 +284,13 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, CacheTree]:
     """Prompt (B, S) → (last-token logits (B, vocab_padded), the caches
     filled in place)."""
-    enc_out = encode(params, cfg, frames) if cfg.encoder_layers else None
-    h = embed(params, tokens, prefix_embed)
-    for bp, c, kind, moe in _layers(params, cfg, cache):
-        h, _ = block_prefill(bp, cfg, h, kind, moe, c, enc_out=enc_out)
-    h = norm_apply(params["final_norm"], cfg, h)
-    return unembed_logits(params, cfg, h[:, -1]), cache
+    with mesh_scope(params):
+        enc_out = encode(params, cfg, frames) if cfg.encoder_layers else None
+        h = embed(params, tokens, prefix_embed)
+        for bp, c, kind, moe in _layers(params, cfg, cache):
+            h, _ = block_prefill(bp, cfg, h, kind, moe, c, enc_out=enc_out)
+        h = norm_apply(params["final_norm"], cfg, h)
+        return unembed_logits(params, cfg, h[:, -1]), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache: CacheTree,
@@ -229,11 +300,13 @@ def decode_step(params, cfg: ModelConfig, cache: CacheTree,
     of the new token.  Returns (logits (B, vocab_padded), the caches
     written in place)."""
     pos = int(pos)
-    h = embed(params, tokens[:, None])
-    for bp, c, kind, moe in _layers(params, cfg, cache):
-        h, _ = block_decode(bp, cfg, h, kind, moe, c, pos, enc_out=enc_out)
-    h = norm_apply(params["final_norm"], cfg, h)
-    return unembed_logits(params, cfg, h[:, 0]), cache
+    with mesh_scope(params):
+        h = embed(params, tokens[:, None])
+        for bp, c, kind, moe in _layers(params, cfg, cache):
+            h, _ = block_decode(bp, cfg, h, kind, moe, c, pos,
+                                enc_out=enc_out)
+        h = norm_apply(params["final_norm"], cfg, h)
+        return unembed_logits(params, cfg, h[:, 0]), cache
 
 
 def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int,

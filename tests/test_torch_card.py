@@ -740,3 +740,73 @@ def test_attention_grad_kernel_matches_plain(shape, kw, dtype):
     assert ops.attention_launches - before == launched
     for g, w in zip(got, wanted):
         assert g.dtype == dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["phase3_first", "every_vec16_tile"])
+def test_vta_gemm_one_stage_repeat(case):
+    """The one-stage ``vec16`` geometries launched 200 times each into
+    fresh buffers filled with a sentinel byte (0x5A and 0xA5 in turns):
+    every run equals the plain version, so no element is written wrong
+    or left unwritten (``chip_smoke.py`` phase 3 runs the same at 256)."""
+    dev = _card()
+    from repro_torch.kernels import vta_gemm as vg
+    sms = vg.device_sm_count(dev)
+    if case == "phase3_first":
+        cases = [(25088, 32, 16, vg.plan(25088, 32, 16, sm_count=sms))]
+    else:
+        cases = [(196 * bm, 32 * ks, bn,
+                  vg.make_plan(196 * bm, 32 * ks, bn, bm, bn, ks, load))
+                 for bm, bn, ks, load in vg.INSTANTIATIONS
+                 if load == "vec16"]
+    rng = np.random.default_rng(23)
+    for m, k, n, p in cases:
+        assert (p.stages, p.load) == (1, "vec16")
+        a, b = _int8(rng, (m, k), dev), _int8(rng, (k, n), dev)
+        want = ref.vta_gemm_ref(a, b, None, saturate=False)
+        for r in range(200):
+            sentinel = (0x5A, -0x5B)[r % 2]
+            out = torch.full((m, n), sentinel, dtype=torch.int8, device=dev)
+            vg._launch(a, b, None, out, p, saturate=False)
+            wrong = out != want
+            assert not bool(wrong.any()), (
+                (m, k, n), r, int(wrong.sum()),
+                int((wrong & (out == sentinel)).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compressed_pod_allreduce_one_rank(tmp_path, dtype):
+    """``compressed_pod_allreduce`` on CUDA tensors at one rank of a
+    (1, 1, 1) pod mesh over NCCL equals the numpy replica of the
+    reference's ``_compress_body`` with n_pods = 1 (its divisions by
+    constants as float32 reciprocal multiplications, as XLA compiles
+    them), bit for bit."""
+    dev = _card()
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.train.distributed import compressed_pod_allreduce
+    init_distributed(dev, init_method=f"file://{tmp_path}/store", rank=0,
+                     world_size=1, timeout_s=60)
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        rng = np.random.default_rng(7)
+        grads = {"a": rng.standard_normal((64, 33)).astype(np.float32),
+                 "b": (rng.standard_normal(1000) * 1e-3).astype(np.float32),
+                 "z": np.zeros((3, 4), np.float32)}
+        out = compressed_pod_allreduce(
+            {k: torch.from_numpy(v).to(dev, dtype) for k, v in grads.items()},
+            mesh)
+        for key, g in grads.items():
+            g = torch.from_numpy(g).to(dtype).float().numpy()
+            limit = 127
+            scale = np.float32(max(np.float32(np.max(np.abs(g))),
+                                   np.float32(1e-12))
+                               * np.float32(1.0 / limit))
+            q = np.clip(np.round(g / scale), -limit, limit).astype(np.int8)
+            want = torch.from_numpy((q.astype(np.float32) * scale)
+                                    * np.float32(1.0)).to(dtype)
+            assert out[key].dtype == dtype
+            assert torch.equal(out[key].cpu(), want), key
+    finally:
+        dist.destroy_process_group()

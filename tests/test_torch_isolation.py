@@ -72,7 +72,8 @@ def test_no_module_imports_jax_or_repro():
             "optim/adamw.py", "train/losses.py", "train/train_step.py",
             "data/pipeline.py", "checkpoint/checkpointer.py",
             "runtime/fault_tolerance.py", "launch/train.py",
-            "train_lm.py"} <= names
+            "train_lm.py", "parallel/sharding.py", "launch/mesh.py",
+            "launch/specs.py", "train/distributed.py"} <= names
     bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
            for path in files for line, name in _imports(path)
            if _forbidden(name)]
@@ -157,6 +158,17 @@ with contextlib.redirect_stdout(io.StringIO()) as said:
                               "--device", "cpu"]) == 0
 trained = said.getvalue().splitlines()[-1]
 assert trained.startswith("done: 2 steps"), said.getvalue()
+with contextlib.redirect_stdout(io.StringIO()) as said:
+    assert launch_train.main(["--arch", "lm100m", "--smoke", "--steps", "2",
+                              "--global-batch", "2", "--seq-len", "32",
+                              "--device", "cpu", "--mesh-shape", "1x1"]) == 0
+assert said.getvalue().splitlines()[-1].startswith("done: 2 steps"), \
+    said.getvalue()
+from repro_torch.configs import get_config
+from repro_torch.launch import specs
+from repro_torch.parallel.sharding import SINGLE_POD
+_, abs_p, p_specs = specs.param_pack(get_config("qwen2.5-3b"), SINGLE_POD)
+assert specs.sharded_arg_bytes(abs_p, p_specs, SINGLE_POD) == 26_852_608
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
@@ -358,6 +370,7 @@ def test_trainer_without_card_raises(monkeypatch):
     from repro_torch import train_lm
     from repro_torch.configs import get_smoke
     from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import train as launch_train
     from repro_torch.optim import adamw
 
@@ -379,7 +392,11 @@ def test_trainer_without_card_raises(monkeypatch):
             lambda: pipeline.make_batch(dcfg, 0),
             lambda: adamw.state_from_numpy((0, {}, {})),
             lambda: launch_train.main(["--smoke", "--steps", "1"]),
+            lambda: launch_train.main(["--smoke", "--steps", "1",
+                                       "--mesh-shape", "1x1"]),
+            lambda: launch_mesh.init_distributed(),
             lambda: train_lm.main(["--steps", "1"])):
         with pytest.raises(tdevice.NoDeviceError):
             call()
     assert work == []
+    assert not torch.distributed.is_initialized()

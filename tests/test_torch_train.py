@@ -30,7 +30,6 @@ from repro.models import moe as jmoe
 from repro.models.config import ModelConfig as JModelConfig
 from repro.models.config import MoEConfig as JMoEConfig
 from repro.train import losses as jlosses
-from repro_torch.configs import get_smoke
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as launch_train
 from repro_torch.models import layers, moe
@@ -283,9 +282,26 @@ def test_moe_grad_flows_through_router(cf):
 
 
 def test_train_step_refuses_pod_compression():
-    cfg = get_smoke("lm100m")
-    with pytest.raises(NotImplementedError):
-        ts.make_train_step(cfg, ts.TrainConfig(grad_compression="int8_pod"))
+    """``grad_compression="int8_pod"`` is the reference's no-op without a
+    mesh ``pod`` axis: the step equals the uncompressed one bit for bit
+    (an unknown compression is refused)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.distributed import compressed_pod_allreduce
+    cfg, _, batch = _port("lm100m")
+    out = {}
+    for comp in (None, "int8_pod"):
+        _, params, _ = _port("lm100m")
+        tc = ts.TrainConfig(grad_compression=comp)
+        params, _, metrics = ts.make_train_step(cfg, tc)(
+            params, adamw.init(tc.opt, params), batch)
+        out[comp] = (float(metrics["loss"]), _leaves(params))
+    assert out[None][0] == out["int8_pod"][0]
+    for a, b in zip(out[None][1], out["int8_pod"][1]):
+        assert torch.equal(a, b)
+    grads = {"w": torch.ones(3)}
+    assert compressed_pod_allreduce(grads) is grads
+    with pytest.raises(ValueError):
+        ts.make_train_step(cfg, ts.TrainConfig(grad_compression="fp8"))
 
 
 @pytest.mark.parametrize("arch, batch, micro, big", [
