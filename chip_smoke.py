@@ -278,10 +278,27 @@ In order it:
    |logit| of the unsharded ones, launches equal to the plans' sum, and
    one more decode step profiled on each path; the phase's launches are
    added to the attention entry's.
+19. runs the dry run (``dryrun`` in the record): a process without
+   the card (a fake process group, every tensor on ``meta``; started
+   before phase 17, its traces run on the host beside phases 17–18)
+   traces qwen2.5-3b's decode_32k and train_4k cells on 16×16 through
+   ``launch.dryrun.run_cell`` (their JSON and trace seconds printed) and
+   the meta traces of two steps at mesh (1, 1) — lm100m's training step
+   in phase 17's configuration and qwen2.5-3b's decode step over phase
+   18's cache — while a rank over NCCL places the same steps for real
+   and runs each once under ``analysis.op_cost`` inside
+   ``plain_attention``: every op must equal the meta trace's (op,
+   operand shapes and dtypes, FLOPs, bytes, fused bytes, collectives;
+   any difference itemised), the argument bytes the placed trees' local
+   bytes.  Then each step runs on the kernel path (attention launches
+   equal to the plans' sum) and once profiled: device time beside the
+   terms FLOPs / 67 TFLOP/s and bytes / 3.35 TB/s, and the predicted
+   peak memory (arguments + the trace's storage peak) beside
+   ``torch.cuda.max_memory_allocated`` (reported).
 
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
-the last line.  ``python3 chip_smoke.py --only 3,18`` builds and runs
-phase 3 and/or phase 18 alone (a development run: phase 18 then computes
+the last line.  ``python3 chip_smoke.py --only 3,18,19`` builds and runs
+phases 3, 18 and/or 19 alone (a development run: phase 18 then computes
 its own unsharded baseline, and no kernel line is printed).  Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The full record also goes to ``chiprun_out/chip_smoke.json``.
@@ -3820,6 +3837,295 @@ def mesh_phase(card: str, unsharded: Optional[dict] = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the dry run — the meta trace against the real step
+# ---------------------------------------------------------------------------
+
+DRY_CELLS = (("qwen2.5-3b", "decode_32k"), ("qwen2.5-3b", "train_4k"))
+DRY_STEPS = ("lm100m_train", "qwen_decode")
+DRY_TIMEOUT_S = 900
+
+
+def dry_lowerables(mesh, device) -> dict:
+    """The two steps phase 19 holds against their meta trace, on
+    ``mesh``: lm100m's training step in phase 17's configuration (32 ×
+    256, 2 microbatches, remat ``dots``, float32) and qwen2.5-3b's decode
+    step over phase 18's cache (batch 4, 256 slots, float32) at its last
+    slot; on ``meta`` or for real on ``device``."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.specs import build_decode, build_train
+    train = ShapeSpec("phase17_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    decode = ShapeSpec("phase18_decode", MESH_DECODE_MAX_SEQ,
+                       MESH_DECODE_BATCH, "decode")
+    return {"lm100m_train": lambda: build_train(
+                TRAIN_ARCH, train, mesh, cfg=get_config(TRAIN_ARCH),
+                train_cfg=_mesh_train_cfg(), dtype=torch.float32,
+                device=device),
+            "qwen_decode": lambda: build_decode(
+                LM_ARCH, decode, mesh, dtype=torch.float32, device=device)}
+
+
+def dry_meta(out_path: str) -> None:
+    """Phase 19's process without a card (a fake process group, every
+    tensor on ``meta``): the meta traces of ``dry_lowerables`` at mesh
+    (1, 1), then the two production cells ``DRY_CELLS`` on 16×16 through
+    ``launch.dryrun.run_cell``; written to ``out_path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis.op_cost import analyze_trace
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake, make_mesh
+    init_fake(1)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {}
+    for name, make in dry_lowerables(mesh, "meta").items():
+        low = make()
+        tr = low.lower()
+        out[name] = {"keys": [r.key() for r in tr.records],
+                     "cost": analyze_trace(tr, 1),
+                     "arg_bytes": low.arg_bytes_per_device,
+                     "local_arg_bytes": low.local_arg_bytes(),
+                     "trace_s": tr.seconds}
+    for arch, shape in DRY_CELLS:
+        t0 = time.perf_counter()
+        res = dryrun.run_cell(arch, shape, multi_pod=False)
+        res["cell_s"] = time.perf_counter() - t0
+        out[f"{arch}_{shape}_16x16"] = res
+    torch.save(out, out_path)
+
+
+def dry_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """Phase 19's rank on the card (spawned, one rank over NCCL at mesh
+    (1, 1), as phase 18 runs it): each step of ``dry_lowerables`` placed
+    for real, run once under the op counter inside ``plain_attention``,
+    then once on the kernel path (attention launches, peak memory) and
+    once profiled."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.analysis.op_cost import analyze_trace
+    from repro_torch.device import strict_float32
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models.layers import plain_attention
+    dev = init_distributed(torch.device("cuda", rank),
+                           init_method=f"file://{store}", rank=rank,
+                           world_size=world, timeout_s=MESH_TIMEOUT_S)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"phase 19 runs {dist.get_backend()}")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {}
+    with strict_float32():
+        for name, make in dry_lowerables(mesh, dev).items():
+            low = make()
+            torch.cuda.synchronize()
+            rec = {"arg_bytes": low.arg_bytes_per_device,
+                   "local_arg_bytes": low.local_arg_bytes(),
+                   "allocated_before": torch.cuda.memory_allocated(dev)}
+            torch.cuda.reset_peak_memory_stats(dev)
+            with plain_attention():
+                tr = low.lower()
+            torch.cuda.synchronize()
+            rec.update(keys=[r.key() for r in tr.records],
+                       cost=analyze_trace(tr, 1), traced_s=tr.seconds,
+                       plain_max_allocated=torch.cuda.max_memory_allocated(
+                           dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            low.fn(*low.args)
+            torch.cuda.synchronize()
+            rec["kernel_path_s"] = time.perf_counter() - t0
+            rec["launches"] = ops.attention_launches
+            rec["max_allocated"] = torch.cuda.max_memory_allocated(dev)
+            rec["profile"] = lm_profile(lambda: low.fn(*low.args),
+                                        "attention_plain_backward")
+            rec["launches_total"] = ops.attention_launches
+            out[name] = rec
+            del low, tr
+            torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(out, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dry_planned(fa, dev) -> dict:
+    """The attention kernel launches each step of ``dry_lowerables`` plans
+    on the kernel path."""
+    from repro_torch.configs import get_config
+    sms = fa.device_sm_count(dev)
+    cfg = get_config(TRAIN_ARCH)
+    call = fa.plan(TRAIN_BATCH // TRAIN_MICRO, cfg.n_heads, cfg.n_kv_heads,
+                   TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim, torch.float32,
+                   sm_count=sms).launches
+    forwards = 1 if cfg.remat == "none" else 2      # + the remat recompute
+    qcfg = get_config(LM_ARCH)
+    dec = fa.plan(MESH_DECODE_BATCH, qcfg.n_heads, qcfg.n_kv_heads, 1,
+                  MESH_DECODE_MAX_SEQ, qcfg.head_dim, torch.float32,
+                  q_offset=MESH_DECODE_MAX_SEQ - 1, sm_count=sms).launches
+    return {"lm100m_train": forwards * cfg.n_layers * TRAIN_MICRO * call,
+            "qwen_decode": qcfg.n_layers * dec}
+
+
+def start_dry_meta() -> dict:
+    """Phase 19's process without the card (``dry_meta``), started before
+    phase 17: it needs no card, so its traces run on the host beside the
+    card's phases.  Its output goes to a file under ``build/``."""
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tag = os.getpid()
+    job = {"path": build / f"chip_smoke_dry_meta_{tag}.pt",
+           "log": build / f"chip_smoke_dry_meta_{tag}.log",
+           "t0": time.perf_counter()}
+    for key in ("path", "log"):
+        job[key].unlink(missing_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.dry_meta({str(job['path'])!r})")
+    with open(job["log"], "w") as log:
+        job["proc"] = subprocess.Popen([sys.executable, "-c", code],
+                                       cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT)
+    return job
+
+
+def stop_dry_meta(job: dict) -> None:
+    """End phase 19's card-less process if it still runs, and remove its
+    files."""
+    if job["proc"].poll() is None:
+        job["proc"].kill()
+        job["proc"].wait()
+    for key in ("path", "log"):
+        job[key].unlink(missing_ok=True)
+
+
+def dry_phase(fa, card: str, dev, job: Optional[dict] = None) -> dict:
+    """Phase 19: the dry run.  A process without the card traces the two
+    production cells and the meta traces of ``dry_lowerables``
+    (``start_dry_meta``, ``job``: started before phase 17) while a rank
+    over NCCL runs the same steps for real (``dry_rank``); every op of
+    each real plain-path step must equal its meta trace's (op, operand
+    shapes and dtypes, FLOPs, bytes, fused bytes, collectives), the
+    argument bytes the placed trees' local bytes, and the kernel path's
+    attention launches the plans' sum."""
+    import gc
+    import torch.multiprocessing as mp
+    print(f"phase 19: the dry run ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    job = job or start_dry_meta()
+    build = ROOT / "build"
+    tag = os.getpid()
+    store = build / f"chip_smoke_dry_store_{tag}"
+    real_path = build / f"chip_smoke_dry_real_{tag}.pt"
+    files = (store, real_path)
+    for f in files:
+        f.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(dry_rank, args=(1, str(store), str(real_path)), nprocs=1,
+                 join=True)
+        real = torch.load(real_path, weights_only=False)
+        job["proc"].wait(timeout=DRY_TIMEOUT_S)
+        if job["proc"].returncode:
+            raise AssertionError(f"phase 19's meta process failed:\n"
+                                 f"{job['log'].read_text()[-4000:]}")
+        meta = torch.load(job["path"], weights_only=False)
+        meta_s = time.perf_counter() - job["t0"]
+    finally:
+        stop_dry_meta(job)
+        for f in files:
+            f.unlink(missing_ok=True)
+    planned = dry_planned(fa, dev)
+    out = {"card": card, "seconds": time.perf_counter() - t0,
+           "meta_process_s": meta_s, "steps": {}, "cells": {}}
+    failures = []
+    for name in DRY_STEPS:
+        m, r = meta[name], real[name]
+        diffs = [f"op {i}: meta {a} != {card} {b}" for i, (a, b) in
+                 enumerate(zip(m["keys"], r["keys"])) if a != b]
+        if len(m["keys"]) != len(r["keys"]):
+            diffs.append(f"{len(m['keys'])} ops on meta, "
+                         f"{len(r['keys'])} on the card")
+        mc, rc = m["cost"], r["cost"]
+        terms = ("flops_per_device", "bytes_per_device",
+                 "bytes_fused_per_device", "collective_bytes",
+                 "collective_wire_per_device")
+        differing = [t for t in terms if mc[t] != rc[t]]
+        predicted = r["local_arg_bytes"] + mc["peak_temp_bytes_estimate"]
+        step = {
+            "ops": len(r["keys"]), "differing_ops": diffs[:20],
+            "differing_terms": differing,
+            "flops": rc["flops_per_device"],
+            "matmul_flops": rc["matmul_flops_per_device"],
+            "bytes": rc["bytes_per_device"],
+            "bytes_fused": rc["bytes_fused_per_device"],
+            "collective_bytes": rc["collective_bytes"],
+            "arg_bytes_per_device": r["arg_bytes"],
+            "local_arg_bytes": r["local_arg_bytes"],
+            "meta_arg_bytes": m["arg_bytes"],
+            "launches": r["launches"], "planned_launches": planned[name],
+            "launches_with_profile": r["launches_total"],
+            "flops_term_ms": rc["flops_per_device"] / F32_OPS_PER_S * 1e3,
+            "bytes_term_ms": rc["bytes_per_device"] / HBM_BYTES_PER_S * 1e3,
+            "bytes_fused_term_ms": (rc["bytes_fused_per_device"]
+                                    / HBM_BYTES_PER_S * 1e3),
+            "device_busy_ms": r["profile"]["device_busy_ms"],
+            "traced_wall_ms": r["profile"]["traced_wall_ms"],
+            "idle_share": r["profile"]["idle_share"],
+            "top_device_ops": r["profile"]["top_device_ops"],
+            "kernel_path_s": r["kernel_path_s"],
+            "predicted_peak_bytes": predicted,
+            "max_memory_allocated": r["max_allocated"],
+            "plain_max_memory_allocated": r["plain_max_allocated"],
+            "meta_trace_s": m["trace_s"], "card_traced_s": r["traced_s"]}
+        out["steps"][name] = step
+        if diffs or differing:
+            failures.append(f"{name}: the meta trace parts from the card's "
+                            f"step: " + "; ".join(diffs[:20] + differing))
+        if not r["arg_bytes"] == r["local_arg_bytes"] == m["arg_bytes"]:
+            failures.append(f"{name}: argument bytes {r['arg_bytes']} "
+                            f"(specs), {r['local_arg_bytes']} (placed), "
+                            f"{m['arg_bytes']} (meta)")
+        if r["launches"] != planned[name]:
+            failures.append(f"{name}: attention launches {r['launches']}, "
+                            f"planned {planned[name]}")
+        print(f"  {name} at mesh (1, 1) ({card}): {step['ops']} ops, the "
+              f"meta trace's {len(m['keys'])}, {len(diffs)} differing; "
+              f"flops {step['flops']:.4e} (matmul "
+              f"{step['matmul_flops']:.4e}), bytes {step['bytes']:.4e}, "
+              f"bytes_fused {step['bytes_fused']:.4e}, collectives "
+              f"{sum(step['collective_bytes'].values()):.4e}; arguments "
+              f"{step['arg_bytes_per_device']} B = placed "
+              f"{step['local_arg_bytes']} B; attention launches "
+              f"{step['launches']} = planned {step['planned_launches']}")
+        print(f"    kernel path: device {step['device_busy_ms']:.2f} ms of "
+              f"{step['traced_wall_ms']:.1f} ms (idle "
+              f"{step['idle_share']:.3f}) against flops / 67 TFLOP/s "
+              f"{step['flops_term_ms']:.2f} ms, bytes / 3.35 TB/s "
+              f"{step['bytes_term_ms']:.2f} ms (fused "
+              f"{step['bytes_fused_term_ms']:.2f} ms); peak memory "
+              f"predicted {predicted / 1e9:.3f} GB, max allocated "
+              f"{step['max_memory_allocated'] / 1e9:.3f} GB (plain path "
+              f"{step['plain_max_memory_allocated'] / 1e9:.3f} GB)")
+    for arch, shape in DRY_CELLS:
+        tag = f"{arch}_{shape}_16x16"
+        res = meta[tag]
+        out["cells"][tag] = res
+        c = res["cost"]
+        print(f"  OK  {tag}: flops/dev={c['flops_per_device']:.3e} "
+              f"bytes/dev={c['bytes_per_device']:.3e} "
+              f"wire/dev={c['collective_wire_per_device']:.3e} "
+              f"args/dev={res['arg_bytes_per_device']:.3e} "
+              f"trace={res['lower_s']}s (cell {res['cell_s']:.1f} s)")
+        print("  " + json.dumps(res))
+    print(f"  phase 19: {out['seconds']:.1f} s (its card-less process "
+          f"{meta_s:.1f} s from its start)")
+    if failures:
+        raise AssertionError("phase 19: " + " | ".join(failures))
+    out["launches"] = sum(real[n]["launches_total"] for n in DRY_STEPS)
+    return out
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -3896,15 +4202,15 @@ def f32_ptxas(log: str) -> list:
 
 
 def only_phases(argv) -> set:
-    """``--only 3,18``: the phases a development run takes (after the
+    """``--only 3,18,19``: the phases a development run takes (after the
     build); none without the option."""
     if not argv:
         return set()
     if len(argv) != 2 or argv[0] != "--only":
-        raise SystemExit("usage: chip_smoke.py [--only 3,18]")
+        raise SystemExit("usage: chip_smoke.py [--only 3,18,19]")
     phases = {int(x) for x in argv[1].split(",")}
-    if not phases <= {3, 18}:
-        raise SystemExit("--only takes phases 3 and 18")
+    if not phases <= {3, 18, 19}:
+        raise SystemExit("--only takes phases 3, 18 and 19")
     return phases
 
 
@@ -3991,6 +4297,8 @@ def main() -> int:
             record["vta_gemm_repeat"] = repeat_check(ref, dev)
         if 18 in only:
             record["mesh"] = mesh_phase(card)
+        if 19 in only:
+            record["dryrun"] = dry_phase(attn_kernel, card, dev)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_only.json").write_text(
@@ -4374,16 +4682,24 @@ def main() -> int:
     attn_entry["lm_calls"] += record["moe_serve"]["calls"]
     record["rwkv_serve"] = rwkv_phase(ops, card, dev)
     # -- 17. training at full width -----------------------------------------
-    record["train"] = train_phase(ops, ref, attn_kernel, card, dev)
-    for key in ("lm100m", "qwen"):
-        attn_entry["launches_by_path"][f"train_{key}"] = \
-            record["train"][key]["launches"]
-    attn_entry["launches"] += record["train"]["launches"]
-    attn_entry["train_calls"] = record["train"]["calls"]
-    # -- 18. the mesh layer: sharded training and decode over NCCL ----------
-    record["mesh"] = mesh_phase(card, record["train"]["lm100m"])
-    attn_entry["launches_by_path"]["mesh"] = record["mesh"]["launches"]
-    attn_entry["launches"] += record["mesh"]["launches"]
+    dry_job = start_dry_meta()          # phase 19's host traces, from here
+    try:
+        record["train"] = train_phase(ops, ref, attn_kernel, card, dev)
+        for key in ("lm100m", "qwen"):
+            attn_entry["launches_by_path"][f"train_{key}"] = \
+                record["train"][key]["launches"]
+        attn_entry["launches"] += record["train"]["launches"]
+        attn_entry["train_calls"] = record["train"]["calls"]
+        # -- 18. the mesh layer: sharded training and decode over NCCL ------
+        record["mesh"] = mesh_phase(card, record["train"]["lm100m"])
+        attn_entry["launches_by_path"]["mesh"] = record["mesh"]["launches"]
+        attn_entry["launches"] += record["mesh"]["launches"]
+        # -- 19. the dry run: the meta trace against the real step -----------
+        record["dryrun"] = dry_phase(attn_kernel, card, dev, dry_job)
+    finally:
+        stop_dry_meta(dry_job)
+    attn_entry["launches_by_path"]["dryrun"] = record["dryrun"]["launches"]
+    attn_entry["launches"] += record["dryrun"]["launches"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

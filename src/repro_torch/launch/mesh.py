@@ -11,7 +11,8 @@ never shrunk to fit).  :func:`init_distributed` starts that group:
 ``timeout`` are explicit — the tests hand it a ``file://`` store, so no
 two runs race for a TCP port — and ``torchrun``'s environment
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``) stands in for them when
-they are not given.
+they are not given.  :func:`init_fake` starts the dry run's group
+(``launch.dryrun``): 256 or 512 ranks in one process, nothing allocated.
 """
 
 from __future__ import annotations
@@ -87,8 +88,29 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def init_fake(world_size: int) -> None:
+    """The dry run's process group: a ``fake`` group of ``world_size``
+    ranks in this one process, as rank 0 (the counterpart of the
+    reference's ``--xla_force_host_platform_device_count``).  Its
+    collectives move nothing; a mesh over it is a ``cpu`` mesh whose
+    tensors the dry run keeps on ``meta``.  A fake group of another size
+    is replaced; any other group raises."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"the process group runs "
+                               f"{dist.get_backend()}; a dry run needs "
+                               f"its own fake group")
+        if dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
 def mesh_device_type() -> str:
-    """``cuda`` over ``nccl``, ``cpu`` over ``gloo``."""
+    """``cuda`` over ``nccl``, ``cpu`` over ``gloo`` and the dry run's
+    ``fake`` group."""
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 

@@ -379,6 +379,25 @@ def attention_qkv(p, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _merge_heads(o: torch.Tensor, s: int, width: int) -> torch.Tensor:
+    """(B, n, S, hd) → (B, S, n·hd).  A DTensor whose heads ``model`` does
+    not split (every rank of ``model`` holds them all) is merged on each
+    rank's local tensor through ``local_map``: the output projection's
+    backward hands the gradient back split over ``model`` inside a head,
+    which DTensor cannot unflatten, and ``local_map`` brings it back whole
+    first."""
+    if not (is_dtensor(o)
+            and o.shape[1] % mesh_axes(o.device_mesh).get("model", 1)):
+        return o.transpose(1, 2).reshape(o.shape[0], s, width)
+    from torch.distributed.tensor.experimental import local_map
+    places = list(o.placements)
+    return local_map(lambda t: t.transpose(1, 2).reshape(t.shape[0], s,
+                                                         width),
+                     out_placements=places, in_placements=(places,),
+                     device_mesh=o.device_mesh,
+                     redistribute_inputs=True)(o)
+
+
 def attention_window(cfg: ModelConfig, kind: str
                      ) -> Tuple[Optional[int], float]:
     """(window, RoPE theta) of an attention layer kind: 'attn' (global) |
@@ -414,7 +433,7 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
         window=None if is_cross else window, q_offset=q_offset,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
         causal_skip=cfg.causal_skip)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = _merge_heads(out, s, cfg.n_heads * cfg.head_dim)
     return constrain(out @ p["wo"], "batch", None, None)
 
 

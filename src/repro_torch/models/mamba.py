@@ -7,6 +7,13 @@ in_proj → causal depthwise conv → selective scan (data-dependent Δ, B, C)
 ``lax.associative_scan``, and the recurrent carry across chunks, so the
 live ``(B, L, d_inner, d_state)`` tensor is bounded by the chunk length;
 decode is the same call on one token, a single-step state update.
+
+On a mesh (DTensor parameters, the reference's placements) ``d_inner``
+is split over ``model`` from the input projection to the output one:
+the two halves of ``in_proj`` are separate products
+(:func:`_in_proj`), the depthwise conv runs on each rank's channels
+(:func:`_conv`), and so does the scan, elementwise in ``d_inner``
+(:func:`_scan`).
 """
 
 from __future__ import annotations
@@ -18,8 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.sharding import (fit_spec, is_dtensor,
+                                           logical_to_spec, placements)
 
 from .config import ModelConfig
+from .layers import constrain
 from .params import ParamDef
 
 MAMBA_CHUNK = 128
@@ -61,11 +71,59 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (out + b.float()).to(x.dtype)[:, :s]
 
 
+def _in_proj(p, x: torch.Tensor, di: int):
+    """(x_in, z), each (B, S, di): the two halves of ``x @ in_proj``.  On
+    a mesh each half is its own product with ``di`` split over ``model``
+    (the weight's columns gathered over ``model`` and each half split
+    again: its ``model`` shards hold the halves' columns out of order)."""
+    w = p["in_proj"]
+    if not is_dtensor(w):
+        return torch.chunk(x @ w, 2, dim=-1)
+    x = constrain(x, "batch", None, None)
+    w = constrain(w, "fsdp", None)
+    return [constrain(x @ constrain(half, "fsdp", "tp"), "batch", None,
+                      "tp") for half in (w[:, :di], w[:, di:])]
+
+
+def _conv(x_in: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+          prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`_causal_conv`; of DTensors, on each rank's batch rows and
+    ``di`` channels (a depthwise conv is channel-local) through
+    ``local_map``."""
+    if not is_dtensor(x_in):
+        return _causal_conv(x_in, w, b, prev)
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x_in.device_mesh
+    spec = lambda lg, t: placements(fit_spec(logical_to_spec(lg, mesh),
+                                             t.shape, mesh), mesh)
+    x_pl = spec(("batch", None, "tp"), x_in)
+    w_pl = spec(("tp", None), w)
+    b_pl = spec(("tp",), b)
+    rows = [isinstance(pl, Shard) and pl.dim == 0 for pl in x_pl]
+    grad = lambda pls: tuple(Partial() if r else pl
+                             for r, pl in zip(rows, pls))
+    args, ins, grads = [x_in, w, b], [x_pl, w_pl, b_pl], \
+        [x_pl, grad(w_pl), grad(b_pl)]
+    if prev is not None:
+        args.append(prev)
+        ins.append(x_pl)
+        grads.append(x_pl)
+
+    def local(xl, wl, bl, *pl):
+        return _causal_conv(xl, wl, bl, pl[0] if pl else None)
+
+    return local_map(local, out_placements=list(x_pl), in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def _ssm_params(p, cfg: ModelConfig, xc: torch.Tensor):
     """xc (B,S,di) → (decay (B,S,di,ds), Bx (B,S,di,ds), C (B,S,ds))."""
     ds = cfg.mamba_d_state
     r = _dt_rank(cfg)
-    proj = xc @ p["x_proj"]                                  # (B,S,r+2ds)
+    # summed over the split ``d_inner`` before it is split three ways
+    proj = constrain(xc @ p["x_proj"], "batch", None, None)  # (B,S,r+2ds)
     dt, Bc, Cc = torch.split(proj, [r, ds, ds], dim=-1)
     dt = F.softplus((dt @ p["dt_w"] + p["dt_bias"]).float())
     A = -torch.exp(p["A_log"].float())                       # (di, ds)
@@ -92,6 +150,68 @@ def _scan_chunk(decay: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor
     return h, h[:, -1]
 
 
+def _scan_local(decay, bx, cc, dd, xc, h_prev, chunk: int):
+    """The chunked scan and its read-out: (y (B,S,di) f32, the last state
+    (B,di,ds)); zeros for a missing ``h_prev``."""
+    b, s, di, ds = decay.shape
+    if h_prev is None:
+        h_prev = torch.zeros((b, di, ds), dtype=torch.float32,
+                             device=decay.device)
+    h0 = h_prev.float()
+    ys = []
+    for c in range(s // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        hh, h0 = _scan_chunk(decay[:, sl], bx[:, sl], h0)
+        y = torch.einsum("blds,bls->bld", hh, cc[:, sl])     # (B,L,di)
+        ys.append(y + dd * xc[:, sl].float())
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    return y, h0
+
+
+def _scan(decay, bx, cc, dd, xc, h_prev, chunk: int):
+    """:func:`_scan_local`; of DTensors, on each rank's batch rows and
+    ``d_inner`` channels through ``local_map`` (the scan is elementwise
+    in ``d_inner``; as DTensor ops its chunk loop would be thousands of
+    sharded ops a layer)."""
+    if not is_dtensor(decay):
+        return _scan_local(decay, bx, cc, dd, xc, h_prev, chunk)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = decay.device_mesh
+    names = mesh.mesh_dim_names
+    rows = [isinstance(pl, Shard) and pl.dim == 0 for pl in decay.placements]
+    di = decay.shape[2]
+    split = "model" in names and di % mesh.size(names.index("model")) == 0
+
+    def place(channel_dim):
+        return tuple(Shard(0) if row else
+                     Shard(channel_dim) if split and n == "model" and
+                     channel_dim is not None else Replicate()
+                     for row, n in zip(rows, names))
+
+    bl_pl, c_pl, x_pl, h_pl = place(2), place(None), place(2), place(1)
+    d_pl = tuple(Shard(0) if split and n == "model" else Replicate()
+                 for n in names)
+    c_grad = tuple(Partial() if split and n == "model" else pl
+                   for n, pl in zip(names, c_pl))
+    d_grad = tuple(Partial() if row else pl for row, pl in zip(rows, d_pl))
+    args = [decay, bx, cc, dd, xc]
+    ins = [bl_pl, bl_pl, c_pl, d_pl, x_pl]
+    grads = [bl_pl, bl_pl, c_grad, d_grad, x_pl]
+    if h_prev is not None:
+        args.append(h_prev)
+        ins.append(h_pl)
+        grads.append(h_pl)
+
+    def local(dl, bl, cl, ddl, xl, *hl):
+        return _scan_local(dl, bl, cl, ddl, xl, hl[0] if hl else None,
+                           chunk)
+
+    return local_map(local, out_placements=(x_pl, h_pl), in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def mamba_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
                 state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 return_state: bool = False):
@@ -99,12 +219,10 @@ def mamba_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
     S must be a multiple of ``MAMBA_CHUNK``, or at most one chunk."""
     b, s, d = x.shape
     di = cfg.mamba_expand * d
-    ds = cfg.mamba_d_state
     conv_prev, h_prev = (None, None) if state is None else state
 
-    xz = x @ p["in_proj"]
-    x_in, z = torch.chunk(xz, 2, dim=-1)
-    xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"], conv_prev)
+    x_in, z = _in_proj(p, x, di)
+    xc = F.silu(_conv(x_in, p["conv_w"], p["conv_b"], conv_prev)
                 .float()).to(x.dtype)
 
     decay, bx, cc = _ssm_params(p, cfg, xc)
@@ -113,20 +231,9 @@ def mamba_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the "
                          f"scan chunk {chunk}")
-    if h_prev is None:
-        h_prev = torch.zeros((b, di, ds), dtype=torch.float32,
-                             device=x.device)
-    h0 = h_prev.float()
-    dd = p["D"].float()
-    ys = []
-    for c in range(s // chunk):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        hh, h0 = _scan_chunk(decay[:, sl], bx[:, sl], h0)
-        y = torch.einsum("blds,bls->bld", hh, cc[:, sl])     # (B,L,di)
-        ys.append(y + dd * xc[:, sl].float())
-    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    y, h0 = _scan(decay, bx, cc, p["D"].float(), xc, h_prev, chunk)
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p["out_proj"]
+    out = constrain(y @ p["out_proj"], "batch", None, None)
     if return_state:
         k = cfg.mamba_conv
         prev = (x_in.new_zeros((b, k - 1, di)) if conv_prev is None

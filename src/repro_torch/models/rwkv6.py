@@ -17,6 +17,10 @@ Chunked form (chunk L, log-space cumulated decays for stability):
 ``r̃_t = r_t ⊙ A⁻_t``, ``k̃_i = k_i / A_i`` with ``A_t = Π_{s≤t} w_s``,
 intra-chunk scores ``r̃ k̃ᵀ`` strictly-lower-masked + ``u`` diagonal, and
 state carry ``S' = diag(A_L) S + (k ⊙ A_L/A_i)ᵀ v``.
+
+On a mesh the input's sequence is gathered first (the token shift runs
+along it), the projections are DTensor products and the WKV runs on each
+rank's batch rows and heads through ``local_map`` (:func:`_wkv`).
 """
 
 from __future__ import annotations
@@ -28,7 +32,10 @@ import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
 
+from repro_torch.parallel.sharding import is_dtensor
+
 from .config import ModelConfig
+from .layers import constrain
 from .params import ParamDef
 
 W_LORA = 64
@@ -130,6 +137,56 @@ def chunked_wkv(r, k, v, w, u, *, chunk: int = WKV_CHUNK,
     return out, S
 
 
+def _wkv_heads(r, k, v, w, u, n: int, state):
+    """:func:`chunked_wkv` of (B, S, d) inputs split into heads of ``n``:
+    (out (B, S, d), state (B, H, N, N))."""
+    b, s, d = r.shape
+    heads = lambda t: t.reshape(b, s, d // n, n).transpose(1, 2)
+    out, state = chunked_wkv(heads(r), heads(k), heads(v), heads(w),
+                             u.float(), state=state)
+    return out.transpose(1, 2).reshape(b, s, d), state
+
+
+def _wkv(r, k, v, w, u, n: int, state):
+    """:func:`_wkv_heads`; of DTensors, on each rank's batch rows and the
+    heads ``model`` splits (all heads where it does not divide them)
+    through ``local_map``: the recurrence is head-local, and DTensor's
+    views of a head split after a transpose do not hold on the local
+    shards."""
+    if not is_dtensor(r):
+        return _wkv_heads(r, k, v, w, u, n, state)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = r.device_mesh
+    names = mesh.mesh_dim_names
+    rows = [isinstance(pl, Shard) and pl.dim == 0 for pl in r.placements]
+    h = r.shape[-1] // n
+    split = "model" in names and h % mesh.size(names.index("model")) == 0
+
+    def place(head_dim):
+        return tuple(Shard(0) if row else
+                     Shard(head_dim) if split and name == "model" else
+                     Replicate() for row, name in zip(rows, names))
+
+    x_pl, st_pl = place(2), place(1)
+    u_pl = tuple(Shard(0) if split and name == "model" else Replicate()
+                 for name in names)
+    u_grad = tuple(Partial() if row else pl for row, pl in zip(rows, u_pl))
+    args = [r, k, v, w, u]
+    ins, grads = [x_pl] * 4 + [u_pl], [x_pl] * 4 + [u_grad]
+    if state is not None:
+        args.append(state)
+        ins.append(st_pl)
+        grads.append(st_pl)
+
+    def local(rl, kl, vl, wl, ul, *st):
+        return _wkv_heads(rl, kl, vl, wl, ul, n, st[0] if st else None)
+
+    return local_map(local, out_placements=(x_pl, st_pl), in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def _decay(p, xw: torch.Tensor) -> torch.Tensor:
     """Data-dependent decay w_t ∈ (0,1): exp(-exp(base + LoRA))."""
     lora = torch.tanh(xw @ p["w1"]) @ p["w2"]
@@ -153,9 +210,8 @@ def rwkv6_time_mix(p, cfg: ModelConfig, x: torch.Tensor, *,
                    wkv_state: Optional[torch.Tensor] = None,
                    return_state: bool = False):
     """x (B,S,d) → (B,S,d) [, (last_x, wkv_state)]."""
-    b, s, d = x.shape
     n = cfg.rwkv_head_dim
-    h = d // n
+    x = constrain(x, "batch", None, None)    # the sequence whole: the shift
     xs = _token_shift(x, shift_prev)
     r = _lerp(x, xs, p["mu_r"]) @ p["wr"]
     k = _lerp(x, xs, p["mu_k"]) @ p["wk"]
@@ -163,12 +219,10 @@ def rwkv6_time_mix(p, cfg: ModelConfig, x: torch.Tensor, *,
     g = _lerp(x, xs, p["mu_g"]) @ p["wg"]
     w = _decay(p, _lerp(x, xs, p["mu_w"]))                   # (B,S,d) f32
 
-    heads = lambda t: t.reshape(b, s, h, n).transpose(1, 2)
-    out, state = chunked_wkv(heads(r), heads(k), heads(v), heads(w),
-                             p["u"].float(), state=wkv_state)
-    out = out.transpose(1, 2).reshape(b, s, d)
+    out, state = _wkv(r, k, v, w, p["u"], n, wkv_state)
     out = _group_norm(p, out, n)
-    out = (out * F.silu(g.float())).to(x.dtype) @ p["wo"]
+    out = constrain((out * F.silu(g.float())).to(x.dtype) @ p["wo"],
+                    "batch", None, None)
     if return_state:
         return out, (x[:, -1], state)
     return out
@@ -177,12 +231,17 @@ def rwkv6_time_mix(p, cfg: ModelConfig, x: torch.Tensor, *,
 def rwkv6_channel_mix(p, cfg: ModelConfig, x: torch.Tensor, *,
                       shift_prev: Optional[torch.Tensor] = None,
                       return_state: bool = False):
+    x = constrain(x, "batch", None, None)
     xs = _token_shift(x, shift_prev)
     xk = _lerp(x, xs, p["mu_ck"])
     xr = _lerp(x, xs, p["mu_cr"])
     kk = torch.clamp(xk @ p["ck"], min=0)
     kk = kk * kk
-    out = torch.sigmoid((xr @ p["cr"]).float()).to(x.dtype) * (kk @ p["cv"])
+    # the gate whole and the product summed before they meet (a product
+    # of a split and a partial operand has no placement without them)
+    out = constrain(torch.sigmoid((xr @ p["cr"]).float()).to(x.dtype),
+                    "batch", None, None) \
+        * constrain(kk @ p["cv"], "batch", None, None)
     if return_state:
         return out, x[:, -1]
     return out

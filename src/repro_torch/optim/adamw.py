@@ -213,10 +213,11 @@ def global_norm(tree) -> torch.Tensor:
     element once: local sums where this rank holds the first copy, summed
     over the mesh."""
     total = 0
-    mesh = None
+    mesh = device = None
     for g in tensors(tree):
         if is_dtensor(g):
             mesh = g.device_mesh
+            device = g.to_local().device
             if not _first_copy(g):
                 continue
             g = g.to_local()
@@ -224,7 +225,8 @@ def global_norm(tree) -> torch.Tensor:
             total = total + torch.sum(torch.square(g[sl].to(torch.float32)))
     total = torch.as_tensor(total, dtype=torch.float32)
     if mesh is not None:
-        total = total.to(mesh.device_type)
+        # the shards' device: a card, the CPU, or ``meta`` in a dry run
+        total = total.to(device)
         for i in range(mesh.ndim):
             if mesh.size(i) > 1:
                 dist.all_reduce(total, group=mesh.get_group(i))
@@ -308,11 +310,15 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState
             gathered = [_gathered_last(x).to_local()
                         for x in (p, g, mu.q, nu.q)]
             pl, gl, mq, nq = gathered
-            mu_l = Moment8(mq, mu.scale.to_local())
-            nu_l = Moment8(nq, nu.scale.to_local())
+            # the block scales with their last dim whole too, where it is
+            # sharded: the blocks of the gathered rows are all here
+            ms, ns = (_gathered_last(x).to_local()
+                      for x in (mu.scale, nu.scale))
+            mu_l, nu_l = Moment8(mq, ms), Moment8(nq, ns)
             for sl in _rows(tuple(pl.shape)):
                 leaf(pl[sl], gl[sl], _at(mu_l, sl), _at(nu_l, sl))
-            for dst, full in ((p, pl), (mu.q, mq), (nu.q, nq)):
+            for dst, full in ((p, pl), (mu.q, mq), (nu.q, nq),
+                              (mu.scale, ms), (nu.scale, ns)):
                 _take_back(dst, full)
             continue
         p, g = _local(p), _local(g)

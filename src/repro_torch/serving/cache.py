@@ -99,10 +99,12 @@ def _stack(trees: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 
 
 def _mesh_cache(cfg: ModelConfig, batch: int, max_seq: int,
-                dtype: torch.dtype, device: torch.device, mesh) -> CacheTree:
+                dtype: torch.dtype, device: torch.device, mesh,
+                seq_all: bool) -> CacheTree:
     from repro_torch.launch.specs import cache_pack
     from repro_torch.parallel.sharding import walk, is_spec, zeros_on
-    abstract, specs = cache_pack(cfg, mesh, batch, max_seq, dtype)
+    abstract, specs = cache_pack(cfg, mesh, batch, max_seq, dtype,
+                                 seq_all=seq_all)
     leaves = []
     walk(abstract, leaves.append, lambda x: isinstance(x, torch.Tensor))
     it = iter(leaves)
@@ -119,10 +121,15 @@ def _mesh_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: DeviceLike = None, mesh=None) -> CacheTree:
+               device: DeviceLike = None, mesh=None, *,
+               seq_all: bool = False) -> CacheTree:
+    """Zero caches (a ring's slot positions -1).  On ``mesh``: DTensors
+    with ``cache_pack``'s placements (``seq_all``: a dense cache's
+    sequence over every in-pod axis, for a batch of one)."""
     device = resolve_device(device)
     if mesh is not None:
-        return _mesh_cache(cfg, batch, max_seq, dtype, device, mesh)
+        return _mesh_cache(cfg, batch, max_seq, dtype, device, mesh,
+                           seq_all)
     pattern, reps, tail = stack_layout(cfg)
     blocks = [_stack([init_layer_cache(cfg, kind, batch, max_seq, dtype,
                                        device) for _ in range(reps)])

@@ -28,11 +28,16 @@ placed by ``launch.specs.cache_pack`` (``init_cache(..., mesh=mesh)``):
 batch over ``data``, sequence over ``model``.  A write at positions
 ``[lo, hi)`` lands in the shards that own those slots, each rank writing
 its part of the range into its local shard (:func:`_write_slots`).  The
-decode's attention gathers K and V over ``model`` first (exact, simple)
-and runs the single-device call on each rank's batch rows; prefill's
-attention is ``layers.mesh_attention``.  Tokens are the global batch, alike
-on every rank; logits come back as DTensors.  Windowed and recurrent
-caches are not placed on a mesh.
+decode's attention brings K and V to each rank's heads over the whole
+sequence (exact, simple) and runs the single-device call on each rank's
+batch rows and heads; prefill's attention is ``layers.mesh_attention``.
+Tokens are the global batch, alike on every rank (or DTensors placed as
+the batch); logits come back as DTensors.  A windowed ring is
+batch-sharded and whole in its slots: each rank writes its rows into its
+ring (:func:`_write_ring`) and attends over it by the replicated slot
+positions.  The Mamba and RWKV-6 states take ``cache_pack``'s
+placements, and each rank writes its shard of the new state
+(:func:`_assign`).
 """
 
 from __future__ import annotations
@@ -68,9 +73,9 @@ def _attn_scores_decode(cfg: ModelConfig, q: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
     """Plain decode attention: q (B,H,1,D); cache (B,KV,S,D); mask
     broadcastable to (B,KV,group,S), True where a slot is kept."""
-    group = cfg.n_heads // cfg.n_kv_heads
     b, h, _, hd = q.shape
-    kv = cfg.n_kv_heads
+    kv = k_cache.shape[1]
+    group = h // kv
     qg = q.reshape(b, kv, group, hd)
     s = torch.einsum("bkgd,bksd->bkgs", qg.float(),
                      k_cache.float()) * (hd ** -0.5)
@@ -101,29 +106,98 @@ def _write_slots(dst: torch.Tensor, src: torch.Tensor, lo: int) -> None:
             local[:, :, a - lo:b - lo].to(dst.dtype)
 
 
+def _local_pair(dst: torch.Tensor, src: torch.Tensor):
+    """(``dst``'s local tensor, ``src`` in ``dst``'s placements, local):
+    a cache leaf and the entries to write into it, on either path."""
+    if not is_dtensor(dst):
+        return dst, src
+    if not is_dtensor(src):
+        raise TypeError("a cache on a mesh takes DTensor entries")
+    return dst.to_local(), src.redistribute(dst.device_mesh,
+                                            dst.placements).to_local()
+
+
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` for a state leaf; on a mesh each rank writes its
+    shard."""
+    dst, src = _local_pair(dst, src)
+    dst.copy_(src)
+
+
+def _write_ring(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                v: torch.Tensor, slots, positions) -> None:
+    """A windowed ring buffer's write: k/v (B, KV, n, D) into ``slots``
+    (a slice or an index tensor of n slots) and their absolute positions
+    into ``slot_pos``.  On a mesh the ring is batch-sharded and whole in
+    its slots (``cache_pack``): each rank writes its rows."""
+    for name, src in (("k", k), ("v", v)):
+        dst, loc = _local_pair(cache[name], src)
+        dst[:, :, slots] = loc.to(dst.dtype)
+    slot_pos = cache["slot_pos"]
+    slot_pos = slot_pos.to_local() if is_dtensor(slot_pos) else slot_pos
+    if isinstance(positions, int):      # a tensor on every device type
+        positions = torch.full((1,), positions, dtype=slot_pos.dtype,
+                               device=slot_pos.device)
+    slot_pos[slots] = positions
+
+
 def _mesh_decode_attention(cfg: ModelConfig, q, k_cache, v_cache,
-                           pos: int):
-    """Decode attention of DTensor q (B, H, 1, D) over a sequence-sharded
-    DTensor cache: K and V gathered over every axis but the batch's, then
-    the single-device call on each rank's batch rows."""
+                           pos: int, slot_pos=None):
+    """Decode attention of DTensor q (B, H, 1, D) over a DTensor cache, on
+    each rank's batch rows and heads: the query heads split over
+    ``model`` where it divides them, and K and V brought to each rank's
+    KV heads over the whole sequence (a sequence-sharded dense cache
+    regathered; a ring is whole in its slots already) — the KV heads
+    split alike where ``model`` divides them, else whole, each rank
+    taking the KV head of each of its query heads, as
+    ``layers.mesh_attention`` does.  Then the single-device call.
+    ``slot_pos`` (a ring's, replicated) masks by the window, as the
+    single-device ring decode does."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = k_cache.device_mesh
+    names = mesh.mesh_dim_names
     rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
             for pl in k_cache.placements]
+    h, hkv = q.shape[1], k_cache.shape[1]
+    tp = mesh.size(names.index("model")) if "model" in names else 1
+    heads = tp > 1 and h % tp == 0
+    kv_heads = heads and hkv % tp == 0
+    on_model = lambda pl: [pl if n == "model" else r
+                           for n, r in zip(names, rows)]
+    q_pl = on_model(Shard(1)) if heads else rows
+    kv_pl = on_model(Shard(1)) if kv_heads else rows
+    pick = None
+    if heads and not kv_heads:
+        rank, per_rank = mesh.get_local_rank("model"), h // tp
+        pick = torch.arange(rank * per_rank,
+                            (rank + 1) * per_rank) // (h // hkv)
 
-    def local(ql, kl, vl):
+    def local(ql, kl, vl, *ring):
+        if pick is not None:
+            idx = pick.to(kl.device)
+            kl, vl = kl.index_select(1, idx), vl.index_select(1, idx)
+        if ring:
+            sp = ring[0]
+            valid = (sp >= 0) & (pos - sp < cfg.local_window)
+            return _attn_scores_decode(cfg, ql, kl, vl,
+                                       valid[None, None, None, :])
         if uses_kernel(ql):
-            return ops.attention(ql.to(kl.dtype).contiguous(), kl, vl,
+            return ops.attention(ql.to(kl.dtype).contiguous(),
+                                 kl.contiguous(), vl.contiguous(),
                                  causal=True, q_offset=pos,
                                  backend="cuda").to(ql.dtype)
         mask = (torch.arange(kl.shape[2], device=kl.device)
                 <= pos)[None, None, None, :]
         return _attn_scores_decode(cfg, ql, kl, vl, mask)
 
-    return local_map(local, out_placements=rows,
-                     in_placements=(rows, rows, rows), device_mesh=mesh,
-                     redistribute_inputs=True)(q, k_cache, v_cache)
+    args = (q, k_cache, v_cache)
+    places = (q_pl, kv_pl, kv_pl)
+    if slot_pos is not None:
+        args += (slot_pos,)
+        places += ([Replicate()] * mesh.ndim,)
+    return local_map(local, out_placements=q_pl, in_placements=places,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -137,13 +211,17 @@ def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
     q = rope(q, posv, theta)
     k = rope(k, posv, theta)
 
-    if layer_cache_kind(cfg, kind) != "dense" and is_dtensor(cache["k"]):
-        raise NotImplementedError(f"a {kind} cache is not placed on a mesh")
-    if is_dtensor(cache["k"]):
+    dense = layer_cache_kind(cfg, kind) == "dense"
+    if is_dtensor(cache["k"]) and dense:
         _write_slots(cache["k"], k, pos)
         _write_slots(cache["v"], v, pos)
         o = _mesh_decode_attention(cfg, q, cache["k"], cache["v"], pos)
-    elif layer_cache_kind(cfg, kind) == "dense":
+    elif is_dtensor(cache["k"]):                # a ring on a mesh
+        slot = pos % cache["k"].shape[2]
+        _write_ring(cache, k, v, slice(slot, slot + 1), pos)
+        o = _mesh_decode_attention(cfg, q, cache["k"], cache["v"], pos,
+                                   cache["slot_pos"])
+    elif dense:
         cache["k"][:, :, pos:pos + 1] = k.to(cache["k"].dtype)
         cache["v"][:, :, pos:pos + 1] = v.to(cache["v"].dtype)
         if uses_kernel(q):          # the kernel takes one dtype: the cache's
@@ -156,11 +234,8 @@ def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
                     <= pos)[None, None, None, :]
             o = _attn_scores_decode(cfg, q, cache["k"], cache["v"], mask)
     else:                                       # windowed ring buffer
-        w = cache["k"].shape[2]
-        slot = pos % w
-        cache["k"][:, :, slot:slot + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, :, slot:slot + 1] = v.to(cache["v"].dtype)
-        cache["slot_pos"][slot] = pos
+        slot = pos % cache["k"].shape[2]
+        _write_ring(cache, k, v, slice(slot, slot + 1), pos)
         slot_pos = cache["slot_pos"]
         valid = (slot_pos >= 0) & (pos - slot_pos < cfg.local_window)
         o = _attn_scores_decode(cfg, q, cache["k"], cache["v"],
@@ -188,16 +263,12 @@ def attn_prefill(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if layer_cache_kind(cfg, kind) == "dense":
         _write_slots(cache["k"], k, q_offset)
         _write_slots(cache["v"], v, q_offset)
-    elif is_dtensor(cache["k"]):
-        raise NotImplementedError(f"a {kind} cache is not placed on a mesh")
     else:
         w = cache["k"].shape[2]
         take = min(w, s)
         pos_tail = posv[-take:]
-        slots = pos_tail % w
-        cache["k"][:, :, slots] = k[:, :, -take:].to(cache["k"].dtype)
-        cache["v"][:, :, slots] = v[:, :, -take:].to(cache["v"].dtype)
-        cache["slot_pos"][slots] = pos_tail.to(torch.int32)
+        _write_ring(cache, k[:, :, -take:], v[:, :, -take:], pos_tail % w,
+                    pos_tail.to(torch.int32))
     out = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     return out @ bp["wo"], cache
 
@@ -214,14 +285,14 @@ def _recurrent_mix(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
         mix, (conv, hs) = mamba_apply(bp, cfg, x,
                                       state=(cache["conv"], cache["h"]),
                                       return_state=True)
-        cache["conv"].copy_(conv)
-        cache["h"].copy_(hs)
+        _assign(cache["conv"], conv)
+        _assign(cache["h"], hs)
     elif kind == "rwkv6":
         mix, (shift, wkv) = rwkv6_time_mix(
             bp, cfg, x, shift_prev=cache["shift"], wkv_state=cache["wkv"],
             return_state=True)
-        cache["shift"].copy_(shift)
-        cache["wkv"].copy_(wkv)
+        _assign(cache["shift"], shift)
+        _assign(cache["wkv"], wkv)
     else:
         raise ValueError(kind)
     return mix
@@ -244,7 +315,7 @@ def _block(bp, cfg: ModelConfig, h, kind: str, is_moe: bool, cache,
         bp, cfg, hf, kind, is_moe,
         cm_shift=cache["cm_shift"] if kind == "rwkv6" else None)
     if cm_last is not None:
-        cache["cm_shift"].copy_(cm_last)
+        _assign(cache["cm_shift"], cm_last)
     return h + out, cache
 
 

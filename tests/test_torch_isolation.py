@@ -12,7 +12,9 @@
   (``python -m repro_torch.quickstart --device cpu``), the LM server
   (``python -m repro_torch.launch.serve --arch lm100m --device cpu``)
   and the trainer (``python -m repro_torch.launch.train --arch lm100m
-  --smoke --steps 2 ... --device cpu``, two steps);
+  --smoke --steps 2 ... --device cpu``, two steps); in another, the dry
+  run's entry point (``repro_torch.launch.dryrun``, one full-width cell
+  on a fake 16×16 group);
 * with no CUDA card, entry points and drivers called without a device
   raise :class:`~repro_torch.device.NoDeviceError` before any work runs
   (the serving engine before any thread starts).
@@ -73,7 +75,8 @@ def test_no_module_imports_jax_or_repro():
             "data/pipeline.py", "checkpoint/checkpointer.py",
             "runtime/fault_tolerance.py", "launch/train.py",
             "train_lm.py", "parallel/sharding.py", "launch/mesh.py",
-            "launch/specs.py", "train/distributed.py"} <= names
+            "launch/specs.py", "train/distributed.py", "launch/dryrun.py",
+            "analysis/op_cost.py"} <= names
     bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
            for path in files for line, name in _imports(path)
            if _forbidden(name)]
@@ -175,6 +178,34 @@ assert not loaded, loaded
 print("served", len(out), net.gemm_loops(), len(r8_out), r8.gemm_loops(),
       len(served), 0.0 <= acc <= 1.0, "restarts=0" in trained)
 """
+
+
+_BLOCKED_DRYRUN = """
+import contextlib, io, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.launch import dryrun
+with contextlib.redirect_stdout(io.StringIO()) as said:
+    code = dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k",
+                        "--out", sys.argv[1]])
+assert code == 0, said.getvalue()
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in ("jax", "repro"))
+assert not loaded, loaded
+print(said.getvalue().split(":")[0])
+"""
+
+
+def test_dryrun_runs_with_jax_and_repro_blocked(tmp_path):
+    """The dry run's entry point at full width on 16×16 (a fake process
+    group of 256 ranks, every tensor on ``meta``) with ``jax`` and
+    ``repro`` blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_DRYRUN,
+                           str(tmp_path)], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip() == "OK  qwen2.5-3b_decode_32k_16x16"
 
 
 def test_runs_with_jax_and_repro_blocked():
