@@ -296,9 +296,23 @@ In order it:
    peak memory (arguments + the trace's storage peak) beside
    ``torch.cuda.max_memory_allocated`` (reported).
 
+20. runs one rank's part of a decode over a sequence-sharded cache and the
+   combine of the parts (``split_decode`` in the record; the attention
+   entry's ``lse_calls``) at two full-width decode calls, qwen2.5-3b
+   float32 (4, 16, 2, 1, 1280, 128) and moonshot-v1-16b-a3b bf16 (4, 16,
+   16, 1, 1280, 128), both at ``q_offset`` 1000: the kernel's
+   ``return_lse`` pair against ``ref.attention_lse_ref`` (o at the
+   attention gates, lse within ``LSE_RTOL``), the serving engine's
+   ``decode_partial`` over R = 2, 4 and 8 slot ranges combined by
+   ``combine_partials`` with a local reduction in place of the
+   all-reduces, against the whole-cache kernel call at the same gates,
+   its launches (counted from 0) equal to the plans' sum and added to the
+   attention entry's; device times of the lse call, the plain pair and
+   the library's (o, lse) call beside the bound.
+
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
-the last line.  ``python3 chip_smoke.py --only 3,18,19`` builds and runs
-phases 3, 18 and/or 19 alone (a development run: phase 18 then computes
+the last line.  ``python3 chip_smoke.py --only 3,18,19,20`` builds and runs
+phases 3, 18, 19 and/or 20 alone (a development run: phase 18 then computes
 its own unsharded baseline, and no kernel line is printed).  Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The full record also goes to ``chiprun_out/chip_smoke.json``.
@@ -4126,6 +4140,196 @@ def dry_phase(fa, card: str, dev, job: Optional[dict] = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: decode over a sequence-sharded cache — the lse mode and the
+# combine
+# ---------------------------------------------------------------------------
+
+# Two full-width decode calls: qwen2.5-3b float32 (phase 15's decode call)
+# and moonshot-v1-16b-a3b bf16 (phase 16's), a 1280-slot cache at q_offset
+# 1000.
+SPLIT_CASES = [
+    dict(name="qwen2.5-3b decode", config="qwen2_5_3b.py",
+         shape=(4, 16, 2, 1, 1280, 128), dtype=torch.float32,
+         q_offset=1000),
+    dict(name="moonshot-v1-16b-a3b decode",
+         config="moonshot_v1_16b_a3b.py",
+         shape=(4, 16, 16, 1, 1280, 128), dtype=torch.bfloat16,
+         q_offset=1000),
+]
+SPLIT_RANKS = (2, 4, 8)     # slot ranges, as many ranks of a sequence axis
+# lse against the plain version's: |diff| <= LSE_RTOL * max(1, |lse|).
+# float32: the split-TF32 scores hold ~1e-6 of |s|; bf16: the inputs'
+# products are exact in float32 and l sums the unrounded p, so both sit
+# at float32 rounding of (m + log2 l) ln 2 (the floor of 1 keeps rows
+# whose lse crosses 0 to an absolute 1e-5).
+LSE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+
+
+def lse_err(got: torch.Tensor, want: torch.Tensor, rtol: float) -> float:
+    """The largest |got - want| / max(1, |want|), -inf where both are
+    -inf; raises beyond ``rtol`` or where only one is -inf."""
+    empty = torch.isinf(want)
+    if not torch.equal(empty, torch.isinf(got)) or torch.isnan(got).any():
+        raise AssertionError("lse: the rows that keep no key differ")
+    rel = ((got - want).abs() / want.abs().clamp(min=1.0))[~empty]
+    worst = float(rel.max()) if rel.numel() else 0.0
+    if worst > rtol:
+        raise AssertionError(f"lse off by {worst:.3g} relative (limit "
+                             f"{rtol:.3g})")
+    return worst
+
+
+def split_decode_phase(ops, ref, fa, card: str, dev) -> dict:
+    """Phase 20: one rank's part of a decode over a sequence-sharded cache and
+    the combine of the parts, at two full-width decode calls
+    (``SPLIT_CASES``). (a) ``ops.attention(..., return_lse=True)`` on the
+    whole cache against ``ref.attention_lse_ref``: o (float32 in this mode)
+    rounded to the inputs' dtype at ``ATTN_TOL``, and equal to the call
+    without lse; lse at ``LSE_RTOL``. (b) The mesh path's own functions with
+    a local reduction in place of the all-reduce: ``engine.decode_partial``
+    over each of R = 2, 4, 8 slot ranges at ``q_offset - lo`` (R = 8's last
+    range lies wholly after the query: ``(0, -inf)``), then
+    ``engine.combine_partials`` with max and sum over the stacked ranges,
+    against the whole-cache kernel call at ``ATTN_TOL``. (c) The kernel
+    launches of (b), counted from 0, equal the plans' sum. Device times of
+    the lse call, the plain pair and the library's (o, lse) call —
+    ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp``, K and V repeated over the group and the mask as
+    an additive bias, both built before timing — beside the bound of the
+    call (q, k, v read once, o and lse written once, or 4·D operations a
+    kept pair)."""
+    from repro_torch.serving.engine import combine_partials, decode_partial
+    sms = fa.device_sm_count(dev)
+    local_max = lambda t: t.amax(dim=0, keepdim=True)
+    local_sum = lambda t: t.sum(dim=0, keepdim=True)
+    rows, planned, ranks_launches = [], 0, {}
+    rng = np.random.default_rng(20)
+    for case in SPLIT_CASES:
+        b, h, hkv, sq, skv, d = case["shape"]
+        dtype, pos = case["dtype"], case["q_offset"]
+        q, k, v = attention_inputs(rng, case["shape"], dtype, dev)
+        kw = dict(causal=True, q_offset=pos)
+        # the lse mode's o is float32: held to the gates in the inputs'
+        # dtype, and rounded it is the plain call's output bit for bit
+        got, lse = ops.attention(q, k, v, **kw, return_lse=True)
+        want, want_lse = ref.attention_lse_ref(q, k, v, **kw)
+        st = attention_err(got.to(dtype), want.to(dtype))
+        lse_worst = lse_err(lse, want_lse, LSE_RTOL[dtype])
+        whole = ops.attention(q, k, v, **kw)
+        if not torch.equal(whole, got.to(dtype)):
+            raise AssertionError(f"{case['name']}: the lse mode's o, "
+                                 f"rounded, is not the plain call's")
+        combined = {}
+        for r in SPLIT_RANKS:
+            n = skv // r
+            parts = [(k[:, :, i * n:(i + 1) * n].contiguous(),
+                      v[:, :, i * n:(i + 1) * n].contiguous(), i * n)
+                     for i in range(r)]
+            plans = [fa.plan(b, h, hkv, sq, n, d, dtype, q_offset=pos - lo,
+                             sm_count=sms).launches for _, _, lo in parts]
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            outs = [decode_partial(q, kl, vl, pos - lo)
+                    for kl, vl, lo in parts]
+            o = combine_partials(torch.stack([x[0] for x in outs]),
+                                 torch.stack([x[1] for x in outs]),
+                                 local_max, local_sum)[0].to(dtype)
+            torch.cuda.synchronize()
+            n_launch = ops.attention_launches
+            if n_launch != sum(plans):
+                raise AssertionError(f"{case['name']}, R = {r}: {n_launch} "
+                                     f"launches, planned {sum(plans)}")
+            empty = [i for i, (_, _, lo) in enumerate(parts) if lo > pos]
+            for i in empty:
+                if not (outs[i][0] == 0).all() or \
+                        not torch.isneginf(outs[i][1]).all():
+                    raise AssertionError(f"{case['name']}, R = {r}: range "
+                                         f"{i} after the query is not "
+                                         f"(0, -inf)")
+            try:
+                cst = attention_err(o, whole)
+            except AssertionError as exc:
+                raise AssertionError(f"{case['name']}, R = {r}: combine != "
+                                     f"whole call: {exc}") from None
+            planned += sum(plans)
+            ranks_launches[f"{case['name']} R={r}"] = n_launch
+            combined[r] = {"launches": n_launch, "plans": plans,
+                           "ranges_after_query": empty,
+                           "max_abs_err": cst["max_abs_err"],
+                           "mismatch_share": cst["mismatch_share"]}
+        # the library's (o, lse): efficient attention on K and V repeated
+        # over the group, the mask as an additive bias
+        krep = k.repeat_interleave(h // hkv, dim=1)
+        vrep = v.repeat_interleave(h // hkv, dim=1)
+        bias = torch.zeros((b, h, sq, skv), dtype=dtype, device=dev)
+        bias[..., pos + 1:] = float("-inf")
+        lib = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, krep, vrep, bias, True, scale=d ** -0.5)
+        try:
+            lo_, llse = lib()[:2]
+            lib_err = attention_err(lo_, want.to(dtype),
+                                    SDPA_TOL)["max_abs_err"]
+            lib_lse = float(((llse[..., :sq].float() - want_lse).abs()
+                             / want_lse.abs().clamp(min=1.0)).max())
+            lib_ms, lib_note = graph_ms(lib, *ATTN_WINDOW), None
+        except (RuntimeError, AssertionError) as exc:
+            lib_err = lib_lse = lib_ms = None
+            lib_note = f"{type(exc).__name__}: {str(exc)[:200]}"
+        # the keys the mask keeps, read once; o and lse written once
+        elt = 2 if dtype == torch.bfloat16 else 4
+        nbytes = (elt * d * (2 * b * h * sq + 2 * b * hkv * min(skv, pos + 1))
+                  + 4 * b * h * sq)
+        n_ops = 4 * b * h * d * kept_pairs(sq, skv, True, None, pos)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (n_ops / BF16_OPS_PER_S if dtype == torch.bfloat16 else
+                 min(n_ops / F32_OPS_PER_S, 3 * n_ops / TF32_OPS_PER_S)) * 1e3
+        p = fa.plan(*case["shape"], dtype, **kw, sm_count=sms)
+        row = {"case": case["name"], "config": "src/repro/configs/"
+               + case["config"], "mode": "return_lse",
+               "shape_b_h_hkv_sq_skv_d": list(case["shape"]),
+               "dtype": str(dtype).replace("torch.", ""), "q_offset": pos,
+               "path": p.path, "splits": p.splits, "launches": p.launches,
+               "max_abs_err": st["max_abs_err"],
+               "mismatch_share": st["mismatch_share"],
+               "lse_max_rel_err": lse_worst, "lse_rtol": LSE_RTOL[dtype],
+               "combine": combined,
+               "ms": graph_ms(lambda: ops.attention(q, k, v, **kw,
+                                                    return_lse=True),
+                              *ATTN_WINDOW),
+               "ms_without_lse": graph_ms(lambda: ops.attention(q, k, v,
+                                                                **kw),
+                                          *ATTN_WINDOW),
+               "plain_ms": graph_ms(lambda: ref.attention_lse_ref(q, k, v,
+                                                                  **kw),
+                                    *ATTN_WINDOW),
+               "library_ms": lib_ms, "library_max_abs_err": lib_err,
+               "library_lse_max_rel_err": lib_lse,
+               "library": ("aten._scaled_dot_product_efficient_attention "
+                           "(compute_log_sumexp)"),
+               "library_note": lib_note,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print(f"  {row['case']:28s} {p.path} splits {p.splits}: lse call "
+              f"{row['ms']:.4f} ms (without lse {row['ms_without_lse']:.4f})"
+              f", plain {row['plain_ms']:.4f}, library "
+              + (f"{lib_ms:.4f}" if lib_ms is not None else f"none "
+                 f"({lib_note})")
+              + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"o max |diff| {st['max_abs_err']:.3g}, lse {lse_worst:.3g} "
+              f"rel; combine R = " + ", ".join(
+                  f"{r}: {c['max_abs_err']:.3g} ({c['launches']} launches)"
+                  for r, c in combined.items()))
+        del q, k, v, krep, vrep, bias
+    print(f"phase 20 ({card}): (o, lse) within tolerance of the plain pair, "
+          f"the combine over {SPLIT_RANKS} ranges within tolerance of the "
+          f"whole call, {planned} launches = the plans' sum")
+    return {"cases": rows, "launches": planned,
+            "launches_by_case": ranks_launches}
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -4202,15 +4406,15 @@ def f32_ptxas(log: str) -> list:
 
 
 def only_phases(argv) -> set:
-    """``--only 3,18,19``: the phases a development run takes (after the
-    build); none without the option."""
+    """``--only 3,18,19,20``: the phases a development run takes (after
+    the build); none without the option."""
     if not argv:
         return set()
     if len(argv) != 2 or argv[0] != "--only":
-        raise SystemExit("usage: chip_smoke.py [--only 3,18,19]")
+        raise SystemExit("usage: chip_smoke.py [--only 3,18,19,20]")
     phases = {int(x) for x in argv[1].split(",")}
-    if not phases <= {3, 18, 19}:
-        raise SystemExit("--only takes phases 3, 18 and 19")
+    if not phases <= {3, 18, 19, 20}:
+        raise SystemExit("--only takes phases 3, 18, 19 and 20")
     return phases
 
 
@@ -4299,6 +4503,9 @@ def main() -> int:
             record["mesh"] = mesh_phase(card)
         if 19 in only:
             record["dryrun"] = dry_phase(attn_kernel, card, dev)
+        if 20 in only:
+            record["split_decode"] = split_decode_phase(ops, ref, attn_kernel,
+                                                        card, dev)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_only.json").write_text(
@@ -4700,6 +4907,14 @@ def main() -> int:
         stop_dry_meta(dry_job)
     attn_entry["launches_by_path"]["dryrun"] = record["dryrun"]["launches"]
     attn_entry["launches"] += record["dryrun"]["launches"]
+    # -- 20. decode over a sequence-sharded cache: (o, lse), the combine ----
+    record["split_decode"] = split_decode_phase(ops, ref, attn_kernel, card,
+                                                dev)
+    attn_entry["launches_by_path"]["split_decode"] = \
+        record["split_decode"]["launches"]
+    attn_entry["launches"] += record["split_decode"]["launches"]
+    attn_entry["modes"] = ["output", "return_lse: output and lse (phase 20)"]
+    attn_entry["lse_calls"] = record["split_decode"]["cases"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

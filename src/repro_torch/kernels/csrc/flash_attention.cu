@@ -85,6 +85,15 @@
 //    each block writes float32 partials and the combine kernel merges them
 //    into the float32 output.
 //
+// lse (optional, float32 (B, H, Sq)): the row's log-sum-exp of the scaled
+// scores, ln sum_j exp(s[i, j]) over the kept keys, -inf for a row that
+// keeps no key (whose o is 0).  A rank of a sequence-sharded decode gives
+// (o, lse) over its slots, and the ranks combine them (serving/engine.py).
+// Written by the attention kernel where the keys are not split and by the
+// combine kernel where they are, from (m, l) through lse_of: no extra
+// launch.  o is float32 either way (csrc/flash_attention_bf16.cu writes a
+// float32 o with lse too).
+//
 // Partials (as csrc/flash_attention_bf16.cu): acc at
 // scratch[(split * rows + row) * D + c], then (m, l) pairs at
 // scratch[splits * rows * D + (split * rows + row) * 2]; rows = B*H*Sq and
@@ -96,7 +105,7 @@
 // has no instantiation for; it launches on the caller's stream (one kernel,
 // or two where the keys are split), does not synchronise, allocates
 // nothing, reports the kernels it launched, and returns cudaGetLastError()
-// after the launch (0 on success).
+// after the launch (0 on success).  A null lse pointer writes no lse.
 
 #include <cmath>
 #include <cstdint>
@@ -105,6 +114,14 @@
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// A row's log-sum-exp from its base-2 running max m (the largest kept
+// s * log2 e) and sum l = sum 2^(s log2 e - m): ln(2^m l); -inf where the
+// row kept no key (l == 0).
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * LN2 : -INFINITY;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -197,9 +214,9 @@ template <int D, int WARPS, int BK, int STAGES, bool QREG, int MINB>
 __global__ void __launch_bounds__(32 * WARPS, MINB)
 f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o,
-           float* __restrict__ part, int h, int hkv, int sq, int skv,
-           int causal, int has_window, long long window, long long q_offset,
-           float scale2, int splits) {
+           float* __restrict__ part, float* __restrict__ lse, int h,
+           int hkv, int sq, int skv, int causal, int has_window,
+           long long window, long long q_offset, float scale2, int splits) {
   using C = Cfg<D, WARPS, BK, STAGES, QREG, MINB>;
   constexpr int BQ = C::BQ, P = C::P, NT = BK / 8, DT = D / 8;
   constexpr int QK = QREG ? DT : 1;
@@ -433,6 +450,7 @@ f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int n = 0; n < DT; ++n)
         *reinterpret_cast<float2*>(out + 8 * n) =
             make_float2(acc[n][2 * hf] * inv, acc[n][2 * hf + 1] * inv);
+      if (lse != nullptr && t == 0) lse[row] = lse_of(m[hf], l[hf]);
     } else {
       const long long prow = split_id * rows_all + row;
       float* const pacc = part + prow * D + 2 * t;
@@ -449,12 +467,13 @@ f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // Merges the splits' partials: one thread per 4 columns of an output row,
 // COMBINE_THREADS a block.  A split whose row kept no key has m = -inf,
-// l = 0 and weighs 0; a row with no key in any split stores 0.
+// l = 0 and weighs 0; a row with no key in any split stores 0 (and lse
+// -inf).  The row's first thread writes its lse where lse is not null.
 constexpr int COMBINE_THREADS = 256;
 
 __global__ void __launch_bounds__(COMBINE_THREADS)
 combine_kernel(const float* __restrict__ part, float* __restrict__ o,
-               int splits, long long rows, int d) {
+               float* __restrict__ lse, int splits, long long rows, int d) {
   const long long i =
       static_cast<long long>(blockIdx.x) * COMBINE_THREADS + threadIdx.x;
   if (i >= rows * (d / 4)) return;
@@ -480,6 +499,7 @@ combine_kernel(const float* __restrict__ part, float* __restrict__ o,
   const float inv = ll > 0.f ? 1.f / ll : 0.f;
   *reinterpret_cast<float4*>(o + row * d + c) =
       make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+  if (lse != nullptr && c == 0) lse[row] = lse_of(mm, ll);
 }
 
 // The launch geometry that flash_attention.plan chose (field order as
@@ -492,7 +512,7 @@ struct Plan {
 
 struct Args {
   const float *q, *k, *v;
-  float *o, *part;
+  float *o, *part, *lse;
   int b, h, hkv, sq, skv, causal, has_window;
   long long window, q_offset;
   float scale2;
@@ -515,7 +535,7 @@ cudaError_t launch(const Args& a) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, a.stream>>>(
-      a.q, a.k, a.v, a.o, a.part, a.h, a.hkv, a.sq, a.skv, a.causal,
+      a.q, a.k, a.v, a.o, a.part, a.lse, a.h, a.hkv, a.sq, a.skv, a.causal,
       a.has_window, a.window, a.q_offset, a.scale2, a.p.splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -525,8 +545,8 @@ cudaError_t launch(const Args& a) {
   const long long threads = rows * (D / 4);
   combine_kernel<<<static_cast<unsigned>((threads + COMBINE_THREADS - 1) /
                                          COMBINE_THREADS),
-                   COMBINE_THREADS, 0, a.stream>>>(a.part, a.o, a.p.splits,
-                                                   rows, D);
+                   COMBINE_THREADS, 0, a.stream>>>(a.part, a.o, a.lse,
+                                                   a.p.splits, rows, D);
   err = cudaGetLastError();
   if (err == cudaSuccess) ++*a.launched;
   return err;
@@ -554,11 +574,12 @@ cudaError_t dispatch(const Args& a, int d) {
 
 // Launches the plan's kernels on `stream`: the attention kernel, followed
 // by the combine kernel where the keys are split (`scratch` then holds the
-// float32 partials).  *launched counts the kernels this call launched (0
-// to 2).  Returns a cudaError_t, 0 on success.
+// float32 partials); `lse`, where not null, gets each row's float32
+// log-sum-exp.  *launched counts the kernels this call launched (0 to 2).
+// Returns a cudaError_t, 0 on success.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* scratch,
-    int b, int h, int hkv, int sq, int skv, int d, int causal, int has_window,
+    void* lse, int b, int h, int hkv, int sq, int skv, int d, int causal, int has_window,
     long long window, long long q_offset, float sm_scale, const void* plan,
     int* launched, void* stream) {
   *launched = 0;
@@ -567,8 +588,9 @@ extern "C" int flash_attention_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                static_cast<const float*>(v), static_cast<float*>(o),
-               static_cast<float*>(scratch), b, h, hkv, sq, skv, causal,
-               has_window, window, q_offset, sm_scale * LOG2E,
+               static_cast<float*>(scratch), static_cast<float*>(lse), b, h,
+               hkv, sq, skv, causal, has_window, window, q_offset,
+               sm_scale * LOG2E,
                *static_cast<const Plan*>(plan), launched,
                static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch(a, d));

@@ -65,6 +65,16 @@
 //    same max rescale.  A split whose row kept no key has m = -inf, l = 0 and
 //    weighs 0; a row with no key in any split stores 0.
 //
+// lse (optional, float32 (B, H, Sq)): the row's log-sum-exp of the scaled
+// scores, ln sum_j exp(s[i, j]) over the kept keys, -inf for a row that
+// keeps no key (whose o is 0), for a sequence-sharded decode's combine
+// across ranks (serving/engine.py).  The combine kernel writes it after a
+// split, the tiles kernel's epilogue where the keys are not split, both
+// from (m, l) through lse_of: no extra launch.  With lse, o is float32,
+// not rounded to bf16: the combine across ranks weighs and sums the
+// ranks' o, and a bf16 o rounded there and again after the sum would
+// move about a third of the outputs by one bf16 ulp.
+//
 // Partials: acc at scratch[(split * rows + row) * D + c], then (m, l) pairs
 // at scratch[splits * rows * D + (split * rows + row) * 2]; rows = B*H*Sq
 // and row = (b * H + h) * Sq + i.  m is in base-2 units: the largest kept
@@ -75,7 +85,8 @@
 // flash_attention.py's plan chose, and refuses a plan it has no
 // instantiation for.  It launches on the caller's stream (one or two
 // kernels), does not synchronise, allocates nothing, reports the kernels it
-// launched, and returns a cudaError_t (0 on success); tensor maps are
+// launched, and returns a cudaError_t (0 on success); a null lse pointer
+// writes no lse; tensor maps are
 // encoded on the host through cudaGetDriverEntryPoint, with no link to
 // libcuda.
 
@@ -89,6 +100,14 @@
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// A row's log-sum-exp from its base-2 running max m (the largest kept
+// s * log2 e) and sum l = sum 2^(s log2 e - m): ln(2^m l); -inf where the
+// row kept no key (l == 0).
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * LN2 : -INFINITY;
+}
 
 // -- PTX helpers ---------------------------------------------------------
 
@@ -382,9 +401,11 @@ __global__ void __launch_bounds__(256, 1)
 tiles_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
-             __nv_bfloat16* __restrict__ o, float* __restrict__ part, int h,
-             int hkv, int sq, int skv, int causal, int has_window,
-             long long window, long long q_offset, float scale2, int splits) {
+             __nv_bfloat16* __restrict__ o, float* __restrict__ o32,
+             float* __restrict__ part, float* __restrict__ lse, int h,
+             int hkv, int sq, int skv,
+             int causal, int has_window, long long window, long long q_offset,
+             float scale2, int splits) {
   using C = TileCfg<D, BK>;
   constexpr int BQ = C::BQ, SW = C::SW, E = C::E;
   extern __shared__ uint8_t smem_raw[];
@@ -591,16 +612,21 @@ tiles_kernel(const __grid_constant__ CUtensorMap tq,
     const long long row = static_cast<long long>(bh) * sq + q0 + r;
     if (splits == 1) {
       const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
-      __nv_bfloat16* out = o + row * D;
 #pragma unroll
       for (int hh = 0; hh < C::HALVES; ++hh)
 #pragma unroll
         for (int i = 0; i < C::ON / 2; i += 2) {
           if ((i / 2) % 2 != hf) continue;
           const int c = hh * C::ON + 8 * (i / 4) + 2 * (lane % 4);
-          *reinterpret_cast<__nv_bfloat162*>(out + c) =
-              __floats2bfloat162_rn(acc[hh][i] * inv, acc[hh][i + 1] * inv);
+          const float x0 = acc[hh][i] * inv, x1 = acc[hh][i + 1] * inv;
+          if (o32 != nullptr)
+            *reinterpret_cast<float2*>(o32 + row * D + c) =
+                make_float2(x0, x1);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(o + row * D + c) =
+                __floats2bfloat162_rn(x0, x1);
         }
+      if (lse != nullptr && lane % 4 == 0) lse[row] = lse_of(m[hf], l[hf]);
     } else {
       const long long prow = split * rows_all + row;
       float* pacc = part + prow * D;
@@ -871,9 +897,13 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // -- combine: one block of D threads per output row --------------------------
+// (o in float32 to o32 where it is not null; thread 0 writes the row's lse
+// where lse is not null)
 
 __global__ void combine_kernel(const float* __restrict__ part,
-                               __nv_bfloat16* __restrict__ o, int splits,
+                               __nv_bfloat16* __restrict__ o,
+                               float* __restrict__ o32,
+                               float* __restrict__ lse, int splits,
                                long long rows, int d) {
   const long long row = blockIdx.x;
   const int c = threadIdx.x;
@@ -890,7 +920,12 @@ __global__ void combine_kernel(const float* __restrict__ part,
       a += wt * part[(s * rows + row) * d + c];
     }
   }
-  o[row * d + c] = __float2bfloat16_rn(ll > 0.f ? a / ll : 0.f);
+  const float x = ll > 0.f ? a / ll : 0.f;
+  if (o32 != nullptr)
+    o32[row * d + c] = x;
+  else
+    o[row * d + c] = __float2bfloat16_rn(x);
+  if (lse != nullptr && c == 0) lse[row] = lse_of(mm, ll);
 }
 
 // -- host side ---------------------------------------------------------------
@@ -963,19 +998,27 @@ bool same_grid(const Plan& p, dim3 g) {
 struct Args {
   const void *q, *k, *v;
   void* o;
-  float* part;
+  float *part, *lse;
   int b, h, hkv, sq, skv, causal, has_window;
   long long window, q_offset;
   float scale2;
   Plan p;
   int* launched;     // kernels launched so far
   cudaStream_t stream;
+
+  // o as the kernels write it: float32 with lse, else bf16
+  __nv_bfloat16* o16() const {
+    return lse == nullptr ? static_cast<__nv_bfloat16*>(o) : nullptr;
+  }
+  float* o32() const {
+    return lse == nullptr ? nullptr : static_cast<float*>(o);
+  }
 };
 
 cudaError_t combine(const Args& a, int d) {
   const long long rows = static_cast<long long>(a.b) * a.h * a.sq;
   combine_kernel<<<static_cast<unsigned>(rows), d, 0, a.stream>>>(
-      a.part, static_cast<__nv_bfloat16*>(a.o), a.p.splits, rows, d);
+      a.part, a.o16(), a.o32(), a.lse, a.p.splits, rows, d);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*a.launched;
   return err;
@@ -1005,9 +1048,8 @@ cudaError_t launch_tiles(const Args& a) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, a.stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.part, a.h, a.hkv, a.sq,
-      a.skv, a.causal, a.has_window, a.window, a.q_offset, a.scale2,
-      a.p.splits);
+      tq, tk, tv, a.o16(), a.o32(), a.part, a.lse, a.h, a.hkv, a.sq, a.skv,
+      a.causal, a.has_window, a.window, a.q_offset, a.scale2, a.p.splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ++*a.launched;
@@ -1060,19 +1102,22 @@ cudaError_t dispatch(const Args& a, int d) {
 
 // Launches the plan's kernels on `stream`: the tiles kernel, or the split
 // kernel, each followed by the combine kernel where the keys are split;
-// `scratch` holds the float32 partials.  *launched counts the kernels this
-// call launched (0 to 2).  Returns a cudaError_t, 0 on success.
+// `scratch` holds the float32 partials; `lse`, where not null, gets each
+// row's float32 log-sum-exp, and `o` is then float32.  *launched counts the
+// kernels this call launched (0 to 2).  Returns a cudaError_t, 0 on
+// success.
 extern "C" int flash_attention_bf16_launch(
     const void* q, const void* k, const void* v, void* o, void* scratch,
-    int b, int h, int hkv, int sq, int skv, int d, int causal, int has_window,
+    void* lse, int b, int h, int hkv, int sq, int skv, int d, int causal, int has_window,
     long long window, long long q_offset, float sm_scale, const void* plan,
     int* launched, void* stream) {
   *launched = 0;
   if (b <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 || skv < 0 ||
       plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, static_cast<float*>(scratch), b, h, hkv, sq, skv,
-               causal, has_window, window, q_offset, sm_scale * LOG2E,
+  const Args a{q, k, v, o, static_cast<float*>(scratch),
+               static_cast<float*>(lse), b, h, hkv, sq, skv, causal,
+               has_window, window, q_offset, sm_scale * LOG2E,
                *static_cast<const Plan*>(plan), launched,
                static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch(a, d));

@@ -10,8 +10,14 @@ shared memory and launch count of a call; the C entry points launch exactly
 that geometry or refuse it, and report the kernels they launched, which
 ``launches`` counts.  Both sources are compiled with ``nvcc`` for
 ``sm_90a`` at first use and loaded with ``ctypes``, as ``build.py``
-describes.  The plain torch version is ``ref.attention_ref``;
-``ops.attention`` picks between them by the tensors' device.
+describes.  With ``return_lse`` a call also gives each row's float32
+log-sum-exp (-inf for a row that keeps no key), written by the kernel that
+writes the output (the same plan and launches), and the output in float32
+whatever the inputs' dtype: one rank's part of a decode over a
+sequence-sharded cache, which the ranks weigh and sum before it is
+rounded.  The plain torch versions are ``ref.attention_ref`` and
+``ref.attention_lse_ref``; ``ops.attention`` picks between them by the
+tensors' device.
 
 Nothing here runs at import time: the CPU tests import this module on a
 host with no ``nvcc`` and no card.
@@ -51,9 +57,10 @@ class _CPlan(ctypes.Structure):
         "gx", "gy", "gz")]
 
 
-# Both entry points take (q, k, v, o, scratch, B, H, Hkv, Sq, Skv, D,
-# causal, has_window, window, q_offset, sm_scale, plan, launched, stream).
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+# Both entry points take (q, k, v, o, scratch, lse, B, H, Hkv, Sq, Skv, D,
+# causal, has_window, window, q_offset, sm_scale, plan, launched, stream);
+# lse may be null.
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
          + [ctypes.c_longlong] * 2
          + [ctypes.c_float, ctypes.POINTER(_CPlan),
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
@@ -323,13 +330,15 @@ def padded_head_dim(d: int) -> int:
 
 
 def call_padded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                sm_scale: Optional[float] = None, **kw) -> torch.Tensor:
+                sm_scale: Optional[float] = None, **kw):
     """``fn(q, k, v, sm_scale=..., **kw)`` at ``padded_head_dim(D)``: q, k
     and v get zero columns along D up to it, the scale stays ``D**-0.5``
     unless given, and the output is sliced back to D.  Exact: a zero
-    column adds nothing to Q·Kᵀ or to P·V.  Operands whose head dims
-    differ, or that the kernel takes as they are, go to ``fn`` unchanged
-    (``check_inputs`` then names what is wrong)."""
+    column adds nothing to Q·Kᵀ or to P·V.  An output pair ``(o, lse)``
+    (``return_lse``) has only o sliced: the scores, and so lse, are the
+    unpadded call's.  Operands whose head dims differ, or that the kernel
+    takes as they are, go to ``fn`` unchanged (``check_inputs`` then names
+    what is wrong)."""
     d = q.shape[-1]
     if q.dim() != 4 or k.shape[-1] != d or v.shape[-1] != d:
         return fn(q, k, v, sm_scale=sm_scale, **kw)
@@ -339,16 +348,21 @@ def call_padded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))
     out = fn(pad(q), pad(k), pad(v),
              sm_scale=d ** -0.5 if sm_scale is None else sm_scale, **kw)
+    if isinstance(out, tuple):
+        return out[0][..., :d].contiguous(), out[1]
     return out[..., :d].contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
-                    window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    window: Optional[int] = None, q_offset: int = 0,
+                    return_lse: bool = False):
     """Launch the kernels of ``plan``'s path on CUDA tensors: attention of
     ``q`` (B, H, Sq, D) over ``k``/``v`` (B, Hkv, Skv, D), output in q's
-    dtype.
+    dtype; with ``return_lse`` the pair ``(output, lse)``, the output in
+    float32 (not rounded to bf16) and lse the float32 (B, H, Sq)
+    log-sum-exp of each row's kept scaled scores (-inf where a row keeps
+    none), from the same launches.
 
     A head dim the kernel has no instantiation for (any D ≤ 256) runs at
     ``padded_head_dim(D)`` through :func:`call_padded`; ``plan`` and the
@@ -361,33 +375,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention launches on CUDA tensors, got "
                          f"{q.device}")
     return call_padded(_flash_attention, q, k, v, sm_scale=sm_scale,
-                       causal=causal, window=window, q_offset=q_offset)
+                       causal=causal, window=window, q_offset=q_offset,
+                       return_lse=return_lse)
 
 
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool, sm_scale: Optional[float],
-                     window: Optional[int], q_offset: int) -> torch.Tensor:
+                     window: Optional[int], q_offset: int,
+                     return_lse: bool = False):
     b, h, hkv, sq, skv, d = check_inputs(q, k, v)
     for name, val in (("window", window or 0), ("q_offset", q_offset)):
         if abs(int(val)) >= _POSITION_LIMIT:
             raise ValueError(f"{name}={val} is out of range")
     p = plan(b, h, hkv, sq, skv, d, q.dtype, causal, window, q_offset,
              device_sm_count(q.device))
-    out = torch.empty_like(q)
+    out = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+           if return_lse else torch.empty_like(q))
     scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
                            device=q.device) if p.scratch_floats else None)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     _launch(q, k, v, out, scratch, p, causal=causal, sm_scale=sm_scale,
-            window=window, q_offset=q_offset)
-    return out
+            window=window, q_offset=q_offset, lse=lse)
+    return (out, lse) if return_lse else out
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out: torch.Tensor, scratch: Optional[torch.Tensor],
             p: AttentionPlan, *, causal: bool = True,
             sm_scale: Optional[float] = None, window: Optional[int] = None,
-            q_offset: int = 0) -> None:
-    """Launch plan ``p`` for checked CUDA operands, writing ``out`` and, on
-    a path that splits the keys, the float32 partials to ``scratch`` (acc,
+            q_offset: int = 0, lse: Optional[torch.Tensor] = None) -> None:
+    """Launch plan ``p`` for checked CUDA operands, writing ``out`` (in q's
+    dtype, float32 where ``lse`` is given), each row's log-sum-exp to
+    ``lse`` (float32 (B, H, Sq), contiguous) where it is given and, on a
+    path that splits the keys, the float32 partials to ``scratch`` (acc,
     then (m, l) pairs, as both ``csrc`` sources lay them out).
     Adds the kernels the library reports launched to ``launches``; raises
     ``KernelLaunchError`` on a non-zero return."""
@@ -398,6 +419,17 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              or not scratch.is_contiguous()):
         raise ValueError(f"plan needs {p.scratch_floats} contiguous float32 "
                          f"elements of scratch")
+    if lse is not None and (lse.dtype != torch.float32
+                            or tuple(lse.shape) != (b, h, sq)
+                            or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 tensor of shape "
+                         f"{(b, h, sq)} on {q.device}")
+    out_dtype = q.dtype if lse is None else torch.float32
+    if (out.dtype != out_dtype or tuple(out.shape) != tuple(q.shape)
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {out_dtype} tensor of "
+                         f"shape {tuple(q.shape)}")
     check_alignment(q, k, v, out, *([scratch] if p.scratch_floats else []))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (b, h, hkv, sq, skv, d, int(causal), int(window is not None),
@@ -407,7 +439,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     done = ctypes.c_int(0)
     fn = (KERNEL if p.path == "f32" else KERNEL_BF16).launcher()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if p.scratch_floats else None, *common,
+            scratch.data_ptr() if p.scratch_floats else None,
+            None if lse is None else lse.data_ptr(), *common,
             ctypes.byref(done), stream)
     if q.device.index == torch.cuda.current_device():
         err = fn(*args)

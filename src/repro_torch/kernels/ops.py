@@ -142,7 +142,7 @@ def with_plain_backward(launch: Attention, plain: Attention,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, sm_scale: Optional[float] = None,
               window: Optional[int] = None, q_offset: int = 0,
-              backend: str = "auto") -> torch.Tensor:
+              backend: str = "auto", return_lse: bool = False):
     """Flash attention with GQA: ``q`` (B, H, Sq, D), ``k``/``v``
     (B, Hkv, Skv, D) with H % Hkv == 0; output (B, H, Sq, D) in q's dtype.
     On CUDA tensors the path is ``flash_attention.plan``'s: float32 on
@@ -157,7 +157,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window``.  backend: ``"auto"`` picks by the tensors' device, ``"cuda"``
     requires CUDA tensors (kernel), ``"torch"`` requires CPU tensors
     (plain).  The kernel has no backward: under grad, launch it through
-    :func:`with_plain_backward` (``layers.attention`` does)."""
+    :func:`with_plain_backward` (``layers.attention`` does).
+
+    ``return_lse``: the pair ``(output, lse)``, the output in float32
+    whatever q's dtype and lse the float32 (B, H, Sq) log-sum-exp of each
+    row's kept scaled scores, -inf for a row that keeps none (its output
+    0) — one rank's part of a decode over a sequence-sharded cache
+    (``serving.engine``), combined before it is rounded.  The kernel
+    writes it with the output, in the same launches; the plain version
+    is ``ref.attention_lse_ref``."""
     _check_backend(backend)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"attention takes 4-D q and k, got "
@@ -171,8 +179,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if backend == "cuda":
             raise ValueError("backend='cuda' launches the kernel and needs "
                              "CUDA tensors; got CPU tensors")
-        return _ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
-                                  window=window, q_offset=q_offset)
+        plain = _ref.attention_lse_ref if return_lse else _ref.attention_ref
+        return plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                     window=window, q_offset=q_offset)
     if backend == "torch":
         raise ValueError("backend='torch' is the plain version for CPU "
                          f"tensors; got {q.device} (call "
@@ -181,4 +190,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError("the attention kernel has no backward: launch it "
                            "through ops.with_plain_backward under grad")
     return _flash.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                                  window=window, q_offset=q_offset)
+                                  window=window, q_offset=q_offset,
+                                  return_lse=return_lse)

@@ -111,6 +111,39 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
 
 
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, sm_scale: Optional[float] = None,
+                      window: Optional[int] = None, q_offset: int = 0):
+    """Plain version of both kernels' ``return_lse`` mode: ``(o, lse)``,
+    o :func:`attention_ref`'s output in float32 (not rounded to q's dtype)
+    and lse the float32 (B, H, Sq) ``logsumexp`` of each row's scaled
+    scores over the keys it keeps, -inf for a row that keeps none (whose o
+    is 0).  A rank of a
+    sequence-sharded decode calls it over its own slots ``[lo, hi)`` with
+    ``q_offset = pos - lo`` (negative where they all lie after ``pos``:
+    ``(0, -inf)``); ``serving.engine.combine_partials`` merges the parts.  The
+    float32 products as in :func:`attention_ref`; each KV head's group of
+    query rows in one product, as the reference's decode groups them (no
+    copy of K or V a query head)."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        qg = q.float().reshape(b, hkv, h // hkv, sq, d)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * sm_scale
+        mask = attention_mask(sq, skv, causal, window, q_offset, q.device)
+        s = s.masked_fill(~mask, -math.inf)
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - torch.where(torch.isinf(lse), 0.0, lse)[..., None])
+        out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    return out.reshape(b, h, sq, d), lse.reshape(b, h, sq)
+
+
 def attention_mask(sq: int, skv: int, causal: bool, window: Optional[int],
                    q_offset: int, device) -> torch.Tensor:
     """(Sq, Skv) bool, True where query i keeps key j."""

@@ -15,6 +15,7 @@ nothing is compiled.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --jobs 8
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --shape decode_32k --shape long_500k --both-meshes
 
 ``--jobs N`` traces N cells at once, each in a fresh process.
 
@@ -155,7 +156,9 @@ def _report(tag: str, res: Optional[Dict], err: Optional[str]) -> bool:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
-    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--shape", choices=list(SHAPES), action="append",
+                    help="a cell's shape; with --all, the shapes to take "
+                         "(repeatable; every shape without it)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
                     help="2×16×16 (512 ranks) instead of 16×16")
@@ -175,11 +178,12 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
 
     if args.all:
-        todo = [(a, s) for a, s, skip in cells() if skip is None]
+        todo = [(a, s) for a, s, skip in cells() if skip is None
+                and (args.shape is None or s in args.shape)]
     else:
-        if not args.arch or not args.shape:
-            ap.error("--arch and --shape required without --all")
-        todo = [(args.arch, args.shape)]
+        if not args.arch or not args.shape or len(args.shape) != 1:
+            ap.error("--arch and one --shape required without --all")
+        todo = [(args.arch, args.shape[0])]
 
     meshes = [args.multi_pod] if not args.both_meshes else [False, True]
     jobs = [(a, s, mp) for a, s in todo for mp in meshes]

@@ -25,12 +25,19 @@ device.
 
 On a mesh the parameters are DTensors and the dense caches DTensors
 placed by ``launch.specs.cache_pack`` (``init_cache(..., mesh=mesh)``):
-batch over ``data``, sequence over ``model``.  A write at positions
-``[lo, hi)`` lands in the shards that own those slots, each rank writing
-its part of the range into its local shard (:func:`_write_slots`).  The
-decode's attention brings K and V to each rank's heads over the whole
-sequence (exact, simple) and runs the single-device call on each rank's
-batch rows and heads; prefill's attention is ``layers.mesh_attention``.
+batch over ``data``, sequence over ``model`` (over ``(data, model)``
+under ``seq_all``).  A write at positions ``[lo, hi)`` lands in the
+shards that own those slots, each rank writing its part of the range into
+its local shard (:func:`_write_slots`).  The decode's attention over a
+sequence-sharded cache is the reference's partition (XLA's, for its
+softmax over the sharded axis): each rank attends with every query head
+over its own slots, giving ``(o, lse)``, and the ranks combine the parts
+with three all-reduces over the sequence axes — the row max, the row sum
+and the PV partial (:func:`_mesh_split_decode`,
+:func:`combine_partials`); no rank gathers the cache.  A cache whose
+sequence is whole (a one-rank ``model`` axis) runs the single-device call
+on each rank's batch rows and heads; prefill's attention is
+``layers.mesh_attention``.
 Tokens are the global batch, alike on every rank (or DTensors placed as
 the batch); logits come back as DTensors.  A windowed ring is
 batch-sharded and whole in its slots: each rank writes its rows into its
@@ -56,6 +63,7 @@ from repro_torch.models.transformer import (embed, encode, ffn_apply,
                                             layer_slice, stack_layout,
                                             unembed_logits)
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kernel_ref
 from repro_torch.parallel.sharding import (is_dtensor, mesh_scope,
                                            shard_range)
 
@@ -141,20 +149,57 @@ def _write_ring(cache: Dict[str, torch.Tensor], k: torch.Tensor,
     slot_pos[slots] = positions
 
 
-def _mesh_decode_attention(cfg: ModelConfig, q, k_cache, v_cache,
-                           pos: int, slot_pos=None):
-    """Decode attention of DTensor q (B, H, 1, D) over a DTensor cache, on
-    each rank's batch rows and heads: the query heads split over
-    ``model`` where it divides them, and K and V brought to each rank's
-    KV heads over the whole sequence (a sequence-sharded dense cache
-    regathered; a ring is whole in its slots already) — the KV heads
-    split alike where ``model`` divides them, else whole, each rank
-    taking the KV head of each of its query heads, as
-    ``layers.mesh_attention`` does.  Then the single-device call.
-    ``slot_pos`` (a ring's, replicated) masks by the window, as the
-    single-device ring decode does."""
+def combine_partials(o: torch.Tensor, lse: torch.Tensor, all_max,
+                     all_sum) -> torch.Tensor:
+    """Attention over every rank's slots from each rank's part of it:
+    ``o`` (B, H, Sq, D) and ``lse`` (B, H, Sq), float32, the rank's
+    ``ops.attention(..., return_lse=True)`` over its own slots (0 and
+    -inf where it keeps none).  ``all_max`` and ``all_sum`` reduce a
+    tensor over the ranks (all-reduces on a mesh; a reduction over a
+    stacked dim elsewhere).  ``M = all_max(lse)``, ``w = exp(lse - M)``,
+    ``o = all_sum(w·o) / all_sum(w)``: the reference's three all-reduces
+    (the row max, the row sum and the PV partial, ``w·o`` being the rank's
+    ``Σ exp(s - M) v``).  Float32; a row that keeps no slot on any rank is
+    0."""
+    top = all_max(lse)
+    w = torch.exp(lse - torch.where(torch.isinf(top), 0.0, top))
+    num = all_sum(w[..., None] * o)
+    den = all_sum(w)[..., None]
+    return torch.where(den > 0, num / den, 0.0)
+
+
+def decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_offset: int):
+    """``(o, lse)`` of decode queries q (B, H, Sq, D) over the slots of
+    k/v (B, KV, S, D), the first of which holds position ``-q_offset``
+    (one rank's range of a sequence-sharded cache; a range that lies
+    wholly after the query gives ``(0, -inf)``): the kernel's
+    ``return_lse`` mode, or its plain version ``ref.attention_lse_ref``
+    where attention runs plain.  Both float32, o not rounded to the
+    cache's dtype."""
+    if uses_kernel(q):          # the kernel takes one dtype: the cache's
+        return ops.attention(q.to(k.dtype).contiguous(), k.contiguous(),
+                             v.contiguous(), causal=True, q_offset=q_offset,
+                             backend="cuda", return_lse=True)
+    return kernel_ref.attention_lse_ref(q, k, v, causal=True,
+                                        q_offset=q_offset)
+
+
+def _seq_mesh_dims(cache: torch.Tensor) -> Tuple[int, ...]:
+    """The mesh dims that shard a DTensor cache leaf's sequence (dim 2):
+    ``model``, or ``data`` and ``model`` under ``seq_all``; none on a
+    one-rank axis or for a ring."""
+    from torch.distributed.tensor import Shard
+    return tuple(i for i, pl in enumerate(cache.placements)
+                 if isinstance(pl, Shard) and pl.dim == 2)
+
+
+def _decode_placements(q, k_cache):
+    """A decode's placements on the cache's mesh: (the cache's batch rows,
+    everything else whole; q and the output, the query heads over
+    ``model`` where it divides them; K and V for the single call, the KV
+    heads over ``model`` where it divides the query and the KV heads)."""
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
     mesh = k_cache.device_mesh
     names = mesh.mesh_dim_names
     rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
@@ -162,13 +207,66 @@ def _mesh_decode_attention(cfg: ModelConfig, q, k_cache, v_cache,
     h, hkv = q.shape[1], k_cache.shape[1]
     tp = mesh.size(names.index("model")) if "model" in names else 1
     heads = tp > 1 and h % tp == 0
-    kv_heads = heads and hkv % tp == 0
-    on_model = lambda pl: [pl if n == "model" else r
-                           for n, r in zip(names, rows)]
-    q_pl = on_model(Shard(1)) if heads else rows
-    kv_pl = on_model(Shard(1)) if kv_heads else rows
+    on_model = [Shard(1) if n == "model" else r for n, r in zip(names, rows)]
+    return (rows, on_model if heads else rows,
+            on_model if heads and hkv % tp == 0 else rows)
+
+
+def _mesh_split_decode(q, k_cache, v_cache, pos: int, dims):
+    """Decode attention of DTensor q (B, H, 1, D) over a dense cache whose
+    sequence the mesh dims ``dims`` shard, as the reference partitions it:
+    q gathered whole over its heads (its batch rows as the cache's), each
+    rank's ``decode_partial`` over its own slots ``[lo, hi)`` at
+    ``q_offset = pos - lo``, then :func:`combine_partials` with all-reduces
+    over ``dims`` (one after another where two shard it).  The output
+    takes the single-call path's placements, the query heads over
+    ``model``: a local slice of the combined rows.  Every collective is of
+    (B, H, 1) or (B, H, 1, D): none grows with the cache."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k_cache.device_mesh
+    rows, q_pl, _ = _decode_placements(q, k_cache)
+    lo = shard_range(k_cache, 2)[0]
+
+    def over_dims(op):
+        def reduce(t):
+            for i in dims:
+                t = funcol.all_reduce(t, op, (mesh, i))
+            return t
+        return reduce
+
+    def local(ql, kl, vl):
+        o, lse = decode_partial(ql, kl, vl, pos - lo)
+        return combine_partials(o, lse, over_dims("max"),
+                                over_dims("sum")).to(ql.dtype)
+
+    o = local_map(local, out_placements=rows,
+                  in_placements=(rows, k_cache.placements,
+                                 v_cache.placements),
+                  device_mesh=mesh, redistribute_inputs=True)(
+        q, k_cache, v_cache)
+    return o.redistribute(mesh, q_pl)
+
+
+def _mesh_decode_attention(cfg: ModelConfig, q, k_cache, v_cache,
+                           pos: int, slot_pos=None):
+    """Decode attention of DTensor q (B, H, 1, D) over a DTensor cache
+    whose slots each rank holds whole (a ring, or a dense cache on a
+    one-rank sequence axis), on each rank's batch rows and heads: the
+    query heads split over ``model`` where it divides them, the KV heads
+    split alike where ``model`` divides them, else whole, each rank taking
+    the KV head of each of its query heads, as ``layers.mesh_attention``
+    does.  Then the single-device call.  ``slot_pos`` (a ring's,
+    replicated) masks by the window, as the single-device ring decode
+    does."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k_cache.device_mesh
+    _, q_pl, kv_pl = _decode_placements(q, k_cache)
+    h, hkv = q.shape[1], k_cache.shape[1]
     pick = None
-    if heads and not kv_heads:
+    if q_pl != kv_pl:           # the query heads split, the KV heads whole
+        tp = mesh.size(mesh.mesh_dim_names.index("model"))
         rank, per_rank = mesh.get_local_rank("model"), h // tp
         pick = torch.arange(rank * per_rank,
                             (rank + 1) * per_rank) // (h // hkv)
@@ -215,7 +313,11 @@ def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if is_dtensor(cache["k"]) and dense:
         _write_slots(cache["k"], k, pos)
         _write_slots(cache["v"], v, pos)
-        o = _mesh_decode_attention(cfg, q, cache["k"], cache["v"], pos)
+        dims = _seq_mesh_dims(cache["k"])
+        if dims:
+            o = _mesh_split_decode(q, cache["k"], cache["v"], pos, dims)
+        else:
+            o = _mesh_decode_attention(cfg, q, cache["k"], cache["v"], pos)
     elif is_dtensor(cache["k"]):                # a ring on a mesh
         slot = pos % cache["k"].shape[2]
         _write_ring(cache, k, v, slice(slot, slot + 1), pos)

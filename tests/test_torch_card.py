@@ -58,6 +58,67 @@ def test_flash_attention_matches_plain(shape, kw, dtype, atol, rtol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 16, 2, 300, 300, 128), dict(causal=True)),      # unsplit tiles
+    ((4, 16, 2, 1, 1280, 128), dict(causal=True, q_offset=1000)),  # decode
+    ((1, 16, 2, 256, 2048, 128), dict(causal=True, q_offset=1792)),  # split
+    ((1, 2, 2, 10, 10, 32), dict(causal=True, q_offset=-5)),  # empty rows
+    ((2, 8, 8, 1, 160, 128), dict(causal=True, q_offset=-40)),  # no key
+])
+def test_flash_attention_lse_matches_plain(shape, kw, dtype):
+    """``return_lse`` against ``ref.attention_lse_ref``: o (float32 in this
+    mode) rounded to the inputs' dtype at the attention gates and equal to
+    the call without lse; lse within 1e-5 × max(1, |lse|), -inf exactly
+    where a row keeps no key; the launches of the call without lse.  Then
+    the decode shapes' slots cut into 4 ranges, each range's pair
+    combined by ``serving.engine.combine_partials`` with a local
+    reduction: the whole call at the same gates."""
+    dev = _card()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.engine import combine_partials
+    b, h, hkv, sq, skv, d = shape
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(dev, dtype) for s in ((b, h, sq, d), (b, hkv, skv, d),
+                                         (b, hkv, skv, d)))
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (4e-3, 2 ** -7)
+
+    def close(got, want):
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+        if dtype == torch.bfloat16:
+            assert float((got != want).float().mean()) <= 0.05
+
+    launches = fa.plan(*shape, dtype, **kw,
+                       sm_count=fa.device_sm_count(dev)).launches
+    before = ops.attention_launches
+    got, lse = ops.attention(q, k, v, **kw, return_lse=True)
+    assert ops.attention_launches == before + launches
+    assert got.dtype == lse.dtype == torch.float32
+    want, want_lse = ref.attention_lse_ref(q, k, v, **kw)
+    close(got.to(dtype), want.to(dtype))
+    whole = ops.attention(q, k, v, **kw)
+    assert torch.equal(got.to(dtype), whole)
+    empty = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), empty)
+    assert bool((lse[empty] < 0).all()) and bool((got[empty] == 0).all())
+    assert bool(((lse - want_lse).abs()[~empty]
+                 <= 1e-5 * want_lse.abs().clamp(min=1.0)[~empty]).all())
+    if sq != 1 or kw["q_offset"] < 0:
+        return
+    n = skv // 4
+    parts = [ops.attention(q, k[:, :, i * n:(i + 1) * n].contiguous(),
+                           v[:, :, i * n:(i + 1) * n].contiguous(),
+                           causal=True, q_offset=kw["q_offset"] - i * n,
+                           return_lse=True) for i in range(4)]
+    o = combine_partials(torch.stack([x[0] for x in parts]),
+                         torch.stack([x[1] for x in parts]),
+                         lambda t: t.amax(0, keepdim=True),
+                         lambda t: t.sum(0, keepdim=True))[0]
+    close(o.to(dtype), whole)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8, 128, 128), (100, 300, 200),
                                    (1, 17, 5)])
 def test_vta_gemm_matches_plain(m, k, n):

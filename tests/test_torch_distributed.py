@@ -7,15 +7,17 @@ timeout and a 180 s subprocess timeout, so a stuck collective fails its
 test instead of cutting the suite.  Four spawns, in order, each at most
 four ranks (the checkpoint crosses meshes between them):
 
-* ``2x2``: qwen2.5-smoke, 3 AdamW steps on mesh (2, 2); prefill of 8
-  tokens and 2 decode steps with the ``cache_pack``-placed cache; the
+* ``2x2``: qwen2.5-smoke, 3 AdamW steps on mesh (2, 2); a prefill of 6
+  tokens and decode steps at positions 6, 7, 8, 15, 16, 24 and 31 of the
+  ``cache_pack``-placed 32-slot cache, with a batch of 2, and again with
+  a batch of 1 and the sequence over both axes (``seq_all``); the
   trained state saved (checkpoint A); the same training with 8-bit
   moments and 2 microbatches, its state saved.
 * ``1x1``: the same training and decode on a (1, 1) mesh of one
   process; checkpoint A restored; the state saved (checkpoint B).
-* ``1x4``: the training on (1, 4) (model > KV heads); the int8 pod
-  all-reduce on the reference test's data with 4 pods (a (4, 1, 1)
-  mesh); checkpoint B restored on (2, 2).
+* ``1x4``: the training and decode on (1, 4) (model > KV heads); the
+  int8 pod all-reduce on the reference test's data with 4 pods (a (4, 1,
+  1) mesh); checkpoint B restored on (2, 2).
 * ``2x1x2``: the training with ``grad_compression="int8_pod"`` on
   (2, 1, 2) and its state saved; the int8 pod all-reduce with 2 pods on
   the reference test's data.
@@ -35,8 +37,12 @@ noise (summed in another order) may step the other way.  The floor is
 tolerance); with ``int8_pod`` it is ``COMPRESS_FLOOR`` units of the int8
 sum (``scale / n_pods``), where a partial summed in another order that
 crosses a rounding boundary changes the sum by one unit, a third or more
-of its size.  The decode
-logits within 3e-4 (the reference test's).  The int8 all-reduce and the
+of its size.  The decode's logits at every step and its caches after them
+within 3e-4 (the reference test's): a dense cache's sequence shards (two
+of 16 slots at (2, 2), four of 8 at (1, 4) and under ``seq_all``) see
+the position in the first shard only, on each shard boundary and in the
+last shard, each rank attending over its own slots and the ranks
+combining (``serving.engine``).  The int8 all-reduce and the
 checkpoints bit for bit.  The (1, 1) mesh's training and decode equal
 the unsharded ones bit for bit: a mesh dim of one rank places every tensor
 whole (``parallel.sharding.placements``), so DTensor runs the
@@ -151,7 +157,15 @@ def _full(tree):
     return [t.full_tensor().detach() for t in tensors(tree)]
 
 
-def _rank_decode(mesh):
+DECODE_PROMPT, DECODE_SLOTS = 6, 32
+# the first shard only (6, 7), the boundaries of two shards of 16 (15,
+# 16) and of four of 8 (8, 16, 24), the last shard (24, 31); the slots
+# between stay as the prefill left them on both sides
+DECODE_AT = (6, 7, 8, 15, 16, 24, 31)
+
+
+def _rank_decode(mesh, batch=2, seq_all=False):
+    """(every step's logits, the caches after them), whole tensors."""
     from repro_torch.configs import get_smoke
     from repro_torch.models.params import init_params
     from repro_torch.models.transformer import model_defs
@@ -159,20 +173,29 @@ def _rank_decode(mesh):
     cfg = get_smoke("qwen2.5-3b")
     params = init_params(model_defs(cfg), seed=0, dtype=torch.float32,
                          device="cpu", mesh=mesh)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 16)).astype(np.int32))
-    cache = init_cache(cfg, 2, 32, torch.float32, "cpu", mesh=mesh)
+    cache = init_cache(cfg, batch, DECODE_SLOTS, torch.float32, "cpu",
+                       mesh=mesh, seq_all=seq_all)
     with torch.no_grad():
-        lg = _decode(params, cfg, toks, cache)
-    return lg.full_tensor(), cache
+        return _decode(params, cfg, _decode_tokens(cfg)[:batch], cache)
+
+
+def _decode_tokens(cfg):
+    return torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, DECODE_SLOTS)).astype(np.int32))
 
 
 def _decode(params, cfg, toks, cache):
+    """A prefill of ``DECODE_PROMPT`` tokens and a decode step at each of
+    ``DECODE_AT``: (the logits of each, stacked; the caches after them),
+    whole tensors."""
+    from repro_torch.launch.specs import _leaves
     from repro_torch.serving.engine import decode_step, prefill
-    lg, cache = prefill(params, cfg, toks[:, :8], cache)
-    for t in range(8, 10):
+    lg, cache = prefill(params, cfg, toks[:, :DECODE_PROMPT], cache)
+    logits = [_whole(lg)]
+    for t in DECODE_AT:
         lg, cache = decode_step(params, cfg, cache, toks[:, t], t)
-    return lg
+        logits.append(_whole(lg))
+    return torch.stack(logits), [_whole(c).clone() for c in _leaves(cache)]
 
 
 def _rank_compress(mesh, grads):
@@ -253,7 +276,8 @@ def _rank_main(rank, world, store, spawn, out):
         mesh = make_mesh((2, 2), ("data", "model"))
         losses, g0, params, opt = _rank_train(mesh)
         result["train"] = (losses, g0, _full(params))
-        result["decode"] = _rank_decode(mesh)[0]
+        result["decode"] = _rank_decode(mesh)
+        result["decode_seq_all"] = _rank_decode(mesh, batch=1, seq_all=True)
         result["saved_a"] = _save(os.path.join(out, "ckpt_a"), params, opt)
         losses, _, params8, opt8 = _rank_train(mesh, eightbit=True)
         result["eightbit"] = (losses, _full(params8),
@@ -266,12 +290,13 @@ def _rank_main(rank, world, store, spawn, out):
         result["train"] = (losses, g0, _full(params))
         result["restore_a"] = _restore(os.path.join(out, "ckpt_a"), params,
                                        opt)
-        result["decode"] = _rank_decode(mesh)[0]
+        result["decode"] = _rank_decode(mesh)
         result["saved_b"] = _save(os.path.join(out, "ckpt_b"), params, opt)
     elif spawn == "1x4":
         mesh = make_mesh((1, 4), ("data", "model"))
         losses, g0, params, opt = _rank_train(mesh)
         result["train"] = (losses, g0, _full(params))
+        result["decode"] = _rank_decode(mesh)
         pods4 = make_mesh((4, 1, 1), ("pod", "data", "model"))
         result["compress4"] = _rank_compress(pods4, _pod_grads()[1])
         mesh22 = make_mesh((2, 2), ("data", "model"))
@@ -464,27 +489,35 @@ def test_int8_pod_training_matches_replica(spawns):
     _check_params(params, want_params, floor)
 
 
-@pytest.mark.parametrize("spawn", ["2x2", "1x1"])
+@pytest.mark.parametrize("spawn", ["2x2", "1x1", "1x4", "2x2_seq_all"])
 def test_sharded_decode_matches_unsharded(spawns, spawn):
-    """Within 3e-4 on (2, 2); on a (1, 1) mesh bit for bit."""
+    """Every step's logits and the caches within 3e-4 on (2, 2), (1, 4)
+    and ``seq_all`` (2, 2) (a batch of one); on a (1, 1) mesh bit for
+    bit."""
     from repro_torch.configs import get_smoke
     from repro_torch.models.params import init_params
     from repro_torch.models.transformer import model_defs
     from repro_torch.serving.cache import init_cache
     cfg = get_smoke("qwen2.5-3b")
+    mesh, _, layout = spawn.partition("_")
+    batch = 1 if layout else 2
     params = init_params(model_defs(cfg), seed=0, dtype=torch.float32,
                          device="cpu")
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 16)).astype(np.int32))
     with torch.no_grad():
-        want = _decode(params, cfg, toks,
-                       init_cache(cfg, 2, 32, torch.float32, "cpu"))
-    got = spawns[spawn]["decode"]
+        want, want_c = _decode(params, cfg, _decode_tokens(cfg)[:batch],
+                               init_cache(cfg, batch, DECODE_SLOTS,
+                                          torch.float32, "cpu"))
+    got, got_c = spawns[mesh]["decode_" + layout if layout else "decode"]
+    assert got.shape == want.shape and len(got_c) == len(want_c)
     if spawn == "1x1":
         assert torch.equal(got, want)
-    np.testing.assert_allclose(got[:, :cfg.vocab].numpy(),
-                               want[:, :cfg.vocab].numpy(),
+        assert all(torch.equal(g, w) for g, w in zip(got_c, want_c))
+    np.testing.assert_allclose(got[..., :cfg.vocab].numpy(),
+                               want[..., :cfg.vocab].numpy(),
                                rtol=DECODE_TOL, atol=DECODE_TOL)
+    for g, w in zip(got_c, want_c):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=DECODE_TOL,
+                                   atol=DECODE_TOL)
 
 
 def _reference_compress():

@@ -10,8 +10,17 @@
   smoke configs on four gloo ranks at (2, 2) match the unsharded port
   within the reference's sharded-vs-single tolerance (2e-4): two AdamW
   steps' losses, the logits of a 12-token prefill (the windows of 8 wrap)
-  and three decode steps, and the placed windowed and recurrent caches
-  after them, whole.  Both run in float64: the jamba and gemma3 smoke
+  and of decode steps at positions 12, 15, 16 and 31 of the 32-slot cache
+  (the dense caches' two sequence shards of 16: the position in the first
+  shard only, on its last slot, on the boundary's first slot of the last
+  shard, at the cache's end; the slots between stay as the prefill left
+  them on both sides), and the placed dense, windowed and recurrent
+  caches after them, whole.  gemma3's global layers and jamba's attention
+  layers decode over four sequence shards of 8 too, on (1, 4) and under
+  ``seq_all`` on (2, 2) with a batch of one, in a spawn of their own:
+  a 6-token prefill, then positions 6 and 7 (the first shard only), 8,
+  16 and 24 (boundaries) and 31 (the last shard).
+  Both run in float64: the jamba and gemma3 smoke
   configs are ill-conditioned (their float32 second-step losses lie
   2.5e-3 and 1.0e-3 from float64's on one process, jamba's float32 Mamba
   states reach 1e4), and sums over shards taken in another order move
@@ -48,7 +57,16 @@ SPAWN_TIMEOUT = 240
 TOL = 2e-4
 MESH_ARCHS = ["gemma3-1b", "mixtral-8x22b", "moonshot-v1-16b-a3b",
               "jamba-1.5-large-398b", "rwkv6-7b"]
-PROMPT, DECODE, MAX_SEQ = 12, 3, 32
+PROMPT, MAX_SEQ = 12, 32
+DECODE_AT = (12, 15, 16, 31)
+# decode over four sequence shards: (mesh shape, batch, seq_all, prompt,
+# positions)
+LAYOUT_AT = (6, 7, 8, 16, 24, 31)
+DECODE_LAYOUTS = {"1x4": ((1, 4), 2, False, 6, LAYOUT_AT),
+                  "2x2_seq_all": ((2, 2), 1, True, 6, LAYOUT_AT)}
+LAYOUT_ARCHS = ["gemma3-1b", "jamba-1.5-large-398b"]
+DECODE_CASES = MESH_ARCHS + [f"{a}/{layout}" for a in LAYOUT_ARCHS
+                             for layout in DECODE_LAYOUTS]
 
 
 # ---------------------------------------------------------------------------
@@ -82,8 +100,7 @@ def _data(cfg):
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)
     labs = rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)
-    prompt = rng.integers(0, cfg.vocab, (2, PROMPT + DECODE)).astype(
-        np.int32)
+    prompt = rng.integers(0, cfg.vocab, (2, MAX_SEQ)).astype(np.int32)
     return toks, labs, prompt
 
 
@@ -94,18 +111,20 @@ def _whole(x):
 def _run_arch(arch, mesh):
     """Two train steps' losses, the decode logits and the caches after
     them (whole tensors), on ``mesh`` or (None) one process."""
+    return (_train_arch(arch, mesh), *_decode_arch(arch, mesh))
+
+
+def _train_arch(arch, mesh):
+    """Two train steps' losses on ``mesh`` or (None) one process."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from repro_torch.configs import get_smoke
     from repro_torch.data.pipeline import DataConfig, batch_rows
-    from repro_torch.launch.specs import _leaves
     from repro_torch.models.params import init_params, tensors
     from repro_torch.models.transformer import model_defs
     from repro_torch.optim import adamw
-    from repro_torch.serving.cache import init_cache
-    from repro_torch.serving.engine import decode_step, prefill
     from repro_torch.train.train_step import make_train_step, param_mesh
     cfg = get_smoke(arch)
-    toks, labs, prompt = _data(cfg)
+    toks, labs, _ = _data(cfg)
     tc = _train_cfg()
     pm = param_mesh(mesh)
     params = init_params(model_defs(cfg), seed=0, dtype=torch.float64,
@@ -128,19 +147,37 @@ def _run_arch(arch, mesh):
     for _ in range(2):
         params, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
+    return losses
+
+
+def _decode_arch(arch, mesh, batch=2, seq_all=False, prompt_len=PROMPT,
+                 positions=DECODE_AT):
+    """The logits of a ``prompt_len``-token prefill and of a decode step at
+    each of ``positions``, and the caches after them (whole tensors), for
+    the first ``batch`` rows, on ``mesh`` (the dense caches' sequence over
+    every in-pod axis with ``seq_all``) or (None) one process."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.specs import _leaves
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.engine import decode_step, prefill
+    cfg = get_smoke(arch)
+    _, _, prompt = _data(cfg)
     params = init_params(model_defs(cfg), seed=1, dtype=torch.float64,
                          device="cpu", mesh=mesh)
-    cache = init_cache(cfg, 2, MAX_SEQ, torch.float64, "cpu", mesh=mesh)
-    p_t = torch.from_numpy(prompt)
+    cache = init_cache(cfg, batch, MAX_SEQ, torch.float64, "cpu", mesh=mesh,
+                       seq_all=seq_all)
+    p_t = torch.from_numpy(prompt[:batch])
     logits = []
     with torch.no_grad():
-        lg, cache = prefill(params, cfg, p_t[:, :PROMPT], cache)
+        lg, cache = prefill(params, cfg, p_t[:, :prompt_len], cache)
         logits.append(_whole(lg))
-        for t in range(PROMPT, PROMPT + DECODE):
+        for t in positions:
             lg, cache = decode_step(params, cfg, cache, p_t[:, t], t)
             logits.append(_whole(lg))
     caches = [_whole(c).clone() for c in _leaves(cache)]
-    return losses, logits, caches
+    return logits, caches
 
 
 def _grouped_moe(mesh):
@@ -163,25 +200,36 @@ def _grouped_moe(mesh):
         return out.full_tensor()
 
 
-def _rank_main(rank, world, store, out):
+def _rank_main(rank, world, store, out, mode):
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import init_distributed, make_mesh
     init_distributed("cpu", init_method=f"file://{store}", rank=rank,
                      world_size=world, timeout_s=60)
-    mesh = make_mesh((2, 2), ("data", "model"))
-    result = {arch: _run_arch(arch, mesh) for arch in MESH_ARCHS}
-    result["grouped_moe"] = _grouped_moe(mesh)
+    if mode == "mesh":
+        mesh = make_mesh((2, 2), ("data", "model"))
+        result = {arch: _run_arch(arch, mesh) for arch in MESH_ARCHS}
+        result["grouped_moe"] = _grouped_moe(mesh)
+    else:
+        result = {}
+        for layout, (shape, *how) in DECODE_LAYOUTS.items():
+            lmesh = make_mesh(shape, ("data", "model"))
+            for arch in LAYOUT_ARCHS:
+                result[f"{arch}/{layout}"] = (None,
+                                              *_decode_arch(arch, lmesh,
+                                                            *how))
     if rank == 0:
-        torch.save(result, os.path.join(out, "mesh.pt"))
+        torch.save(result, os.path.join(out, f"{mode}.pt"))
     import torch.distributed as dist
     dist.destroy_process_group()
 
 
-def _spawn(out):
+def _spawn(out, mode):
+    """``mesh``: the architectures at (2, 2); ``layouts``: the decodes of
+    ``DECODE_LAYOUTS``."""
     import tempfile
     import torch.multiprocessing as mp
     store = tempfile.mktemp(dir=out, prefix="store_")
-    mp.spawn(_rank_main, args=(4, store, out), nprocs=4)
+    mp.spawn(_rank_main, args=(4, store, out, mode), nprocs=4)
 
 
 # ---------------------------------------------------------------------------
@@ -232,19 +280,33 @@ def mesh_runs(tmp_path_factory):
     return torch.load(out / "mesh.pt", weights_only=False)
 
 
+@pytest.fixture(scope="module")
+def layout_runs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("layouts")
+    _run_script("layouts", out)
+    return torch.load(out / "layouts.pt", weights_only=False)
+
+
 @pytest.mark.parametrize("arch", MESH_ARCHS)
 def test_mesh_training_matches_unsharded(mesh_runs, arch):
     torch.set_num_threads(1)
-    want, _, _ = _run_arch(arch, None)
+    want = _train_arch(arch, None)
     got, _, _ = mesh_runs[arch]
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("arch", MESH_ARCHS)
-def test_mesh_decode_and_caches_match_unsharded(mesh_runs, arch):
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_mesh_decode_and_caches_match_unsharded(request, case):
+    """``arch`` at (2, 2) (``mesh_runs``), or ``arch/layout`` on
+    ``DECODE_LAYOUTS`` (``layout_runs``)."""
     torch.set_num_threads(1)
-    _, want_lg, want_c = _run_arch(arch, None)
-    _, got_lg, got_c = mesh_runs[arch]
+    arch, _, layout = case.partition("/")
+    _, batch, _, prompt_len, positions = DECODE_LAYOUTS.get(
+        layout, (None, 2, False, PROMPT, DECODE_AT))
+    want_lg, want_c = _decode_arch(arch, None, batch, prompt_len=prompt_len,
+                                   positions=positions)
+    runs = request.getfixturevalue("layout_runs" if layout else "mesh_runs")
+    _, got_lg, got_c = runs[case]
     assert len(got_lg) == len(want_lg) and len(got_c) == len(want_c)
     for got, want in zip(got_lg + got_c, want_lg + want_c):
         assert got.shape == want.shape and got.dtype == want.dtype
@@ -292,7 +354,7 @@ if __name__ == "__main__":
     mode, target = sys.argv[1], sys.argv[2]
     if mode == "arg_bytes":
         _arg_bytes_main(target)
-    elif mode == "mesh":
-        _spawn(target)
+    elif mode in ("mesh", "layouts"):
+        _spawn(target, mode)
     else:
         raise SystemExit(f"unknown mode {mode}")

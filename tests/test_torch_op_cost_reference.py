@@ -36,6 +36,16 @@ Total FLOPs (elementwise rules differ: XLA fuses), ``bytes_fused``
 the eager operands in the model's dtypes) and collective bytes by kind
 (XLA emits ``all-to-all`` and ``collective-permute`` where DTensor does
 not) are reported side by side, not gated.
+
+Gated too: a decode step's collectives do not grow with the cache.  The
+seven dense configs decode at 256 and at 1,024 slots (batch 8, 2×2), and
+each package's collective bytes, kind by kind, are equal at the two
+lengths.  On the reference's side this documents its partition: XLA
+keeps the sequence-sharded cache local and all-reduces the softmax's row
+max, row sum and PV partial (the split-KV decode); the port's decode
+follows it (``serving.engine``), so no step gathers a tensor whose
+sequence dimension is the cache's.  The port/reference ratio of the
+collective bytes at ``cmp_decode`` is printed.
 """
 
 import json
@@ -53,6 +63,12 @@ ARCHS = ["whisper-base", "nemotron-4-340b", "qwen2.5-3b", "qwen1.5-110b",
          "internvl2-26b", "jamba-1.5-large-398b", "lm100m"]
 SHAPES = {"cmp_train": (128, 8, "train"), "cmp_prefill": (128, 4, "prefill"),
           "cmp_decode": (256, 8, "decode")}
+# the same decode over a cache four times as long, for the dense configs
+LONG_DECODE = {"cmp_decode_1k": (1024, 8, "decode")}
+DENSE_ARCHS = ["whisper-base", "nemotron-4-340b", "qwen2.5-3b",
+               "qwen1.5-110b", "gemma3-1b", "internvl2-26b", "lm100m"]
+CELLS = ([[a, s] for a in ARCHS for s in SHAPES]
+         + [[a, s] for a in DENSE_ARCHS for s in LONG_DECODE])
 PARTITIONED_OTHERWISE = {
     **{(a, s): "one MoE dispatch group: XLA contracts the expert "
                "up-projections over the whole d on every data rank"
@@ -76,7 +92,7 @@ from repro.configs import SHAPES, ShapeSpec, get_smoke
 from repro.launch.specs import build_cell
 from repro.analysis.hlo_cost import Cost, CostWalker, analyze_hlo, parse_module
 
-shapes, archs, out = json.loads(sys.argv[1]), json.loads(sys.argv[2]), sys.argv[3]
+shapes, cells, out = json.loads(sys.argv[1]), json.loads(sys.argv[2]), sys.argv[3]
 for name, (s, b, kind) in shapes.items():
     SHAPES[name] = ShapeSpec(name, s, b, kind)
 
@@ -92,23 +108,22 @@ class DotWalker(CostWalker):
 
 mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
 res = {}
-for arch in archs:
-    for name in shapes:
-        with jax.set_mesh(mesh):
-            hlo = build_cell(arch, name, mesh, cfg=get_smoke(arch)).lower() \
-                .compile().as_text()
-        full = analyze_hlo(hlo, 4, dtype_correction=False)
-        dots = DotWalker(parse_module(hlo), 4, False).computation_cost(
-            "__entry__")
-        res[arch + "|" + name] = {
-            "matmul_flops": dots.flops, "flops": full["flops_per_device"],
-            "bytes_fused": full["bytes_fused_per_device"],
-            "collective_bytes": full["collective_bytes"]}
+for arch, name in cells:
+    with jax.set_mesh(mesh):
+        hlo = build_cell(arch, name, mesh, cfg=get_smoke(arch)).lower() \
+            .compile().as_text()
+    full = analyze_hlo(hlo, 4, dtype_correction=False)
+    dots = DotWalker(parse_module(hlo), 4, False).computation_cost(
+        "__entry__")
+    res[arch + "|" + name] = {
+        "matmul_flops": dots.flops, "flops": full["flops_per_device"],
+        "bytes_fused": full["bytes_fused_per_device"],
+        "collective_bytes": full["collective_bytes"]}
 json.dump(res, open(out, "w"))
 '''
 
 
-def _port_main(shapes, archs, out):
+def _port_main(shapes, cells, out):
     from repro_torch.analysis.op_cost import analyze_trace
     from repro_torch.configs import ShapeSpec, get_smoke
     from repro_torch.launch.mesh import init_fake, make_mesh
@@ -116,16 +131,16 @@ def _port_main(shapes, archs, out):
     init_fake(4)
     mesh = make_mesh((2, 2), ("data", "model"))
     res = {}
-    for arch in archs:
-        for name, (s, b, kind) in shapes.items():
-            tr = build_cell(arch, ShapeSpec(name, s, b, kind), mesh,
-                            cfg=get_smoke(arch)).lower()
-            c = analyze_trace(tr, 4)
-            res[f"{arch}|{name}"] = {
-                "matmul_flops": c["matmul_flops_per_device"],
-                "flops": c["flops_per_device"],
-                "bytes_fused": c["bytes_fused_per_device"],
-                "collective_bytes": c["collective_bytes"]}
+    for arch, name in cells:
+        s, b, kind = shapes[name]
+        tr = build_cell(arch, ShapeSpec(name, s, b, kind), mesh,
+                        cfg=get_smoke(arch)).lower()
+        c = analyze_trace(tr, 4)
+        res[f"{arch}|{name}"] = {
+            "matmul_flops": c["matmul_flops_per_device"],
+            "flops": c["flops_per_device"],
+            "bytes_fused": c["bytes_fused_per_device"],
+            "collective_bytes": c["collective_bytes"]}
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -139,7 +154,7 @@ def _env(**extra):
 def costs(tmp_path_factory):
     pytest.importorskip("jax")
     out = tmp_path_factory.mktemp("cost")
-    args = [json.dumps(SHAPES), json.dumps(ARCHS)]
+    args = [json.dumps({**SHAPES, **LONG_DECODE}), json.dumps(CELLS)]
     procs = {
         "ref": subprocess.Popen([sys.executable, "-c", _REFERENCE, *args,
                                  str(out / "ref.json")], env=_env(),
@@ -171,6 +186,19 @@ def test_matmul_flops_equal_reference(costs, arch, shape):
     assert port["matmul_flops"] > 0 and ref["matmul_flops"] > 0
     if (arch, shape) not in PARTITIONED_OTHERWISE:
         assert abs(ratio - 1) <= TOL, (arch, shape, ratio)
+
+
+@pytest.mark.parametrize("package", ["port", "ref"])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_decode_collectives_do_not_grow_with_cache(costs, arch, package):
+    """Collective bytes by kind equal at 256 and 1,024 slots."""
+    short = costs[package][f"{arch}|cmp_decode"]["collective_bytes"]
+    long = costs[package][f"{arch}|cmp_decode_1k"]["collective_bytes"]
+    port, ref = (sum(costs[p][f"{arch}|cmp_decode"]["collective_bytes"]
+                     .values()) for p in ("port", "ref"))
+    print(f"{arch} {package}: decode collective bytes at 256 slots {short}, "
+          f"at 1024 {long}; port/ref at cmp_decode {port / ref:.4f}")
+    assert short == long, (arch, package, short, long)
 
 
 if __name__ == "__main__":
