@@ -310,10 +310,34 @@ In order it:
    attention entry's; device times of the lse call, the plain pair and
    the library's (o, lse) call beside the bound.
 
+21. serves four families at their published widths (``families`` in the
+   record), each model built on the card from seeded weights and freed
+   before the next (``FAMILIES``): gemma3-1b in float32 (``Server``, 8
+   requests of 768–1024 tokens; D = 256, 5:1 local:global, the 512-slot
+   ring wrapped at prefill and decoded on the kernel), whisper-base in
+   float32 (``serving.engine.generate`` with seeded frames, 1,500 of them,
+   two batches of 4), internvl2-26b in bf16 (``generate`` with a seeded
+   256-position vision prefix; GQA group 6) and jamba-1.5-large-398b cut
+   to its first 4 layers in bf16 (``Server``; Mamba, MoE, attention), 16
+   new tokens each.  Gates: the attention launches equal the plans' sum
+   (``family_calls``); logits finite, tokens in the vocabulary; every
+   attention call of a kernel-path replay of generation 1 held to its
+   plain version on its operands; float32: each call's teacher-forced
+   logits within ``LM_TOL`` × max |logit| of the plain path's (bf16:
+   reported); jamba: a 896-token prefill and 128 steps against one
+   1024-token prefill (``mamba_split_check``).  The stacked layers'
+   weights are drawn at their fan-in's scale (``fan_in_defs``).  Reported: prefill and
+   decode ms, tokens/s, weights and peak memory, a profiled prefill and
+   decode step (attention kernels' device time, idle share), and the
+   new call geometries alone (``FAMILY_CALLS``: kernel, plain and SDPA
+   times beside the bound), their launches added to the attention
+   entry's by family.
+
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
-the last line.  ``python3 chip_smoke.py --only 3,18,19,20`` builds and runs
-phases 3, 18, 19 and/or 20 alone (a development run: phase 18 then computes
-its own unsharded baseline, and no kernel line is printed).  Any failure raises and exits non-zero.  The last line is
+the last line.  ``python3 chip_smoke.py --only 3,18,19,20,21`` builds and
+runs phases 3, 18, 19, 20 and/or 21 alone (a development run: phase 18
+then computes its own unsharded baseline, and no kernel line is
+printed).  Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -321,6 +345,7 @@ The full record also goes to ``chiprun_out/chip_smoke.json``.
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import pathlib
@@ -2020,16 +2045,18 @@ def lm_profile(fn, range_name: Optional[str] = None) -> dict:
 
 
 def lm_call_case(ops, ref, fa, name, shape, q_offset, sms, dev,
-                 dtype=torch.float32) -> dict:
-    """One attention call of the LM path alone at its shape and dtype:
-    kernel against ``ref.attention_ref`` (``ATTN_TOL``), device times of
-    the kernel, the plain version and SDPA (causal: ``is_causal``; decode:
-    an explicit bool mask, built before timing), its launches and bound
-    (the keys the masks keep, read once)."""
+                 dtype=torch.float32, causal: bool = True,
+                 window: Optional[int] = None) -> dict:
+    """One attention call of the LM path alone at its shape, dtype and
+    masks: kernel against ``ref.attention_ref`` (``ATTN_TOL``), device
+    times of the kernel, the plain version and SDPA (causal from position
+    0: ``is_causal``; non-causal: no mask; otherwise an explicit bool mask,
+    built before timing), its launches and bound (the keys the masks keep,
+    read once)."""
     import torch.nn.functional as F
     b, h, hkv, sq, skv, d = shape
     x = attention_inputs(np.random.default_rng(150), shape, dtype, dev)
-    kw = dict(causal=True, window=None, q_offset=q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
     p = fa.plan(*shape, dtype, **kw, sm_count=sms)
     before = ops.attention_launches
     got = ops.attention(*x, **kw)
@@ -2039,19 +2066,24 @@ def lm_call_case(ops, ref, fa, name, shape, q_offset, sms, dev,
     if launches != p.launches:
         raise AssertionError(f"{name}: {launches} launches, planned "
                              f"{p.launches}")
-    if q_offset == 0 and sq == skv:
+    if causal and window is None and q_offset == 0 and sq == skv:
         lib = lambda: F.scaled_dot_product_attention(
             *x, is_causal=True, scale=d ** -0.5, enable_gqa=True)
+    elif not causal and window is None:
+        lib = lambda: F.scaled_dot_product_attention(
+            *x, scale=d ** -0.5, enable_gqa=True)
     else:
-        mask = ref.attention_mask(sq, skv, True, None, q_offset, dev)
+        mask = ref.attention_mask(sq, skv, causal, window, q_offset, dev)
         lib = lambda: F.scaled_dot_product_attention(
             *x, attn_mask=mask, scale=d ** -0.5, enable_gqa=True)
     lib_err = attention_err(lib(), want, SDPA_TOL)["max_abs_err"]
-    kept = dict(shape=(b, h, hkv, sq, min(skv, q_offset + sq), d),
-                dtype=dtype, causal=True, window=None, q_offset=q_offset)
+    lo, hi = fa.kept_range(sq, skv, causal, window, q_offset)
+    kept = dict(shape=(b, h, hkv, sq, hi - lo, d), dtype=dtype,
+                causal=causal, window=window, q_offset=q_offset - lo)
     t_bound, bound_by = attention_bound(kept)
     row = {"case": name, "shape_b_h_hkv_sq_skv_d": list(shape),
-           "dtype": str(dtype).replace("torch.", ""),
+           "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+           "window": window,
            "q_offset": q_offset, "path": p.path, "blocks": p.blocks,
            "splits": p.splits, "launches": launches,
            "max_abs_err": st["max_abs_err"],
@@ -4330,6 +4362,718 @@ def split_decode_phase(ops, ref, fa, card: str, dev) -> dict:
             "launches_by_case": ranks_launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: gemma3-1b, whisper-base, internvl2-26b and jamba (cut to 4
+# layers) served at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_BATCH, FAMILY_NEW = 4, 16
+# Each family's serve: the entry point (``Server`` over ``requests``
+# requests, or ``serving.engine.generate`` over ``batches`` batches of
+# ``FAMILY_BATCH``, each at one prompt length), the prompt lengths drawn
+# from its seed (``prompt``: a (lo, hi) range, or the lengths to draw
+# from), the cache's ``max_seq``, the dtype of weights and cache, and the
+# depth cut (``n_layers``; None: the published depth).
+FAMILIES = [
+    dict(arch="gemma3-1b", dtype=torch.float32, entry="server", requests=8,
+         prompt=(768, 1024), max_seq=1280, n_layers=None, seed=211),
+    # Whisper's decoder context is 448 positions
+    dict(arch="whisper-base", dtype=torch.float32, entry="generate",
+         batches=2, prompt=(256, 416), max_seq=448, n_layers=None, seed=212),
+    dict(arch="internvl2-26b", dtype=torch.bfloat16, entry="generate",
+         batches=2, prompt=(512, 768), max_seq=1280, n_layers=None,
+         seed=213),
+    # the first 4 of 72 layers keep each kind jamba has: mamba, mamba + MoE,
+    # mamba, attention + MoE; prompts are multiples of the scan chunk (128)
+    dict(arch="jamba-1.5-large-398b", dtype=torch.bfloat16, entry="server",
+         requests=8, prompt=(768, 896, 1024), max_seq=1280, n_layers=4,
+         seed=214),
+]
+CARD_BYTES = 80e9                  # what the weights and the cache must fit
+# The new call geometries of phase 21, each timed alone (``lm_call_case``)
+FAMILY_CALLS = [
+    dict(name="gemma3-1b local prefill", shape=(4, 4, 1, 1024, 1024, 256),
+         dtype=torch.float32, causal=True, window=512, q_offset=0),
+    dict(name="gemma3-1b local decode (ring)", shape=(4, 4, 1, 1, 512, 256),
+         dtype=torch.float32, causal=False, window=None, q_offset=0),
+    dict(name="gemma3-1b global decode", shape=(4, 4, 1, 1, 1280, 256),
+         dtype=torch.float32, causal=True, window=None, q_offset=1000),
+    dict(name="whisper-base encoder", shape=(4, 8, 8, 1500, 1500, 64),
+         dtype=torch.float32, causal=False, window=None, q_offset=0),
+    dict(name="whisper-base cross decode", shape=(4, 8, 8, 1, 1500, 64),
+         dtype=torch.float32, causal=False, window=None, q_offset=0),
+    dict(name="internvl2-26b prefill", shape=(4, 48, 8, 1024, 1024, 128),
+         dtype=torch.bfloat16, causal=True, window=None, q_offset=0),
+    dict(name="internvl2-26b decode", shape=(4, 48, 8, 1, 1280, 128),
+         dtype=torch.bfloat16, causal=True, window=None, q_offset=1000),
+    dict(name="jamba attention prefill", shape=(4, 64, 8, 1024, 1024, 128),
+         dtype=torch.bfloat16, causal=True, window=None, q_offset=0),
+    dict(name="jamba attention decode", shape=(4, 64, 8, 1, 1280, 128),
+         dtype=torch.bfloat16, causal=True, window=None, q_offset=1000),
+]
+# Jamba's scan against its recurrent step: one prefill of the whole
+# sequence against a prefill of the first part and teacher-forced steps
+# over the rest, at batch 1 (a token's top-2 experts are two experts, each
+# within a decode's capacity of 1; at batch 4 a decode's capacity drops
+# every assignment that meets another on an expert, as the reference's
+# dispatch does, which a prefill at capacity 640 does not), the MoE
+# layers on the whole prefill's routing (bf16 near-ties would otherwise
+# flip between the two).  Each Mamba layer's ``conv`` and ``h`` within
+# MAMBA_STATE_TOL × max |value|, the last logits within MAMBA_LOGIT_TOL ×
+# max |logit| of the whole prefill's (PERF.md, written before the first
+# chip run).
+MAMBA_SPLIT = (896, 128)
+MAMBA_STATE_TOL = 2e-2
+MAMBA_LOGIT_TOL = 5e-2
+
+
+def family_config(fam: dict):
+    """The family's ``ModelConfig``: the published one, cut in depth
+    where ``n_layers`` says."""
+    from repro_torch.configs import get_config
+    cfg = get_config(fam["arch"])
+    if fam["n_layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=fam["n_layers"])
+    return cfg
+
+
+def fan_in_defs(defs):
+    """``defs`` with each stacked layer's normal leaves drawn at 1/√(the
+    layer's own fan-in), the scale ``init_params`` means: it takes the
+    fan-in from a leaf's first dim, which on a stacked leaf is the repeat
+    count (reference fault 6, ROADMAP Queue 3), so gemma3-1b's 24 stacked
+    layers draw at 1/√4 = 0.5 where 1/√1152 = 0.029 is meant.  At that scale the random
+    models are chaotic (whisper-base's teacher-forced logits move by half
+    their size under float32 rounding alone) and no logit gate can tell a
+    wiring fault from rounding.  Leaf order and seeds are unchanged."""
+    from repro_torch.models.params import ParamDef, tree_map
+
+    def fix(d: ParamDef) -> ParamDef:
+        if d.init != "normal" or d.scale is not None:
+            return d
+        layer = d.shape[1:]
+        fan_in = layer[0] if len(layer) > 1 else layer[-1]
+        return dataclasses.replace(d, scale=1.0 / np.sqrt(max(1, fan_in)))
+
+    out = dict(defs, blocks=[tree_map(fix, b) for b in defs["blocks"]])
+    if "encoder" in defs:
+        out["encoder"] = dict(defs["encoder"],
+                              blocks=tree_map(fix, defs["encoder"]["blocks"]))
+    return out
+
+
+def family_bytes(fam: dict) -> dict:
+    """Bytes of the family's weights (``abstract_params``, on ``meta``) and
+    of its cache at ``FAMILY_BATCH`` × ``max_seq`` (``init_cache`` on
+    ``meta``), in its dtype: no allocation."""
+    from repro_torch.models.params import abstract_params
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.serving.cache import init_cache
+    cfg = family_config(fam)
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    weights = abstract_params(model_defs(cfg), fam["dtype"])
+    cache = init_cache(cfg, FAMILY_BATCH, fam["max_seq"], fam["dtype"],
+                       "meta")
+    leaves = []
+    for tree in (weights, cache.blocks, cache.tail):
+        pending = [tree]
+        while pending:
+            x = pending.pop()
+            if isinstance(x, torch.Tensor):
+                leaves.append(x)
+            elif isinstance(x, dict):
+                pending.extend(x.values())
+            elif isinstance(x, (list, tuple)):
+                pending.extend(x)
+        if tree is weights:
+            w_bytes, leaves = size(leaves), []
+    return {"weights": w_bytes, "cache": size(leaves)}
+
+
+def family_calls(fa, cfg, b: int, s_all: int, max_seq: int, positions,
+                 encodes: int = 1, prefill: bool = True) -> list:
+    """Every attention call of a prefill of ``s_all`` positions (the
+    modality prefix included; ``prefill``) and a decode step at each of
+    ``positions``, as (shape, masks) at the padded head dim: the encoder
+    ``encodes`` times (non-causal), a causal self-attention a layer
+    (windowed on local layers), a decode over the dense cache or the ring
+    (``ring_attention_args``), and a cross-attention a decoder layer and
+    call."""
+    from repro_torch.serving.engine import ring_attention_args
+    d = fa.padded_head_dim(cfg.head_dim)
+    heads = (b, cfg.n_heads, cfg.n_kv_heads)
+    windows = [cfg.local_window if k in ("attn_local", "attn_swa") else None
+               for k in cfg.layer_schedule() if k.startswith("attn")]
+    t_enc = cfg.encoder_seq if cfg.encoder_layers else 0
+    cross = [((*heads, 1, t_enc, d), dict(causal=False))] * (
+        cfg.n_layers if t_enc else 0)
+    calls = []
+    if prefill:
+        calls += [((*heads, t_enc, t_enc, d), dict(causal=False))] * (
+            encodes * cfg.encoder_layers)
+        calls += [((*heads, s_all, s_all, d), dict(causal=True, window=w))
+                  for w in windows]
+        calls += [((*heads, s_all, t_enc, d), dict(causal=False))] * len(
+            cross)
+    for pos in positions:
+        for w in windows:
+            slots = max_seq if w is None else min(w, max_seq)
+            masks = (dict(causal=True, q_offset=pos) if w is None
+                     else ring_attention_args(slots, pos))
+            calls.append(((*heads, 1, slots, d), masks))
+        calls += cross
+    return calls
+
+
+def planned_launches(fa, calls, dtype, sms: int) -> int:
+    return sum(fa.plan(*shape, dtype, **kw, sm_count=sms).launches
+               for shape, kw in calls)
+
+
+class GenerateRecorder:
+    """While open, ``serving.engine.generate``'s calls of ``prefill`` and
+    ``decode_step`` are recorded as ``launch.serve.Generation``s (one a
+    call of generate): the prompts, the tokens fed and their positions,
+    the logits and the host-clock seconds of each call, synchronised at
+    its end (generate itself reads nothing back)."""
+
+    def __init__(self, engine):
+        self.engine, self.generations = engine, []
+
+    def __enter__(self):
+        from repro_torch.launch.serve import Generation
+        real_prefill, real_decode = self.engine.prefill, \
+            self.engine.decode_step
+        self.real = (real_prefill, real_decode)
+
+        def prefill(params, cfg, tokens, cache, **kw):
+            gen = Generation(tokens.cpu().numpy())
+            t0 = time.perf_counter()
+            logits, cache = real_prefill(params, cfg, tokens, cache, **kw)
+            torch.cuda.synchronize()
+            gen.seconds.append(time.perf_counter() - t0)
+            gen.logits.append(logits)
+            self.generations.append(gen)
+            return logits, cache
+
+        def decode_step(params, cfg, cache, tokens, pos, **kw):
+            gen = self.generations[-1]
+            t0 = time.perf_counter()
+            logits, cache = real_decode(params, cfg, cache, tokens, pos, **kw)
+            torch.cuda.synchronize()
+            gen.seconds.append(time.perf_counter() - t0)
+            gen.steps.append((tokens.clone(), int(pos)))
+            gen.logits.append(logits)
+            return logits, cache
+
+        self.engine.prefill, self.engine.decode_step = prefill, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.prefill, self.engine.decode_step = self.real
+
+
+def _fed(tokens, dev) -> torch.Tensor:
+    """A decode step's tokens, as the Server (numpy) or generate (a device
+    tensor) fed them, as a device tensor."""
+    if isinstance(tokens, np.ndarray):
+        return torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    return tokens.to(dev)
+
+
+def family_prompts(fam: dict, cfg) -> list:
+    """(prompts (B, S) int32, modality inputs) a generation or batch, from
+    the family's seed: ``Server`` families' requests are drawn one by one
+    and packed by the server; ``generate`` families' batches take one
+    length each, with seeded frames or a seeded vision prefix."""
+    rng = np.random.default_rng(fam["seed"])
+    lo_hi = fam["prompt"]
+
+    def length():
+        if len(lo_hi) == 2:
+            return int(rng.integers(lo_hi[0], lo_hi[1] + 1))
+        return int(rng.choice(lo_hi))
+
+    if fam["entry"] == "server":
+        return [rng.integers(0, cfg.vocab, length()).astype(np.int32)
+                for _ in range(fam["requests"])]
+    batches = []
+    for _ in range(fam["batches"]):
+        toks = rng.integers(0, cfg.vocab, (FAMILY_BATCH, length())
+                            ).astype(np.int32)
+        extra = {}
+        if cfg.encoder_layers:
+            extra["frames"] = rng.normal(0, 0.5, (
+                FAMILY_BATCH, cfg.encoder_seq, cfg.d_model)).astype(
+                    np.float32)
+        if cfg.frontend_prefix:
+            extra["prefix_embed"] = rng.normal(0, 0.5, (
+                FAMILY_BATCH, cfg.frontend_prefix, cfg.d_model)).astype(
+                    np.float32)
+        batches.append((toks, extra))
+    return batches
+
+
+def family_replay(params, cfg, gen, extra, fam, dev, plain: bool,
+                  routes=None):
+    """Generation ``gen`` teacher-forced through ``prefill`` and
+    ``decode_step`` (on the plain path with ``plain``; the MoE layers on
+    ``routes``' routing where given): (its logits a call, the routes its
+    own router picked)."""
+    from repro_torch.models import layers, moe
+    from repro_torch.models.transformer import encode
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.engine import decode_step, prefill
+    scope = layers.plain_attention() if plain else contextlib.nullcontext()
+    with torch.inference_mode(), scope, \
+            moe.routing_log(replay=routes) as own:
+        cache = init_cache(cfg, FAMILY_BATCH, fam["max_seq"], fam["dtype"],
+                           dev)
+        logits, cache = prefill(params, cfg,
+                                torch.from_numpy(gen.prompts).to(dev), cache,
+                                **extra)
+        enc_out = (encode(params, cfg, extra["frames"])
+                   if cfg.encoder_layers else None)
+        seen = [logits]
+        for fed, pos in gen.steps:
+            logits, cache = decode_step(params, cfg, cache, _fed(fed, dev),
+                                        pos, enc_out=enc_out)
+            seen.append(logits)
+        del cache
+    return seen, own
+
+
+def mamba_split_check(params, cfg, fam, dev) -> dict:
+    """Jamba's chunked scan against its recurrent step at width
+    (``MAMBA_SPLIT``, batch 1): one prefill of the whole sequence, then a
+    prefill of its first part and one teacher-forced decode step a token
+    over the rest on the whole prefill's routing; each Mamba layer's
+    ``conv`` and ``h`` and the last logits against the whole prefill's.
+    The MoE calls' dropped assignments (beyond an expert's capacity) are
+    counted on both sides."""
+    from repro_torch.models import moe
+    from repro_torch.serving.cache import init_cache
+    from repro_torch.serving.engine import _layers, decode_step, prefill
+    n0, steps = MAMBA_SPLIT
+    n = n0 + steps
+    m = cfg.moe
+    seq = torch.from_numpy(np.random.default_rng(215).integers(
+        0, cfg.vocab, (1, n))).to(dev)
+
+    def drops(routes) -> int:
+        out = 0
+        for ids in routes:
+            cap = moe._capacity(ids.shape[1], m)
+            counts = torch.bincount(ids.reshape(-1), minlength=m.n_experts)
+            out += int((counts - cap).clamp(min=0).sum())
+        return out
+
+    with torch.inference_mode():
+        whole = init_cache(cfg, 1, n, fam["dtype"], dev)
+        with moe.routing_log() as routes:
+            want, whole = prefill(params, cfg, seq, whole)
+        split_routes = [r[:, :n0] for r in routes]
+        for t in range(steps):
+            split_routes += [r[:, n0 + t:n0 + t + 1] for r in routes]
+        part = init_cache(cfg, 1, n, fam["dtype"], dev)
+        with moe.routing_log(replay=split_routes) as own:
+            got, part = prefill(params, cfg, seq[:, :n0], part)
+            for t in range(steps):
+                got, part = decode_step(params, cfg, part, seq[:, n0 + t],
+                                        n0 + t)
+    pairs = [("logits", got[:, :cfg.vocab].float(),
+              want[:, :cfg.vocab].float(), MAMBA_LOGIT_TOL)]
+    i = 0
+    for (_, pc, kind, _), (_, wc, _, _) in zip(_layers(params, cfg, part),
+                                               _layers(params, cfg, whole)):
+        if kind == "mamba":
+            pairs += [(f"layer {i} {leaf}", pc[leaf].float(),
+                       wc[leaf].float(), MAMBA_STATE_TOL)
+                      for leaf in ("conv", "h")]
+        i += 1
+    rows, failures = [], []
+    for name, a, b, tol in pairs:
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        rows.append({"leaf": name, "max_abs_diff": err,
+                     "max_abs_value": scale, "rel_diff": err / scale,
+                     "tolerance": tol})
+        if not (torch.isfinite(a).all() and err <= tol * scale):
+            failures.append(f"{name}: max |diff| {err:.3g} > {tol} × "
+                            f"{scale:.3g}")
+    flips = [float((a.sort(-1).values != b.sort(-1).values).any(-1)
+                   .float().mean()) for a, b in zip(own, split_routes)]
+    out = {"split": list(MAMBA_SPLIT), "batch": 1,
+           "state_tolerance": MAMBA_STATE_TOL,
+           "logit_tolerance": MAMBA_LOGIT_TOL,
+           "logits_rel_diff": rows[0]["rel_diff"],
+           "state_max_rel_diff": max(r["rel_diff"] for r in rows[1:]),
+           "leaves": rows,
+           "dropped_assignments": {"whole": drops(routes),
+                                   "split": drops(split_routes)},
+           "own_router_flip_share_max": max(flips) if flips else 0.0,
+           "failures": failures}
+    del whole, part
+    return out
+
+
+def family_serve(ops, ref, fa, fam: dict, card: str, dev) -> dict:
+    """One family of phase 21 at full width (``FAMILIES``): seeded weights
+    (``fan_in_defs``) built on the card, then served through ``Server`` or
+    ``serving.engine.generate`` (``GenerateRecorder``), each attention
+    call on the ``flash_attention`` kernels.  Gates: the attention
+    launches, counted from 0 over the serve, equal the plans' sum over its
+    calls (``family_calls``); every logit finite, every token below the
+    vocabulary.  float32: generation 1 replayed teacher-forced on the
+    plain path, each call's logits within ``LM_TOL`` × max |plain logit|.
+    bf16: generation 1 replayed teacher-forced on the kernel path with
+    every attention call held to its plain version on its own operands
+    (``AttentionCallCheck``); the plain path's logits reported (on the
+    kernel path's routing, with the router-flip share, where the model has
+    MoE layers).  Jamba: ``mamba_split_check``.  Reported: prefill and
+    decode times, tokens/s, the weights' bytes and the serve's peak
+    memory, and one profiled prefill and decode step (the attention
+    kernels' device time, the idle share)."""
+    from repro_torch.device import strict_float32
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.models.transformer import encode, model_defs
+    from repro_torch.serving import engine
+    from repro_torch.serving.cache import init_cache
+
+    cfg = family_config(fam)
+    dtype, max_seq, b = fam["dtype"], fam["max_seq"], FAMILY_BATCH
+    defs = model_defs(cfg)
+    n_params = param_count(defs)
+    sms = fa.device_sm_count(dev)
+    elt = 4 if dtype == torch.float32 else 2
+    f32 = dtype == torch.float32
+    print(f"{fam['arch']} ({card}): {cfg.n_layers} layers "
+          f"{list(cfg.layer_schedule())[:8]}"
+          f"{'...' if cfg.n_layers > 8 else ''}, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads}, head dim "
+          f"{cfg.head_dim}, vocab {cfg.vocab} (padded {cfg.vocab_padded})"
+          f": {n_params / 1e9:.3f} B parameters, "
+          f"{elt * n_params / 1e9:.2f} GB of {str(dtype)[6:]} weights")
+    work = family_prompts(fam, cfg)
+    out = {"arch": fam["arch"], "card": card, "params": n_params,
+           "layers": cfg.n_layers,
+           "layer_kinds": list(cfg.layer_schedule()),
+           "moe_layers": list(cfg.moe_layers()),
+           "dtype": str(dtype).replace("torch.", ""),
+           "weight_bytes": elt * n_params, "entry": fam["entry"],
+           "batch": b, "max_seq": max_seq, "new_tokens": FAMILY_NEW}
+    scope = strict_float32() if f32 else contextlib.nullcontext()
+    with scope:
+        t0 = time.perf_counter()
+        params = init_params(fan_in_defs(defs), seed=0, dtype=dtype,
+                             device=dev)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["weights_allocated_bytes"] = torch.cuda.memory_allocated(dev)
+        if fam["entry"] == "server":
+            gens_in = [work[g:g + b] for g in range(0, len(work), b)]
+            s_alls = [max(len(p) for p in grp) for grp in gens_in]
+            out["prompt_lengths"] = [len(p) for p in work]
+        else:
+            s_alls = [toks.shape[1] + cfg.frontend_prefix
+                      for toks, _ in work]
+            out["prompt_lengths"] = [toks.shape[1] for toks, _ in work]
+        encodes = 2 if fam["entry"] == "generate" else 1
+        calls = []
+        for s_all in s_alls:
+            calls += family_calls(fa, cfg, b, s_all, max_seq,
+                                  range(s_all, s_all + FAMILY_NEW - 1),
+                                  encodes)
+        planned = planned_launches(fa, calls, dtype, sms)
+        out.update({"attention_calls": len(calls),
+                    "planned_launches": planned})
+
+        def extra_on(extra):
+            return {k: torch.from_numpy(v).to(dev, dtype)
+                    for k, v in extra.items()}
+
+        # warm: a prefill and a decode step at the longest prompt
+        with torch.inference_mode():
+            warm = init_cache(cfg, b, max_seq, dtype, dev)
+            s_tok = max(s_alls) - cfg.frontend_prefix
+            toks = torch.zeros((b, s_tok), dtype=torch.long, device=dev)
+            kw = ({} if fam["entry"] == "server"
+                  else extra_on(work[int(np.argmax(s_alls))][1]))
+            engine.prefill(params, cfg, toks, warm, **kw)
+            enc_out = (encode(params, cfg, kw["frames"])
+                       if cfg.encoder_layers else None)
+            engine.decode_step(params, cfg, warm, toks[:, 0], max(s_alls),
+                               enc_out=enc_out)
+            del warm, toks, enc_out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with moe.routing_log() as kernel_routes:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            if fam["entry"] == "server":
+                server = Server(cfg, params, batch_size=b, max_seq=max_seq,
+                                dtype=dtype, device=dev, record=True)
+                for rid, p in enumerate(work):
+                    server.submit(Request(rid, p, FAMILY_NEW))
+                results = server.run()
+                torch.cuda.synchronize()
+                gens = server.generations
+                tokens = [t for rid in sorted(results)
+                          for t in results[rid]]
+                if (sorted(results) != list(range(len(work)))
+                        or any(len(results[r]) != FAMILY_NEW
+                               for r in results)):
+                    raise AssertionError(f"{fam['arch']}: results {results}")
+                del server
+            else:
+                tokens = []
+                with GenerateRecorder(engine) as recorder:
+                    for toks, extra in work:
+                        got = engine.generate(
+                            params, cfg, torch.from_numpy(toks).to(dev),
+                            FAMILY_NEW, max_seq, dtype=dtype,
+                            **extra_on(extra))
+                        tokens += got.cpu().reshape(-1).tolist()
+                        if tuple(got.shape) != (b, FAMILY_NEW):
+                            raise AssertionError(f"{fam['arch']}: generate "
+                                                 f"gave {tuple(got.shape)}")
+                gens = recorder.generations
+                del recorder
+            wall = time.perf_counter() - t0
+        launches, gemm = ops.attention_launches, ops.launches
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if launches != planned or gemm:
+            raise AssertionError(f"{fam['arch']}: {launches} attention "
+                                 f"launches, planned {planned} (vta_gemm "
+                                 f"{gemm})")
+        if len(gens) != len(s_alls) or max(tokens) >= cfg.vocab \
+                or min(tokens) < 0:
+            raise AssertionError(f"{fam['arch']}: {len(gens)} generations, "
+                                 f"tokens in [{min(tokens)}, "
+                                 f"{max(tokens)}]")
+        for gen in gens:
+            for logits in gen.logits:
+                if not torch.isfinite(logits[:, :cfg.vocab].float()).all():
+                    raise AssertionError(f"{fam['arch']}: a logit is not "
+                                         f"finite")
+        decode_s = sorted(s for gen in gens for s in gen.seconds[1:])
+        out.update({
+            "launches": launches, "serve_s": wall, "tokens": len(tokens),
+            "tokens_per_s": len(tokens) / wall,
+            "prefill_ms": [gen.seconds[0] * 1e3 for gen in gens],
+            "prefill_positions": s_alls,
+            "decode_ms_median": decode_s[len(decode_s) // 2] * 1e3,
+            "decode_ms_min": decode_s[0] * 1e3,
+            "decode_ms_max": decode_s[-1] * 1e3})
+        gen = gens[0]
+        extra = {} if fam["entry"] == "server" else extra_on(work[0][1])
+        n_calls = len(family_calls(
+            fa, cfg, b, s_alls[0], max_seq,
+            range(s_alls[0], s_alls[0] + FAMILY_NEW - 1), encodes))
+        # generation 1's MoE calls: the MoE layers a prefill or step
+        routes = (kernel_routes[:sum(cfg.moe_layers()) * len(gen.logits)]
+                  if cfg.moe else None)
+        del kernel_routes
+        # every attention call of the kernel path against its plain
+        # version on the same operands
+        with AttentionCallCheck(ops, ref) as checked:
+            family_replay(params, cfg, gen, extra, fam, dev, False, routes)
+        out["attention_calls_checked"] = checked.summary()
+        if checked.summary()["calls"] != n_calls or checked.failures:
+            raise AssertionError(f"{fam['arch']} replay: attention calls "
+                                 f"against the plain version: "
+                                 f"{checked.summary()} (planned {n_calls})")
+        before = ops.attention_launches
+        want, plain_routes = family_replay(params, cfg, gen, extra, fam, dev,
+                                           True, routes)
+        if ops.attention_launches != before:
+            raise AssertionError("the plain replay launched the kernel")
+        diffs, failed = [], []
+        for i, (got, w) in enumerate(zip(gen.logits, want)):
+            w = w[:, :cfg.vocab].float()
+            err = float((got[:, :cfg.vocab].float() - w).abs().max())
+            scale = float(w.abs().max())
+            row = {"call": "prefill" if i == 0 else f"decode {i}",
+                   "max_abs_diff": err, "max_abs_logit": scale,
+                   "rel_diff": err / scale}
+            if f32 and not err <= LM_TOL * scale:
+                failed.append(f"{row['call']}: max |diff| {err:.3g} > "
+                              f"{LM_TOL} × {scale:.3g}")
+            if routes is not None:
+                per = len(routes) // len(gen.logits)
+                row["router_flip_share"] = float(torch.stack([
+                    (a.sort(-1).values != c.sort(-1).values).any(-1)
+                    .float().mean() for a, c in zip(
+                        routes[i * per:(i + 1) * per],
+                        plain_routes[i * per:(i + 1) * per])]).mean())
+            diffs.append(row)
+        tol = LM_TOL if f32 else MOE_TOL
+        out["teacher_forced"] = {
+            "tolerance": (f"{LM_TOL} x max |plain logit| a call" if f32
+                          else f"{MOE_TOL} x max |plain logit| a call "
+                          f"(reported)"),
+            "gated": f32, "calls": diffs,
+            "max_rel_diff": max(x["rel_diff"] for x in diffs),
+            "calls_within": sum(x["rel_diff"] <= tol for x in diffs)}
+        if routes is not None:
+            out["teacher_forced"]["calls_with_a_flip"] = sum(
+                x["router_flip_share"] > 0 for x in diffs)
+        print(f"  teacher-forced kernel vs plain logits a call, max |diff| / "
+              f"max |logit|: " + ", ".join(f"{x['rel_diff']:.3g}"
+                                          for x in diffs))
+        if failed:
+            raise AssertionError(f"{fam['arch']}: kernel path != plain path: "
+                                 + " | ".join(failed))
+        del want, plain_routes, routes
+
+        # one prefill and one decode step under the profiler
+        with torch.inference_mode():
+            toks = torch.from_numpy(gen.prompts).to(dev)
+            cache = init_cache(cfg, b, max_seq, dtype, dev)
+            enc_out = (encode(params, cfg, extra["frames"])
+                       if cfg.encoder_layers else None)
+            fed, pos = _fed(gen.steps[0][0], dev), gen.steps[0][1]
+            engine.decode_step(params, cfg, cache, fed, pos,
+                               enc_out=enc_out)                     # warm
+            for key, fn, cs in (
+                    ("profile_prefill",
+                     lambda: engine.prefill(params, cfg, toks, cache,
+                                            **extra),
+                     family_calls(fa, cfg, b, s_alls[0], max_seq, [])),
+                    ("profile_decode",
+                     lambda: engine.decode_step(params, cfg, cache, fed,
+                                                pos, enc_out=enc_out),
+                     family_calls(fa, cfg, b, s_alls[0], max_seq, [pos],
+                                  prefill=False))):
+                want_n = planned_launches(fa, cs, dtype, sms)
+                # the profiler can lose a kernel's event (after the earlier
+                # phases' traces, one of gemma3-1b's 26 in every attempt);
+                # the launches are gated where they are counted, so a
+                # trace is taken up to 3 times, the fullest kept, its
+                # attempts recorded, and one with none refused
+                tries = []
+                while len(tries) < 3 and (not tries or tries[-1][
+                        "attention_kernels"] != want_n):
+                    tries.append(lm_profile(fn))
+                traced = [t["attention_kernels"] for t in tries]
+                kept = int(np.argmax(traced))
+                out[key] = dict(tries[kept], planned_kernels=want_n,
+                                traced_kernels_by_attempt=traced,
+                                attempt_kept=kept + 1)
+                if want_n and not traced[kept]:
+                    raise AssertionError(
+                        f"{fam['arch']} {key}: no attention kernel traced "
+                        f"in {len(traced)} attempts, planned {want_n}")
+            del cache, enc_out
+        if cfg.ssm_kind == "mamba":
+            out["mamba_split"] = mamba_split_check(params, cfg, fam, dev)
+        del params, gens, gen, extra
+    torch.cuda.empty_cache()
+    pp, pd, tf = out["profile_prefill"], out["profile_decode"], \
+        out["teacher_forced"]
+    print(f"  init {out['init_s']:.2f} s; prompts {out['prompt_lengths']} "
+          f"(positions at prefill {s_alls}) x {FAMILY_NEW} tokens through "
+          f"{'Server' if fam['entry'] == 'server' else 'engine.generate'}:"
+          f" {len(tokens)} tokens in {wall:.3f} s "
+          f"({out['tokens_per_s']:.2f} tokens/s); prefill "
+          + ", ".join(f"{t:.1f}" for t in out["prefill_ms"])
+          + f" ms; decode median {out['decode_ms_median']:.2f} ms a step "
+          f"(min {out['decode_ms_min']:.2f}, max {out['decode_ms_max']:.2f})"
+          f"; weights {out['weights_allocated_bytes'] / 2**30:.2f} GiB, peak"
+          f" memory {out['peak_memory_bytes'] / 2**30:.2f} GiB")
+    print(f"  attention launches {launches} = planned {planned} over "
+          f"{len(calls)} calls; teacher-forced kernel vs plain logits: max "
+          f"|diff| / max |logit| {tf['max_rel_diff']:.3g} "
+          + (f"({tf['calls_within']} of {len(tf['calls'])} calls within "
+             f"{LM_TOL})" if f32 else
+             f"({tf['calls_within']} of {len(tf['calls'])} calls within "
+             f"{MOE_TOL}, reported"
+             + (f"; {tf['calls_with_a_flip']} calls where the plain path's "
+                f"router would pick another expert set)" if cfg.moe
+                else ")")))
+    ck = out["attention_calls_checked"]
+    print(f"  the {ck['calls']} attention calls of a kernel-path replay of "
+          f"generation 1 against the plain version on their operands: max "
+          f"|diff| {ck['max_abs_err']:.3g}, values that differ at most "
+          f"{ck['max_mismatch_share']:.4f} ({str(dtype)[6:]} tolerance, all "
+          f"within)")
+    print(f"  profiled prefill ({card}): attention kernels "
+          f"{pp['attention_kernel_ms']:.3f} ms ({pp['attention_kernels']} "
+          f"of {pp['planned_kernels']} launches traced, attempts "
+          f"{pp['traced_kernels_by_attempt']}) of "
+          f"{pp['device_busy_ms']:.3f} ms device time, wall "
+          f"{pp['traced_wall_ms']:.3f} ms, idle share {pp['idle_share']:.4f}"
+          f"; decode step: attention {pd['attention_kernel_ms']:.4f} ms "
+          f"({pd['attention_kernels']} of {pd['planned_kernels']}, attempts "
+          f"{pd['traced_kernels_by_attempt']}) of "
+          f"{pd['device_busy_ms']:.3f} ms, wall {pd['traced_wall_ms']:.3f} "
+          f"ms, idle share {pd['idle_share']:.4f}")
+    for key, prof in (("prefill", pp), ("decode step", pd)):
+        print(f"  top device ops, {key} ({prof['device_events']} events): "
+              + "; ".join(f"{o['name'][:48]} {o['ms']:.3f} ms x{o['count']}"
+                          for o in prof["top_device_ops"]))
+    if "mamba_split" in out:
+        ms = out["mamba_split"]
+        print(f"  Mamba split, prefill {MAMBA_SPLIT[0]} + {MAMBA_SPLIT[1]} "
+              f"teacher-forced steps vs one prefill of {sum(MAMBA_SPLIT)} "
+              f"(batch 1, the prefill's routing): conv/h max rel diff "
+              f"{ms['state_max_rel_diff']:.3g} (limit {MAMBA_STATE_TOL}), "
+              f"logits {ms['logits_rel_diff']:.3g} (limit "
+              f"{MAMBA_LOGIT_TOL}); dropped assignments "
+              f"{ms['dropped_assignments']}; own-router flips at most "
+              f"{ms['own_router_flip_share_max']:.4f}; per leaf: "
+              + ", ".join(f"{r['leaf']} {r['rel_diff']:.3g}"
+                          for r in ms["leaves"]))
+        if ms["failures"]:
+            raise AssertionError("jamba Mamba split: "
+                                 + " | ".join(ms["failures"]))
+    return out
+
+
+def family_phase(ops, ref, fa, card: str, dev) -> dict:
+    """Phase 21: the four families of ``FAMILIES`` served at full width,
+    one after another (each model freed before the next is built), then
+    the new call geometries timed alone (``FAMILY_CALLS``).  The
+    attention launches are the serves' (``launches_by_family``)."""
+    t0 = time.perf_counter()
+    out = {"families": {}, "memory_meta": {}}
+    for fam in FAMILIES:
+        gc.collect()                    # the last family's tensors go
+        torch.cuda.empty_cache()
+        need = family_bytes(fam)
+        out["memory_meta"][fam["arch"]] = need
+        if need["weights"] + need["cache"] > CARD_BYTES:
+            raise AssertionError(f"{fam['arch']}: {need} exceed "
+                                 f"{CARD_BYTES:.0f} bytes")
+        out["families"][fam["arch"]] = family_serve(ops, ref, fa, fam, card,
+                                                    dev)
+    sms = fa.device_sm_count(dev)
+    out["calls"] = [lm_call_case(ops, ref, fa, c["name"], c["shape"],
+                                 c["q_offset"], sms, dev, c["dtype"],
+                                 causal=c["causal"], window=c["window"])
+                    for c in FAMILY_CALLS]
+    for row in out["calls"]:
+        print(f"  {row['case']} {tuple(row['shape_b_h_hkv_sq_skv_d'])} "
+              f"{row['dtype']} causal {row['causal']} window "
+              f"{row['window']} q_offset {row['q_offset']} ({card}): "
+              f"{row['path']} blocks {row['blocks']} splits {row['splits']} "
+              f"launches {row['launches']}: kernel {row['kernel_ms']:.4f} ms,"
+              f" plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, "
+              f"bound {row['bound_ms']:.4f} ({row['bound_by']}, share "
+              f"{row['share_of_bound']:.3f}), max |diff| "
+              f"{row['max_abs_err']:.3g}")
+    out["launches_by_family"] = {a: f["launches"]
+                                 for a, f in out["families"].items()}
+    out["launches"] = sum(out["launches_by_family"].values())
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 21 ({card}): four families served at full width, "
+          f"{out['launches']} attention launches = the plans' sum "
+          f"({out['launches_by_family']}), {out['seconds']:.1f} s")
+    return out
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -4406,15 +5150,15 @@ def f32_ptxas(log: str) -> list:
 
 
 def only_phases(argv) -> set:
-    """``--only 3,18,19,20``: the phases a development run takes (after
+    """``--only 3,18,19,20,21``: the phases a development run takes (after
     the build); none without the option."""
     if not argv:
         return set()
     if len(argv) != 2 or argv[0] != "--only":
-        raise SystemExit("usage: chip_smoke.py [--only 3,18,19,20]")
+        raise SystemExit("usage: chip_smoke.py [--only 3,18,19,20,21]")
     phases = {int(x) for x in argv[1].split(",")}
-    if not phases <= {3, 18, 19, 20}:
-        raise SystemExit("--only takes phases 3, 18, 19 and 20")
+    if not phases <= {3, 18, 19, 20, 21}:
+        raise SystemExit("--only takes phases 3, 18, 19, 20 and 21")
     return phases
 
 
@@ -4506,6 +5250,9 @@ def main() -> int:
         if 20 in only:
             record["split_decode"] = split_decode_phase(ops, ref, attn_kernel,
                                                         card, dev)
+        if 21 in only:
+            record["families"] = family_phase(ops, ref, attn_kernel, card,
+                                              dev)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_only.json").write_text(
@@ -4915,6 +5662,12 @@ def main() -> int:
     attn_entry["launches"] += record["split_decode"]["launches"]
     attn_entry["modes"] = ["output", "return_lse: output and lse (phase 20)"]
     attn_entry["lse_calls"] = record["split_decode"]["cases"]
+    # -- 21. gemma3-1b, whisper-base, internvl2-26b, jamba at full width ----
+    record["families"] = family_phase(ops, ref, attn_kernel, card, dev)
+    for arch, n in record["families"]["launches_by_family"].items():
+        attn_entry["launches_by_path"][f"serve {arch}"] = n
+    attn_entry["launches"] += record["families"]["launches"]
+    attn_entry["lm_calls"] += record["families"]["calls"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

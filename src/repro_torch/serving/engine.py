@@ -15,8 +15,13 @@ contiguous cache (B, KV, S_max, D) with ``causal=True`` and
 tiles above ``pos``.  On CPU tensors (or
 inside ``layers.plain_attention``) it runs :func:`_attn_scores_decode`, the
 reference's masked softmax over the whole cache.  A windowed ring buffer's
-slots are not in position order, so its decode stays on
-:func:`_attn_scores_decode` on either device.
+slots are not in position order, but the keys its mask keeps are a set the
+kernel's own masks name (:func:`ring_attention_args`): while the ring has
+not wrapped, slot j holds position j and the causal mask at ``pos`` keeps
+the reference's slots; once it has, every slot holds one of the last
+``slots`` positions, all within the window, and a non-causal call keeps
+them all (softmax attention does not depend on the keys' order).  On a
+mesh the ring's decode stays on :func:`_attn_scores_decode`.
 
 Where the reference scans over the stacked repeats, this loops over them.
 Caches are written in place (each stacked leaf through its ``[r]`` view)
@@ -257,8 +262,8 @@ def _mesh_decode_attention(cfg: ModelConfig, q, k_cache, v_cache,
     split alike where ``model`` divides them, else whole, each rank taking
     the KV head of each of its query heads, as ``layers.mesh_attention``
     does.  Then the single-device call.  ``slot_pos`` (a ring's,
-    replicated) masks by the window, as the single-device ring decode
-    does."""
+    replicated) masks by the window, as the single-device plain ring
+    decode does."""
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
     mesh = k_cache.device_mesh
@@ -296,6 +301,20 @@ def _mesh_decode_attention(cfg: ModelConfig, q, k_cache, v_cache,
         places += ([Replicate()] * mesh.ndim,)
     return local_map(local, out_placements=q_pl, in_placements=places,
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def ring_attention_args(slots: int, pos: int) -> Dict[str, object]:
+    """The kernel's masks for a decode at ``pos`` over a windowed ring of
+    ``slots`` slots (``min(window, max_seq)``, so never wider than the
+    window) that prefill and the decode steps before ``pos`` filled in
+    position order: ``causal`` at ``q_offset = pos`` before the ring
+    wraps (slots ``0..pos`` hold positions ``0..pos``, the rest are
+    empty), non-causal after (the slots hold positions ``pos - slots +
+    1..pos``, every one within the window).  Either keeps exactly the
+    slots the reference's ``slot_pos`` mask keeps."""
+    if pos < slots:
+        return {"causal": True, "q_offset": pos}
+    return {"causal": False, "q_offset": 0}
 
 
 def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -336,12 +355,18 @@ def attn_decode(bp, cfg: ModelConfig, kind: str, x: torch.Tensor,
                     <= pos)[None, None, None, :]
             o = _attn_scores_decode(cfg, q, cache["k"], cache["v"], mask)
     else:                                       # windowed ring buffer
-        slot = pos % cache["k"].shape[2]
+        slots = cache["k"].shape[2]
+        slot = pos % slots
         _write_ring(cache, k, v, slice(slot, slot + 1), pos)
-        slot_pos = cache["slot_pos"]
-        valid = (slot_pos >= 0) & (pos - slot_pos < cfg.local_window)
-        o = _attn_scores_decode(cfg, q, cache["k"], cache["v"],
-                                valid[None, None, None, :])
+        if uses_kernel(q):
+            o = ops.attention(q.to(cache["k"].dtype).contiguous(),
+                              cache["k"], cache["v"], backend="cuda",
+                              **ring_attention_args(slots, pos)).to(q.dtype)
+        else:
+            slot_pos = cache["slot_pos"]
+            valid = (slot_pos >= 0) & (pos - slot_pos < cfg.local_window)
+            o = _attn_scores_decode(cfg, q, cache["k"], cache["v"],
+                                    valid[None, None, None, :])
     # a 2-D product: a plain (B, 1, n) @ W folds to this one, while
     # DTensor's matmul of a (B, 1, n) takes another kernel, and a one-rank
     # mesh would part from one device in the last bit

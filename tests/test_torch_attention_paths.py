@@ -131,6 +131,10 @@ def _all_cases():
     for shape, kw in smoke.attention_grid():
         for dtype in (torch.float32, torch.bfloat16):
             cases.append((shape, dtype, kw))
+    cases += [(c["shape"], c["dtype"], dict(causal=c["causal"],
+                                             window=c["window"],
+                                             q_offset=c["q_offset"]))
+              for c in smoke.FAMILY_CALLS]
     return cases
 
 
@@ -392,3 +396,45 @@ def test_float32_bound_is_the_faster_scheme(name, tensor_cores, cuda_cores):
     t_cc, by_cc = smoke.attention_bound(case, cuda_cores=True)
     assert by_cc == "operations" and t_cc == pytest.approx(cuda_cores,
                                                            rel=1e-4)
+
+
+def test_plan_phase_21_calls():
+    """Phase 21's geometries: GQA group 6 (internvl2-26b's 48 heads over
+    8) packs its 6 decode rows into ``bf16_split`` and takes
+    ``bf16_tiles`` in prefill; so does jamba's group 8; gemma3-1b's D =
+    256 local prefill keeps only the window's KV tiles; whisper-base's
+    1,500 frames split only the single-row cross decode.  Every call of
+    each family's serve (``family_calls`` over its own prompts) gets a
+    path on an instantiation the libraries hold."""
+    by_name = {c["name"]: fa.plan(*c["shape"], c["dtype"],
+                                  causal=c["causal"], window=c["window"],
+                                  q_offset=c["q_offset"])
+               for c in smoke.FAMILY_CALLS}
+    for fam in ("internvl2-26b", "jamba attention"):
+        dec, pre = by_name[f"{fam} decode"], by_name[f"{fam} prefill"]
+        assert dec.path == "bf16_split" and dec.launches == 2
+        assert pre.path == "bf16_tiles" and pre.splits == 1
+    assert by_name["internvl2-26b decode"].shape[1:3] == (48, 8)
+    local = by_name["gemma3-1b local prefill"]
+    assert (local.path, local.block_q, local.block_kv) == ("f32", 64, 16)
+    assert fa.kept_range(1024, 1024, True, 512, 0) == (0, 1024)
+    assert fa.kept_range(1, 1024, True, 512, 1023) == (512, 1024)
+    assert by_name["whisper-base encoder"].splits == 1
+    assert by_name["whisper-base cross decode"].splits > 1
+    for fam in smoke.FAMILIES:
+        cfg = smoke.family_config(fam)
+        for s_all in (256, 1024):
+            s_all = min(s_all, fam["max_seq"] - smoke.FAMILY_NEW)
+            calls = smoke.family_calls(
+                fa, cfg, smoke.FAMILY_BATCH, s_all, fam["max_seq"],
+                range(s_all, s_all + smoke.FAMILY_NEW - 1), encodes=2)
+            for shape, kw in calls:
+                p = fa.plan(*shape, fam["dtype"], **kw)
+                assert 0 < p.smem_bytes <= fa.SMEM_LIMIT
+                if fam["dtype"] == torch.float32:
+                    assert (shape[5], p.block_q, p.block_kv, p.stages) in \
+                        fa.F32_INSTANTIATIONS
+                else:
+                    group = shape[1] // shape[2]
+                    assert p.path == ("bf16_split" if group * shape[3]
+                                      <= fa.SPLIT_ROWS else "bf16_tiles")

@@ -35,6 +35,17 @@ def _card() -> torch.device:
     # nemotron-4-340b's head set (96 query heads over 8, D = 192)
     ((1, 96, 8, 40, 70, 192), dict(causal=True, q_offset=30)),
     ((2, 96, 8, 1, 300, 192), dict(causal=True, q_offset=299)),
+    # gemma3-1b's local layers (D = 256, window 512): prefill, and the
+    # decode over its wrapped ring (non-causal over every slot)
+    ((1, 4, 1, 600, 600, 256), dict(causal=True, window=512)),
+    ((2, 4, 1, 1, 512, 256), dict(causal=False)),
+    # whisper-base's 1,500 encoder frames, a ragged last KV tile: the
+    # encoder and the cross-attention decode, non-causal
+    ((1, 2, 2, 1500, 1500, 64), dict(causal=False)),
+    ((4, 2, 2, 1, 1500, 64), dict(causal=False)),
+    # GQA group 6 (internvl2-26b's 48 heads over 8), prefill and decode
+    ((1, 12, 2, 300, 300, 128), dict(causal=True)),
+    ((2, 12, 2, 1, 1280, 128), dict(causal=True, q_offset=1000)),
 ])
 def test_flash_attention_matches_plain(shape, kw, dtype, atol, rtol):
     """bf16: one ulp relative plus 4e-3 near 0, and at most 5 % of the
@@ -65,6 +76,7 @@ def test_flash_attention_matches_plain(shape, kw, dtype, atol, rtol):
     ((1, 16, 2, 256, 2048, 128), dict(causal=True, q_offset=1792)),  # split
     ((1, 2, 2, 10, 10, 32), dict(causal=True, q_offset=-5)),  # empty rows
     ((2, 8, 8, 1, 160, 128), dict(causal=True, q_offset=-40)),  # no key
+    ((2, 12, 2, 1, 1280, 128), dict(causal=True, q_offset=1000)),  # group 6
 ])
 def test_flash_attention_lse_matches_plain(shape, kw, dtype):
     """``return_lse`` against ``ref.attention_lse_ref``: o (float32 in this
@@ -251,6 +263,15 @@ BF16_PATH_CASES = [
     ((1, 4, 4, 3, 91, 256), dict(causal=False), "bf16_split"),
     ((1, 2, 1, 300, 2000, 128), dict(causal=True, q_offset=1700),
      "bf16_tiles"),                                     # splits the KV range
+    # GQA group 6: 6 and 12 packed rows of a 16-row tile (decode, two
+    # positions), 18 rows go to the tiles; jamba's group 8 at its shapes
+    ((2, 12, 2, 1, 1280, 128), dict(causal=True, q_offset=1000),
+     "bf16_split"),
+    ((1, 6, 1, 2, 517, 128), dict(causal=True, q_offset=515), "bf16_split"),
+    ((1, 6, 1, 3, 517, 128), dict(causal=True, q_offset=514), "bf16_tiles"),
+    ((1, 12, 2, 1040, 1040, 128), dict(causal=True), "bf16_tiles"),
+    ((1, 16, 2, 1, 1280, 128), dict(causal=True, q_offset=1023),
+     "bf16_split"),
 ]
 
 
@@ -274,6 +295,7 @@ def test_bf16_paths_match_plain(shape, kw, path):
 @pytest.mark.parametrize("shape,kw", [
     ((2, 16, 2, 1, 1500, 128), dict(causal=True, q_offset=1499)),
     ((1, 4, 1, 3, 700, 64), dict(causal=True, window=200, q_offset=697)),
+    ((2, 12, 2, 1, 1280, 128), dict(causal=True, q_offset=1279)),  # group 6
 ])
 def test_split_partials_match_plain(shape, kw):
     """The split kernel's float32 partials (m, l, acc per split) against
@@ -517,10 +539,12 @@ def lm_planned_launches(fa, cfg, b: int, s: int, max_seq: int, steps: int,
     """The attention launches of one prefill of ``s`` tokens (after the
     config's modality prefix) and ``steps`` decode steps, summed over the
     plans of every call at the padded head dim: a causal self-attention a
-    layer in prefill (windowed on local/SWA layers), a dense decode over
-    the cache (the windowed ring's decode is plain), and on an
-    encoder-decoder the encoder twice (inside prefill, and once for the
-    decode steps' ``enc_out``) and a cross-attention a layer and call."""
+    layer in prefill (windowed on local/SWA layers), a decode over the
+    dense cache or over the windowed ring (``ring_attention_args``' masks),
+    and on an encoder-decoder the encoder twice (inside prefill, and once
+    for the decode steps' ``enc_out``) and a cross-attention a layer and
+    call."""
+    from repro_torch.serving.engine import ring_attention_args
     d = fa.padded_head_dim(cfg.head_dim)
     heads = (b, cfg.n_heads, cfg.n_kv_heads)
     s_all = s + cfg.frontend_prefix
@@ -542,10 +566,12 @@ def lm_planned_launches(fa, cfg, b: int, s: int, max_seq: int, steps: int,
                   else None)
         n += fa.plan(*heads, s_all, s_all, d, dtype, window=window,
                      sm_count=sms).launches
-        if window is None:
-            n += sum(fa.plan(*heads, 1, max_seq, d, cache_dtype,
-                             q_offset=s_all + t, sm_count=sms).launches
-                     for t in range(steps))
+        slots = max_seq if window is None else min(window, max_seq)
+        for t in range(steps):
+            masks = (dict(q_offset=s_all + t) if window is None
+                     else ring_attention_args(slots, s_all + t))
+            n += fa.plan(*heads, 1, slots, d, cache_dtype, **masks,
+                         sm_count=sms).launches
     return n
 
 
