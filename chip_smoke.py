@@ -40,7 +40,9 @@ In order it:
    port's compiler and serves 64 seeded requests on the card — four
    batches of 8 and one of 32 — through ``NetworkProgram.serve``; every
    answer must be bit-exact against ``reference_forward_int8`` and the
-   kernel launch counter must rise by exactly 5 per served batch;
+   kernel launch counter must rise by exactly 5 per served batch; then
+   ``NetworkProgram.verify(backend="cuda")`` (the compile-time input's
+   chain against the compiler's reference, 5 launches);
 4b. compiles resnet8 and resnet_tiny (through the graph front end) and the
    CIFAR CNN with the port's compiler at full width (random seeded
    weights, calibrated shifts) and serves each on the card in a batch of 8
@@ -230,16 +232,16 @@ In order it:
    launches against the plans; the attention op under grad in float32
    and bf16, its gradients exactly the plain version's); lm100m at its
    published width (96 M float32 parameters, remat ``dots``) through
-   ``launch.train.train``: 100 steps of 32 × 256 tokens in 2
-   microbatches, lr 1e-3, a checkpoint every 25 steps and a failure
-   injected before step 60 — one restart, the replayed steps' losses
+   ``launch.train.train``: 60 steps of 32 × 256 tokens in 2
+   microbatches, lr 1e-3, a checkpoint every 20 steps and a failure
+   injected before step 45 — one restart, the replayed steps' losses
    equal to their first pass (rtol 1e-5), the last loss below the first,
    attention launches = (forward + recompute) × layers × microbatches ×
    steps run × the plan's, step 1's loss within 1e-4 and grad norm
    within 1e-3 of the same step inside ``layers.plain_attention``, steps
    2-5 within those limits or ten times the distance of a control run
    with the kernel's split-TF32 arithmetic emulated in its place (the
-   plain run goes on to step 100, its distance reported); qwen2.5-3b at
+   plain run takes those 5 steps); qwen2.5-3b at
    its published width (3.40 B float32 parameters, remat ``full``): 3 AdamW
    steps on one 4 × 1024 batch, losses finite and falling, launches
    against the plans, step 1 within 1e-3 of the plain path's; for both,
@@ -333,9 +335,30 @@ In order it:
    times beside the bound), their launches added to the attention
    entry's by family.
 
+22. serves the last three architectures at their published widths, cut
+   in depth only (``big_families`` in the record; ``BIG_FAMILIES``,
+   through phase 21's ``family_serve`` and gates): mixtral-8x22b in bf16,
+   4 of 56 layers (``Server``, 8 requests of 3,968–4,480 tokens, at least
+   two past its 4,096 window: the ring wrapped at prefill, top-2 of 8
+   experts), nemotron-4-340b in float32, 1 of 96 layers (``Server``, 8
+   requests of 768–1,024; D = 192, GQA group 12, squared ReLU, a
+   256,000-word vocabulary) and qwen1.5-110b in bf16, 8 of 80 layers
+   (``generate``, batches at 768 and 1,024; QKV bias, rope θ 1e6); then
+   the new geometries alone (``big_family_calls``).
+
+23. trains mixtral-8x22b under the ≥100B recipe (``big_train``): the
+   depth by the port's dry run of the step (``big_train_meta``, a process
+   without the card, started before phase 21; 2 layers where its storage
+   peak is under 72 GB, else 1), float32 parameters, 4 microbatches of
+   16 × 256, bf16 gradient accumulation, 8-bit moments, 3 steps.  Gates:
+   step 1 against the plain path, the card's 8-bit update against the
+   CPU's on the same gradients (``eightbit_update_check``), launches,
+   finite losses falling.  Reported: steps, tokens/s, peak memory beside
+   the dry run's prediction, a profiled step.
+
 It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
-the last line.  ``python3 chip_smoke.py --only 3,18,19,20,21`` builds and
-runs phases 3, 18, 19, 20 and/or 21 alone (a development run: phase 18
+the last line.  ``python3 chip_smoke.py --only 3,18,19,20,21,22,23``
+builds and runs any of those phases alone (a development run: phase 18
 then computes its own unsharded baseline, and no kernel line is
 printed).  Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2046,13 +2069,14 @@ def lm_profile(fn, range_name: Optional[str] = None) -> dict:
 
 def lm_call_case(ops, ref, fa, name, shape, q_offset, sms, dev,
                  dtype=torch.float32, causal: bool = True,
-                 window: Optional[int] = None) -> dict:
+                 window: Optional[int] = None,
+                 plain_window=ATTN_WINDOW) -> dict:
     """One attention call of the LM path alone at its shape, dtype and
     masks: kernel against ``ref.attention_ref`` (``ATTN_TOL``), device
-    times of the kernel, the plain version and SDPA (causal from position
-    0: ``is_causal``; non-causal: no mask; otherwise an explicit bool mask,
-    built before timing), its launches and bound (the keys the masks keep,
-    read once)."""
+    times of the kernel, the plain version (over ``plain_window``'s
+    calls) and SDPA (causal from position 0: ``is_causal``; non-causal: no
+    mask; otherwise an explicit bool mask, built before timing), its
+    launches and bound (the keys the masks keep, read once)."""
     import torch.nn.functional as F
     b, h, hkv, sq, skv, d = shape
     x = attention_inputs(np.random.default_rng(150), shape, dtype, dev)
@@ -2091,7 +2115,7 @@ def lm_call_case(ops, ref, fa, name, shape, q_offset, sms, dev,
            "kernel_ms": graph_ms(lambda: ops.attention(*x, **kw),
                                  *ATTN_WINDOW),
            "plain_ms": graph_ms(lambda: ref.attention_ref(*x, **kw),
-                                *ATTN_WINDOW),
+                                *plain_window),
            "library_ms": graph_ms(lib, *ATTN_WINDOW),
            "library_max_abs_err": lib_err,
            "bound_ms": t_bound, "bound_by": bound_by}
@@ -2399,9 +2423,28 @@ def smoke_card_phase() -> dict:
     return {"result": tail, "seconds": seconds}
 
 
+REF_SCORE_BYTES = 2 << 30          # the plain version's scores a call, at most
+
+
+def attention_ref_rows(ref, q, k, v, *, q_offset: int = 0, **kw):
+    """``ref.attention_ref`` over blocks of query rows whose float32 scores
+    stay under ``REF_SCORE_BYTES`` (mixtral's 4,480-position prefill would
+    take 15 GB in one call): a row's output depends on its own scores
+    only, and each block keeps the keys its rows keep (``q_offset`` moved
+    to the block's first row)."""
+    b, h, sq, _ = q.shape
+    rows = max(1, REF_SCORE_BYTES // (4 * b * h * k.shape[2]))
+    if rows >= sq:
+        return ref.attention_ref(q, k, v, q_offset=q_offset, **kw)
+    return torch.cat([ref.attention_ref(q[:, :, i:i + rows], k, v,
+                                        q_offset=q_offset + i, **kw)
+                      for i in range(0, sq, rows)], dim=2)
+
+
 class AttentionCallCheck:
     """While open, every ``ops.attention`` call on the card is also run on
-    its plain version (``ref.attention_ref``) with the same operands and
+    its plain version (``ref.attention_ref``, ``attention_ref_rows``) with
+    the same operands and
     held to ``attention_err``'s tolerance for the dtype (bf16: also at
     most ``BF16_MISMATCH_LIMIT`` of the values differing)."""
 
@@ -2415,7 +2458,7 @@ class AttentionCallCheck:
             kw.pop("backend", None)
             try:
                 self.stats.append(attention_err(
-                    out, self.ref.attention_ref(q, k, v, **kw)))
+                    out, attention_ref_rows(self.ref, q, k, v, **kw)))
             except AssertionError as exc:
                 self.failures.append(f"{tuple(q.shape)} {kw}: {exc}")
             return out
@@ -2851,7 +2894,9 @@ TRAIN_ARCH = "lm100m"              # src/repro_torch/configs/lm100m.py
 # the reference driver's usage line (global batch 32, seq 256) and the
 # example's microbatches and lr (examples/train_lm.py)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR = 32, 256, 2, 1e-3
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 100, 25, 60
+# 60 steps, a checkpoint every 20, a failure before step 45 (a short run
+# keeps the whole script near half its time limit)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 60, 20, 45
 TRAIN_REPLAY_RTOL = 1e-5           # tests/test_fault_tolerance.py
 TRAIN_PLAIN_STEPS = 5              # kernel path against plain path, gated
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-4, 1e-3
@@ -2920,8 +2965,8 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
     heads over 2, head dim 64, d_ff 2560, vocab 4096, remat ``dots``;
     seeded float32 weights) trained by the port's ``launch.train.train``:
     global batch 32 of 256 tokens in 2 microbatches, lr 1e-3, float32
-    AdamW, 100 steps, a checkpoint every 25 and one injected failure
-    before step 60 (restored from step 50, steps 50-59 replayed).
+    AdamW, 60 steps, a checkpoint every 20 and one injected failure
+    before step 45 (restored from step 40, steps 41-45 replayed).
     Gates: every loss finite, the last below the first, one restart, each
     replayed step's loss its first pass's within ``TRAIN_REPLAY_RTOL``,
     attention launches = (forward + remat recompute) × layers ×
@@ -2934,8 +2979,8 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
     kernel path from the same draw with the kernel's split-TF32
     arithmetic emulated in its place (``ref.attention_tf32_ref``,
     terms=3), a run that parts from the plain one by float32 noise of the
-    kernel's size.  The plain run goes on to step 100 and its distance is
-    reported."""
+    kernel's size.  The plain run takes those steps only (the kernel run's
+    later steps have no plain counterpart)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.device import strict_float32
@@ -3025,7 +3070,7 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
     plain, plain_times = [], []
     before = ops.attention_launches
     with strict_float32(), layers.plain_attention():
-        for step in range(TRAIN_STEPS):
+        for step in range(TRAIN_PLAIN_STEPS):
             t1 = time.perf_counter()
             state = run_step(state, step)
             plain_times.append(time.perf_counter() - t1)
@@ -3074,10 +3119,6 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
         raise AssertionError(f"lm100m: kernel path vs plain path beyond "
                              f"(step, metric, distance, allowed) {failed}; "
                              f"{gated}")
-    end = {"loss_kernel": trajectory[-1]["loss"],
-           "loss_plain": plain[-1]["loss"],
-           "loss_rel": abs(trajectory[-1]["loss"] - plain[-1]["loss"])
-           / abs(plain[-1]["loss"])}
 
     # one profiled step on the kernel path, after a warm one
     with strict_float32():
@@ -3109,7 +3150,7 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
            "peak_memory_bytes": peak,
            "plain_step_ms_median": sorted(plain_times)[
                len(plain_times) // 2] * 1e3,
-           "kernel_vs_plain": gated, "end_of_run": end,
+           "kernel_vs_plain": gated,
            "profile_step": prof, "bound": bound,
            "share_of_bound": bound["ms"] / (step_s * 1e3)}
     print(f"lm100m training ({card}): full width, {n_params / 1e6:.2f} M "
@@ -3134,9 +3175,7 @@ def train_lm_phase(ops, ref, fa, card: str, dev) -> dict:
           + ", ".join(f"{r['control_loss_rel']:.3g}" for r in gated)
           + ", grad norm "
           + ", ".join(f"{r['control_grad_norm_rel']:.3g}" for r in gated)
-          + f"; after {TRAIN_STEPS} steps loss {end['loss_kernel']:.5f} vs "
-          f"plain {end['loss_plain']:.5f} ({end['loss_rel']:.3g}); plain "
-          f"step median {out['plain_step_ms_median']:.1f} ms")
+          + f"; plain step median {out['plain_step_ms_median']:.1f} ms")
     print(f"  profiled step ({card}): device {prof['device_busy_ms']:.1f} "
           f"ms of {prof['traced_wall_ms']:.1f} ms (idle share "
           f"{prof['idle_share']:.4f}); attention kernels "
@@ -4015,18 +4054,25 @@ def dry_planned(fa, dev) -> dict:
 def start_dry_meta() -> dict:
     """Phase 19's process without the card (``dry_meta``), started before
     phase 17: it needs no card, so its traces run on the host beside the
-    card's phases.  Its output goes to a file under ``build/``."""
+    card's phases."""
+    return start_card_less("dry_meta")
+
+
+def start_card_less(fn: str) -> dict:
+    """``chip_smoke.<fn>(path)`` in a process that sees no card, its
+    output going to a file under ``build/`` (``job["path"]``), its log
+    beside it; ``stop_dry_meta`` ends it and removes both."""
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     tag = os.getpid()
-    job = {"path": build / f"chip_smoke_dry_meta_{tag}.pt",
-           "log": build / f"chip_smoke_dry_meta_{tag}.log",
+    job = {"path": build / f"chip_smoke_{fn}_{tag}.pt",
+           "log": build / f"chip_smoke_{fn}_{tag}.log",
            "t0": time.perf_counter()}
     for key in ("path", "log"):
         job[key].unlink(missing_ok=True)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
-            f"import chip_smoke; chip_smoke.dry_meta({str(job['path'])!r})")
+            f"import chip_smoke; chip_smoke.{fn}({str(job['path'])!r})")
     with open(job["log"], "w") as log:
         job["proc"] = subprocess.Popen([sys.executable, "-c", code],
                                        cwd=ROOT, env=env, stdout=log,
@@ -4585,11 +4631,15 @@ def family_prompts(fam: dict, cfg) -> list:
     """(prompts (B, S) int32, modality inputs) a generation or batch, from
     the family's seed: ``Server`` families' requests are drawn one by one
     and packed by the server; ``generate`` families' batches take one
-    length each, with seeded frames or a seeded vision prefix."""
+    length each (``lengths``, where the family names them), with seeded
+    frames or a seeded vision prefix."""
     rng = np.random.default_rng(fam["seed"])
-    lo_hi = fam["prompt"]
+    lo_hi = fam.get("prompt")
+    given = iter(fam.get("lengths", ()))
 
     def length():
+        if "lengths" in fam:             # one length a batch, as given
+            return next(given)
         if len(lo_hi) == 2:
             return int(rng.integers(lo_hi[0], lo_hi[1] + 1))
         return int(rng.choice(lo_hi))
@@ -5032,14 +5082,15 @@ def family_serve(ops, ref, fa, fam: dict, card: str, dev) -> dict:
     return out
 
 
-def family_phase(ops, ref, fa, card: str, dev) -> dict:
-    """Phase 21: the four families of ``FAMILIES`` served at full width,
-    one after another (each model freed before the next is built), then
-    the new call geometries timed alone (``FAMILY_CALLS``).  The
-    attention launches are the serves' (``launches_by_family``)."""
+def family_phase(ops, ref, fa, card: str, dev, families=FAMILIES,
+                 call_cases=FAMILY_CALLS, phase: int = 21) -> dict:
+    """Phase 21 (phase 22 with ``BIG_FAMILIES``): the families served at
+    full width, one after another (each model freed before the next is
+    built), then the new call geometries timed alone (``call_cases``).
+    The attention launches are the serves' (``launches_by_family``)."""
     t0 = time.perf_counter()
     out = {"families": {}, "memory_meta": {}}
-    for fam in FAMILIES:
+    for fam in families:
         gc.collect()                    # the last family's tensors go
         torch.cuda.empty_cache()
         need = family_bytes(fam)
@@ -5052,8 +5103,10 @@ def family_phase(ops, ref, fa, card: str, dev) -> dict:
     sms = fa.device_sm_count(dev)
     out["calls"] = [lm_call_case(ops, ref, fa, c["name"], c["shape"],
                                  c["q_offset"], sms, dev, c["dtype"],
-                                 causal=c["causal"], window=c["window"])
-                    for c in FAMILY_CALLS]
+                                 causal=c["causal"], window=c["window"],
+                                 plain_window=c.get("plain_window",
+                                                    ATTN_WINDOW))
+                    for c in call_cases]
     for row in out["calls"]:
         print(f"  {row['case']} {tuple(row['shape_b_h_hkv_sq_skv_d'])} "
               f"{row['dtype']} causal {row['causal']} window "
@@ -5068,9 +5121,481 @@ def family_phase(ops, ref, fa, card: str, dev) -> dict:
                                  for a, f in out["families"].items()}
     out["launches"] = sum(out["launches_by_family"].values())
     out["seconds"] = time.perf_counter() - t0
-    print(f"phase 21 ({card}): four families served at full width, "
-          f"{out['launches']} attention launches = the plans' sum "
+    print(f"phase {phase} ({card}): {len(families)} families served at "
+          f"full width, {out['launches']} attention launches = the plans' sum "
           f"({out['launches_by_family']}), {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 22: the last three architectures at their published widths -------
+
+# Cut in depth only; batch 4, 16 new tokens a request (``family_serve``).
+# mixtral-8x22b: every layer is sliding-window attention + MoE, so 4 of 56
+# keep each kind; prompts of 3,968–4,480 tokens over the 4,096 window (the
+# ring wraps at prefill).  nemotron-4-340b: 1 of 96 layers in float32 (its
+# embedding and head alone are 9.44 B parameters).  qwen1.5-110b: 8 of 80
+# layers, two batches at 768 and 1,024 tokens.
+BIG_FAMILIES = [
+    dict(arch="mixtral-8x22b", dtype=torch.bfloat16, entry="server",
+         requests=8, prompt=(3968, 4480), max_seq=4608, n_layers=4,
+         seed=221),
+    dict(arch="nemotron-4-340b", dtype=torch.float32, entry="server",
+         requests=8, prompt=(768, 1024), max_seq=1280, n_layers=1,
+         seed=222),
+    dict(arch="qwen1.5-110b", dtype=torch.bfloat16, entry="generate",
+         batches=2, lengths=(768, 1024), max_seq=1280, n_layers=8,
+         seed=223),
+]
+
+
+def big_family_calls() -> list:
+    """Phase 22's new call geometries, each timed alone: mixtral's windowed
+    prefill at its longest prompt and its ring decode, nemotron's float32
+    prefill and decode at D = 192 (group 12)."""
+    mixtral = BIG_FAMILIES[0]
+    cfg = family_config(mixtral)
+    s = max(len(p) for p in family_prompts(mixtral, cfg))
+    b, h, hkv, d = FAMILY_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nem = family_config(BIG_FAMILIES[1])
+    nh, nkv, nd = nem.n_heads, nem.n_kv_heads, nem.head_dim
+    return [
+        # its plain version takes ~0.1 s a call: 20 calls timed, not 200
+        dict(name="mixtral-8x22b windowed prefill",
+             shape=(b, h, hkv, s, s, d), dtype=torch.bfloat16, causal=True,
+             window=cfg.local_window, q_offset=0, plain_window=(5, 4)),
+        dict(name="mixtral-8x22b ring decode",
+             shape=(b, h, hkv, 1, cfg.local_window, d),
+             dtype=torch.bfloat16, causal=False, window=None, q_offset=0),
+        dict(name="nemotron-4-340b prefill",
+             shape=(b, nh, nkv, 1024, 1024, nd), dtype=torch.float32,
+             causal=True, window=None, q_offset=0),
+        dict(name="nemotron-4-340b decode",
+             shape=(b, nh, nkv, 1, 1280, nd), dtype=torch.float32,
+             causal=True, window=None, q_offset=1000)]
+
+
+def big_family_phase(ops, ref, fa, card: str, dev) -> dict:
+    """Phase 22: ``BIG_FAMILIES`` served at their published widths through
+    phase 21's ``family_serve`` and gates, then ``big_family_calls``
+    timed alone."""
+    out = family_phase(ops, ref, fa, card, dev, BIG_FAMILIES,
+                       big_family_calls(), 22)
+    mixtral = out["families"]["mixtral-8x22b"]
+    over = [n for n in mixtral["prompt_lengths"]
+            if n > family_config(BIG_FAMILIES[0]).local_window]
+    if len(over) < 2:
+        raise AssertionError(f"mixtral-8x22b: prompts {over} pass the "
+                             f"window; at least two must")
+    return out
+
+
+# -- phase 23: the ≥100B training recipe on the card -------------------------
+
+BIG_TRAIN_ARCH = "mixtral-8x22b"
+# the reference's 4-microbatch rule (specs.default_train_config) at a
+# length one card takes in seconds: 64 × 256, microbatches of 16 × 256
+BIG_TRAIN_BATCH, BIG_TRAIN_SEQ, BIG_TRAIN_STEPS = 64, 256, 3
+BIG_TRAIN_PEAK_LIMIT = 72e9        # 2 layers where the dry run's peak is under
+BIG_TRAIN_META_TIMEOUT_S = 600
+# the card's 8-bit update against the port's CPU update (PERF.md, written
+# before the first chip call): parameters and block scales within
+# UPDATE_RTOL × the leaf's max |value|, codes at most one step apart on at
+# most CODE_SHARE of a leaf's elements
+UPDATE_RTOL = 1e-6
+CODE_SHARE = 1e-3
+# (path, index): the router (last axis 8: one padded 256-block), the
+# norms, layer 0's wq and expert 0's three matrices in layer 0
+UPDATE_LEAVES = (("blocks/0/ffn/router", ()), ("blocks/0/norm1/scale", ()),
+                 ("final_norm/scale", ()), ("blocks/0/mix/wq", (0,)),
+                 ("blocks/0/ffn/wg", (0, 0)), ("blocks/0/ffn/wu", (0, 0)),
+                 ("blocks/0/ffn/wd", (0, 0)))
+
+
+def big_train_config(n_layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(BIG_TRAIN_ARCH), n_layers=n_layers)
+
+
+def big_train_state_bytes(n_layers: int) -> dict:
+    """The recipe's training state at ``n_layers`` (on ``meta``): float32
+    parameters, one microbatch's float32 gradients, the bf16 accumulator,
+    two int8 moments and their float32 block scales."""
+    from repro_torch.models.params import abstract_params, tensors
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.optim.adamw import scale_blocks
+    leaves = tensors(abstract_params(model_defs(big_train_config(n_layers)),
+                                     torch.float32))
+    n = sum(t.numel() for t in leaves)
+    scales = sum(int(np.prod(t.shape[:-1])) * scale_blocks(t.shape[-1])
+                 for t in leaves)
+    out = {"params": n, "parameters": 4 * n, "gradients": 4 * n,
+           "accumulator": 2 * n, "moments": 2 * n + 2 * 4 * scales}
+    out["total"] = sum(out[k] for k in ("parameters", "gradients",
+                                        "accumulator", "moments"))
+    return out
+
+
+def big_train_depth(meta: dict) -> int:
+    """The depth rule: 2 layers where the dry run's storage peak of the
+    2-layer step is under ``BIG_TRAIN_PEAK_LIMIT``, else 1."""
+    return 2 if meta[2]["predicted_peak_bytes"] < BIG_TRAIN_PEAK_LIMIT else 1
+
+
+def big_train_meta(out_path: str, arch: str = BIG_TRAIN_ARCH,
+                   cfg_of=big_train_config,
+                   seq_len: int = BIG_TRAIN_SEQ) -> None:
+    """Phase 23's process without the card: the port's dry run of the
+    recipe's step (``launch.specs.build_train`` at mesh (1, 1) on a fake
+    process group, float32 parameters, every tensor on ``meta``) at 1 and
+    2 layers (``cfg_of``), ``BIG_TRAIN_BATCH`` sequences of ``seq_len``;
+    each step's argument bytes and storage peak, written to
+    ``out_path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis.op_cost import analyze_trace
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import init_fake, make_mesh
+    from repro_torch.launch.specs import build_train
+    from repro_torch.launch.train import default_train_config
+    init_fake(1)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    shape = ShapeSpec("phase23_train", seq_len, BIG_TRAIN_BATCH, "train")
+    tc = default_train_config(arch, BIG_TRAIN_BATCH, BIG_TRAIN_STEPS)
+    out = {}
+    for n_layers in (1, 2):
+        t0 = time.perf_counter()
+        low = build_train(arch, shape, mesh, cfg=cfg_of(n_layers),
+                          train_cfg=tc, dtype=torch.float32, device="meta")
+        cost = analyze_trace(low.lower(), 1)
+        args = low.local_arg_bytes()
+        out[n_layers] = {"local_arg_bytes": args,
+                         "peak_temp_bytes": cost["peak_temp_bytes_estimate"],
+                         "predicted_peak_bytes":
+                             args + cost["peak_temp_bytes_estimate"],
+                         "flops": cost["flops_per_device"],
+                         "bytes": cost["bytes_per_device"],
+                         "trace_s": time.perf_counter() - t0}
+    torch.save(out, out_path)
+
+
+def wait_card_less(job: dict, what: str, timeout_s: float):
+    """The output of a ``start_card_less`` process, once it has ended."""
+    try:
+        job["proc"].wait(timeout=timeout_s)
+        if job["proc"].returncode:
+            raise AssertionError(f"{what}'s process failed:\n"
+                                 f"{job['log'].read_text()[-4000:]}")
+        return torch.load(job["path"], weights_only=False)
+    finally:
+        stop_dry_meta(job)
+
+
+def _leaf_at(tree, path: str, index: tuple):
+    from repro_torch.models.params import is_tensor, tree_items
+    x = dict(tree_items(tree, is_tensor))[path]
+    return x[index] if index else x
+
+
+def _host_copy(p: dict, state):
+    """Copies on the host of a tree of parameters and its AdamW state."""
+    from repro_torch.optim import adamw
+    cp = lambda t: t.to("cpu", copy=True)
+    moments = lambda tree: {n: adamw.Moment8(cp(m.q), cp(m.scale))
+                            for n, m in tree.items()}
+    return ({n: cp(t) for n, t in p.items()},
+            adamw.AdamWState(cp(state.step), moments(state.mu),
+                             moments(state.nu)))
+
+
+def eightbit_update_check(opt_cfg, params, grads):
+    """The recipe's 8-bit AdamW update on the card against the port's CPU
+    update: the leaves of ``UPDATE_LEAVES`` (a layer's or an expert's
+    slice copied out) with their accumulated bf16 gradients, updated by
+    ``adamw.apply_updates`` on each device from the same values in two
+    rounds — from a zero state (``adamw.init``), then from the card's
+    parameters and state after round 1 (its codes dequantised), copied
+    to the host — and compared leaf by leaf after each round:
+    parameters and both moments' block scales within ``UPDATE_RTOL`` ×
+    the CPU leaf's max |value|, both moments' codes at most one step
+    apart on at most ``CODE_SHARE`` of the leaf's elements, and the grad
+    norm (over these leaves) within ``UPDATE_RTOL`` relative.  The card's
+    rounds run here; the CPU's run in a thread, while the caller goes on
+    with the card (the host waits on it meanwhile).  Returns the function
+    that joins the thread and compares."""
+    from repro_torch.optim import adamw
+    names = [f"{p}{list(i) if i else ''}" for p, i in UPDATE_LEAVES]
+    card_p = {n: _leaf_at(params, p, i).detach().clone()
+              for n, (p, i) in zip(names, UPDATE_LEAVES)}
+    card_g = {n: _leaf_at(grads, p, i).detach().clone()
+              for n, (p, i) in zip(names, UPDATE_LEAVES)}
+    host_g = {n: t.to("cpu", copy=True) for n, t in card_g.items()}
+    state = adamw.init(opt_cfg, card_p)
+    starts, card = [], []
+    t0 = time.perf_counter()
+    for _ in (1, 2):
+        starts.append(_host_copy(card_p, state))
+        _, state, met = adamw.apply_updates(opt_cfg, card_p, card_g, state)
+        card.append((*_host_copy(card_p, state), float(met["grad_norm"])))
+    card_s = time.perf_counter() - t0
+    del card_p, card_g, state
+
+    def cpu_rounds():
+        t0, out = time.perf_counter(), []
+        for p, st in starts:
+            _, st, met = adamw.apply_updates(opt_cfg, p, host_g, st)
+            out.append((p, st, float(met["grad_norm"])))
+        return out, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    job = pool.submit(cpu_rounds)
+
+    def finish() -> dict:
+        cpu, cpu_s = job.result()
+        pool.shutdown()
+        rounds, failures = [], []
+        for r, ((cp, cst, cgn), (hp, hst, hgn)) in enumerate(zip(card, cpu),
+                                                              1):
+            gn = abs(cgn - hgn) / hgn
+            row = {"round": r, "grad_norm_card": cgn, "grad_norm_cpu": hgn,
+                   "grad_norm_rel": gn, "leaves": {}}
+            if gn > UPDATE_RTOL:
+                failures.append(f"round {r}: grad norm {gn:.3g} apart")
+            for n in names:
+                pairs = [("param", cp[n], hp[n], False)]
+                for mom in ("mu", "nu"):
+                    c, h = getattr(cst, mom)[n], getattr(hst, mom)[n]
+                    pairs += [(f"{mom} scale", c.scale, h.scale, False),
+                              (f"{mom} codes", c.q, h.q, True)]
+                leaf = {"elements": cp[n].numel()}
+                for what, c, h, codes in pairs:
+                    if codes:
+                        d = (c.to(torch.int16) - h.to(torch.int16)).abs()
+                        steps = int(d.max())
+                        share = float((d > 0).double().mean())
+                        leaf[what] = {"max_step": steps, "differing": share}
+                        if steps > 1 or share > CODE_SHARE:
+                            failures.append(f"round {r} {n} {what}: {steps}"
+                                            f" steps apart on {share:.3g}")
+                        continue
+                    err = float((c - h).abs().max())
+                    scale = float(h.abs().max())
+                    leaf[what] = {"max_abs_diff": err, "max_abs": scale,
+                                  "equal_share": float((c == h).double()
+                                                       .mean())}
+                    if not (torch.isfinite(c).all()
+                            and err <= UPDATE_RTOL * scale):
+                        failures.append(f"round {r} {n} {what}: {err:.3g} "
+                                        f"> {UPDATE_RTOL} x {scale:.3g}")
+                row["leaves"][n] = leaf
+            rounds.append(row)
+        return {"leaves": names,
+                "elements": sum(cp[n].numel() for n in names),
+                "rounds": rounds, "seconds": {"card": card_s, "cpu": cpu_s},
+                "failures": failures,
+                "tolerances": {
+                    "params_and_scales": f"{UPDATE_RTOL} x max |cpu leaf|",
+                    "codes": f"<= 1 step on <= {CODE_SHARE} of a leaf",
+                    "grad_norm": f"{UPDATE_RTOL} rel"}}
+
+    return finish
+
+
+def big_train_phase(ops, fa, card: str, dev, job: Optional[dict] = None
+                    ) -> dict:
+    """Phase 23: mixtral-8x22b, cut in depth, trained under the ≥100B
+    recipe of ``launch.train.default_train_config`` (asserted: 4
+    microbatches, bf16 gradient accumulation, 8-bit moments).  The depth
+    is the dry run's (``big_train_meta``, in a process without the card,
+    ``job``: started earlier; ``big_train_depth``).  Float32 parameters
+    drawn as in phase 22 (``fan_in_defs``, seed 0), one seeded batch of
+    64 × 256 from ``make_batch``, 3 steps of ``make_train_step`` under
+    ``strict_float32``.  Gates: step 1's loss and grad norm within
+    ``QWEN_TRAIN_RTOL`` of the same step under ``layers.plain_attention``
+    (its gradients by ``make_grad_fn``, taken first); the 8-bit update of
+    those gradients on the card against the CPU's
+    (``eightbit_update_check``); attention launches = 2 (remat ``full``)
+    × layers × 4 microbatches × 3 steps × the plan's; losses and grad
+    norms finite, step 3's loss below step 1's.  Reported: the steps,
+    tokens/s, peak memory beside the dry run's prediction and the
+    state's bytes, a profiled step's device time by op."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.device import strict_float32
+    from repro_torch.launch.train import default_train_config
+    from repro_torch.models import layers
+    from repro_torch.models.params import init_params, param_count, tensors
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_grad_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    print(f"phase 23: the >=100B training recipe on {BIG_TRAIN_ARCH} "
+          f"({card})")
+    meta = wait_card_less(job or start_card_less("big_train_meta"),
+                          "phase 23's dry run", BIG_TRAIN_META_TIMEOUT_S)
+    depth = big_train_depth(meta)
+    for n, m in sorted(meta.items()):
+        print(f"  the dry run's step at {n} layer{'s' if n > 1 else ''}: "
+              f"arguments {m['local_arg_bytes'] / 1e9:.2f} GB + storage "
+              f"peak {m['peak_temp_bytes'] / 1e9:.2f} GB = "
+              f"{m['predicted_peak_bytes'] / 1e9:.2f} GB, "
+              f"{m['flops']:.3e} operations (traced in {m['trace_s']:.1f} s)")
+    cfg = big_train_config(depth)
+    tc = default_train_config(BIG_TRAIN_ARCH, BIG_TRAIN_BATCH,
+                              BIG_TRAIN_STEPS)
+    if not (tc.microbatches == 4 and tc.grad_accum_dtype == torch.bfloat16
+            and tc.opt.eightbit):
+        raise AssertionError(f"{BIG_TRAIN_ARCH} train config {tc}")
+    defs = model_defs(cfg)
+    n_params = param_count(defs)
+    state_bytes = big_train_state_bytes(depth)
+    sms = fa.device_sm_count(dev)
+    micro = BIG_TRAIN_BATCH // tc.microbatches
+    call = (micro, cfg.n_heads, cfg.n_kv_heads, BIG_TRAIN_SEQ, BIG_TRAIN_SEQ,
+            cfg.head_dim)
+    per_call = fa.plan(*call, torch.float32, window=cfg.local_window,
+                       sm_count=sms).launches
+    forwards = 1 if cfg.remat == "none" else 2
+    per_step = forwards * cfg.n_layers * tc.microbatches * per_call
+    planned = per_step * BIG_TRAIN_STEPS
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=BIG_TRAIN_SEQ,
+                          global_batch=BIG_TRAIN_BATCH, seed=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with strict_float32():
+        t0 = time.perf_counter()
+        params = init_params(fan_in_defs(defs), seed=0, dtype=torch.float32,
+                             device=dev)
+        for p in tensors(params):
+            p.requires_grad_(True)
+        opt = adamw.init(tc.opt, params)
+        batch = make_batch(data_cfg, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = ops.attention_launches
+        t0 = time.perf_counter()
+        with layers.plain_attention():
+            loss, _, grads = make_grad_fn(cfg, tc)(params, batch)
+            plain = {"loss": float(loss),
+                     "grad_norm": float(adamw.global_norm(grads))}
+        plain_s = time.perf_counter() - t0
+        plain_peak = torch.cuda.max_memory_allocated(dev)
+        if ops.attention_launches != before:
+            raise AssertionError("the plain step launched the kernel")
+        if any(g.dtype != torch.bfloat16 for g in tensors(grads)):
+            raise AssertionError("the accumulated gradients are not bf16")
+        finish_update = eightbit_update_check(tc.opt, params, grads)
+        del grads, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        step = make_train_step(cfg, tc)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        ops.reset_launches()
+        hist, times = [], []
+        for _ in range(BIG_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            names = sorted(met)
+            values = torch.stack([met[k].float() for k in names]).tolist()
+            times.append(time.perf_counter() - t0)
+            hist.append(dict(zip(names, values)))
+        launches, gemm = ops.attention_launches, ops.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        prof = lm_profile(lambda: step(params, opt, batch),
+                          ops.PLAIN_BACKWARD_RANGE)
+    del params, opt, batch, step
+    update = finish_update()
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures = list(update["failures"])
+    if launches != planned or gemm:
+        failures.append(f"{launches} attention launches, planned {planned} "
+                        f"(vta_gemm {gemm})")
+    if not (np.isfinite([m["loss"] for m in hist]).all()
+            and np.isfinite([m["grad_norm"] for m in hist]).all()):
+        failures.append(f"a loss or grad norm is not finite: {hist}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        failures.append(f"loss {hist[0]['loss']} -> {hist[-1]['loss']}")
+    rel = {k: abs(hist[0][k] - plain[k]) / abs(plain[k])
+           for k in ("loss", "grad_norm")}
+    if max(rel.values()) > QWEN_TRAIN_RTOL:
+        failures.append(f"step 1, kernel path vs plain path: {rel}")
+    if prof["attention_kernels"] not in (0, per_step):
+        failures.append(f"profiled step: {prof['attention_kernels']} "
+                        f"attention kernels traced, planned {per_step}")
+    tokens = BIG_TRAIN_BATCH * BIG_TRAIN_SEQ
+    step_s = sorted(times)[len(times) // 2]
+    chosen = meta[depth]
+    out = {"arch": BIG_TRAIN_ARCH, "card": card, "layers": depth,
+           "params": n_params, "batch": BIG_TRAIN_BATCH,
+           "seq_len": BIG_TRAIN_SEQ, "microbatches": tc.microbatches,
+           "microbatch_rows": micro, "grad_accum_dtype": "bfloat16",
+           "eightbit": tc.opt.eightbit, "remat": cfg.remat,
+           "steps": BIG_TRAIN_STEPS, "dry_run": meta,
+           "depth_rule": f"2 layers if the 2-layer step's predicted peak "
+                         f"< {BIG_TRAIN_PEAK_LIMIT:.0f} bytes, else 1",
+           "state_bytes": state_bytes, "init_s": init_s,
+           "losses": [m["loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "step_ms": [t * 1e3 for t in times],
+           "step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "held_before_steps_bytes": held, "peak_memory_bytes": peak,
+           "predicted_peak_bytes": chosen["predicted_peak_bytes"],
+           "plain_grad_peak_bytes": plain_peak,
+           "dry_run_flops": chosen["flops"],
+           "dry_run_flops_term_ms": chosen["flops"] / F32_OPS_PER_S * 1e3,
+           "launches": launches, "planned_launches": planned,
+           "plain_step1": plain, "plain_grad_s": plain_s,
+           "kernel_vs_plain_step1": rel, "update_check": update,
+           "profile_step": prof,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"{BIG_TRAIN_ARCH} training ({card}): {depth} of 56 layers (the "
+          f"dry run's 2-layer peak {meta[2]['predicted_peak_bytes'] / 1e9:.2f}"
+          f" GB, limit {BIG_TRAIN_PEAK_LIMIT / 1e9:.0f}), {n_params / 1e9:.3f}"
+          f" B float32 parameters, {tc.microbatches} microbatches of {micro} x"
+          f" {BIG_TRAIN_SEQ}, bf16 accumulation, 8-bit moments, remat "
+          f"{cfg.remat}: losses " + ", ".join(f"{m['loss']:.4f}" for m in hist)
+          + "; grad norms " + ", ".join(f"{m['grad_norm']:.4g}" for m in hist)
+          + "; steps " + ", ".join(f"{t * 1e3:.0f}" for t in times)
+          + f" ms (median {step_s * 1e3:.0f}, {tokens / step_s:.0f} tokens/s);"
+          f" peak memory {peak / 1e9:.2f} GB against the dry run's "
+          f"{chosen['predicted_peak_bytes'] / 1e9:.2f} GB (state "
+          f"{state_bytes['total'] / 1e9:.2f} GB; plain gradients' peak "
+          f"{plain_peak / 1e9:.2f} GB)")
+    print(f"  attention launches {launches} = {forwards} x {depth} layers x "
+          f"{tc.microbatches} microbatches x {BIG_TRAIN_STEPS} steps x "
+          f"{per_call}; step 1 vs plain path: loss {rel['loss']:.3g}, grad "
+          f"norm {rel['grad_norm']:.3g} (limit {QWEN_TRAIN_RTOL}; plain "
+          f"gradients {plain_s:.1f} s)")
+    for row in update["rounds"]:
+        worst = {what: max(leaf[what].get("max_abs_diff", 0.0)
+                           / max(leaf[what].get("max_abs", 1.0), 1e-30)
+                           for leaf in row["leaves"].values())
+                 for what in ("param", "mu scale", "nu scale")}
+        steps = {what: (max(leaf[what]["max_step"]
+                            for leaf in row["leaves"].values()),
+                        max(leaf[what]["differing"]
+                            for leaf in row["leaves"].values()))
+                 for what in ("mu codes", "nu codes")}
+        print(f"  8-bit update, card vs CPU, round {row['round']} "
+              f"({update['elements']} elements of {len(update['leaves'])} "
+              f"leaves): grad norm {row['grad_norm_rel']:.3g} apart; max "
+              f"|diff| / max |value|: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+              + "; codes (max steps, share differing): "
+              + ", ".join(f"{k} {v[0]}, {v[1]:.3g}" for k, v in steps.items()))
+    print(f"  profiled step ({card}): device {prof['device_busy_ms']:.1f} "
+          f"ms of {prof['traced_wall_ms']:.1f} ms (idle share "
+          f"{prof['idle_share']:.4f}); attention kernels "
+          f"{prof['attention_kernel_ms']:.2f} ms ({prof['attention_kernels']}"
+          f" launches); the dry run's FLOPs at 67 TFLOP/s "
+          f"{out['dry_run_flops_term_ms']:.0f} ms")
+    for op in prof["top_device_ops"]:
+        print(f"    {op['ms']:9.3f} ms {op['count']:5d}x {op['name']}")
+    print(f"phase 23 ({card}): {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError(f"{BIG_TRAIN_ARCH} training: "
+                             + " | ".join(failures))
     return out
 
 
@@ -5149,16 +5674,21 @@ def f32_ptxas(log: str) -> list:
     return rows
 
 
+ONLY_PHASES = (3, 18, 19, 20, 21, 22, 23)
+
+
 def only_phases(argv) -> set:
-    """``--only 3,18,19,20,21``: the phases a development run takes (after
-    the build); none without the option."""
+    """``--only 3,18,19,20,21,22,23``: the phases a development run takes
+    (after the build); none without the option."""
     if not argv:
         return set()
     if len(argv) != 2 or argv[0] != "--only":
-        raise SystemExit("usage: chip_smoke.py [--only 3,18,19,20,21]")
+        raise SystemExit("usage: chip_smoke.py [--only "
+                         + ",".join(map(str, ONLY_PHASES)) + "]")
     phases = {int(x) for x in argv[1].split(",")}
-    if not phases <= {3, 18, 19, 20, 21}:
-        raise SystemExit("--only takes phases 3, 18, 19, 20 and 21")
+    if not phases <= set(ONLY_PHASES):
+        raise SystemExit("--only takes phases "
+                         + ", ".join(map(str, ONLY_PHASES)))
     return phases
 
 
@@ -5180,7 +5710,14 @@ def main() -> int:
     card = card_line()
     print(card)
     record = {"card": card, "device": torch.cuda.get_device_name(0),
-              "torch": torch.__version__, "cuda": torch.version.cuda}
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "elapsed_s": {}}
+    t_main = time.perf_counter()
+
+    def mark(phases: str) -> None:
+        """The script's seconds so far, at the end of ``phases``."""
+        t = record["elapsed_s"][phases] = time.perf_counter() - t_main
+        print(f"[{t:.1f} s] phases {phases} done")
 
     # -- 2. build every kernel at once -----------------------------------
     def timed_build(k):
@@ -5250,9 +5787,20 @@ def main() -> int:
         if 20 in only:
             record["split_decode"] = split_decode_phase(ops, ref, attn_kernel,
                                                         card, dev)
-        if 21 in only:
-            record["families"] = family_phase(ops, ref, attn_kernel, card,
-                                              dev)
+        big_job = start_card_less("big_train_meta") if 23 in only else None
+        try:
+            if 21 in only:
+                record["families"] = family_phase(ops, ref, attn_kernel,
+                                                  card, dev)
+            if 22 in only:
+                record["big_families"] = big_family_phase(
+                    ops, ref, attn_kernel, card, dev)
+            if 23 in only:
+                record["big_train"] = big_train_phase(ops, attn_kernel, card,
+                                                      dev, big_job)
+        finally:
+            if big_job is not None:
+                stop_dry_meta(big_job)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_only.json").write_text(
@@ -5261,6 +5809,7 @@ def main() -> int:
               f"line)")
         return 0
 
+    mark("1-2")
     # -- 3. kernel vs plain ----------------------------------------------
     worst = check_kernel_grid(ops, ref, dev)
     record["vta_gemm_repeat"] = repeat_check(ref, dev)
@@ -5302,6 +5851,18 @@ def main() -> int:
           f"kernel launches {launches} ({per_batch} per batch; layers "
           f"int32-out+TensorAlu {fused.count(False)}, fused int8 "
           f"{fused.count(True)})")
+    # the reference's check of a compiled network, on the card: the chain
+    # over the compile-time input, each staged input and the output
+    # against the compiler's (``NetworkProgram.verify``)
+    ops.reset_launches()
+    verified, _ = net.verify(backend="cuda", device=dev)
+    record["lenet5_verify"] = {"backend": "cuda", "launches": ops.launches,
+                               "output": verified.tolist()}
+    if ops.launches != len(net.layers):
+        raise AssertionError(f"LeNet-5 verify: {ops.launches} launches, "
+                             f"expected {len(net.layers)}")
+    print(f"LeNet-5 NetworkProgram.verify(backend='cuda'): the output equals "
+          f"the compiler's reference ({ops.launches} launches)")
 
     # -- 4b. main path: resnet8, resnet_tiny, the CIFAR CNN on the card -----
     cnns = compile_cnns()
@@ -5332,9 +5893,11 @@ def main() -> int:
         "name": "vta_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/vta_gemm.cu",
         "replaces": "src/repro/kernels/vta_gemm.py:45",
-        "launches": launches + record["cnn_serve"]["launches"],
+        "launches": (launches + record["lenet5_verify"]["launches"]
+                     + record["cnn_serve"]["launches"]),
         "launches_by_path": {
             "lenet5": launches,
+            "lenet5_verify": record["lenet5_verify"]["launches"],
             **{name: sum(m["launches_per_batch"]) for name, m in
                record["cnn_serve"]["models"].items()}},
         "launches_per_batch": 5,
@@ -5400,6 +5963,7 @@ def main() -> int:
     entry["launches_by_path"].update(
         {f"engine_{k}": e["launches"] for k, e in record["engine"].items()})
 
+    mark("3-6b")
     # -- 7. flash_attention vs plain over the grid ------------------------
     plan = functools.partial(attn_kernel.plan,
                              sm_count=attn_kernel.device_sm_count(dev))
@@ -5584,6 +6148,7 @@ def main() -> int:
         "split_ab": ab,
     })
 
+    mark("7-9")
     # -- 10. the float front door: train, quantise, serve the test split ----
     rng = np.random.default_rng(10)
     record["front_door"] = {
@@ -5602,6 +6167,7 @@ def main() -> int:
                "launches_per_stack": fd["layers"]}
         for name, fd in record["front_door"].items()}
 
+    mark("10-11")
     # -- 12. the torch interpreters on the card ---------------------------
     models = [("lenet5", net, images,
                lambda img: reference_forward_int8(weights, img, shifts)[0],
@@ -5615,6 +6181,7 @@ def main() -> int:
                       ("guarded", "guarded_shadow")):
         entry["launches"] += record[key]["launches"]
         entry["launches_by_path"][path] = record[key]["launches"]
+    mark("12-14")
     # -- 15. the LM server at full width -----------------------------------
     record["lm_serve"] = lm_phase(ops, ref, attn_kernel, card, dev)
     attn_entry = record["kernels"][1]
@@ -5623,6 +6190,7 @@ def main() -> int:
         "lm_serve": record["lm_serve"]["launches"]}
     attn_entry["launches"] += record["lm_serve"]["launches"]
     attn_entry["lm_calls"] = record["lm_serve"]["calls"]
+    mark("15")
     # -- 16. the quickstart; the LM smoke configs; MoE and RWKV-6 at full
     # width ------------------------------------------------------------------
     record["quickstart"] = quickstart_phase(ops, dev)
@@ -5635,6 +6203,7 @@ def main() -> int:
     attn_entry["launches"] += record["moe_serve"]["launches"]
     attn_entry["lm_calls"] += record["moe_serve"]["calls"]
     record["rwkv_serve"] = rwkv_phase(ops, card, dev)
+    mark("16")
     # -- 17. training at full width -----------------------------------------
     dry_job = start_dry_meta()          # phase 19's host traces, from here
     try:
@@ -5644,12 +6213,15 @@ def main() -> int:
                 record["train"][key]["launches"]
         attn_entry["launches"] += record["train"]["launches"]
         attn_entry["train_calls"] = record["train"]["calls"]
+        mark("17")
         # -- 18. the mesh layer: sharded training and decode over NCCL ------
         record["mesh"] = mesh_phase(card, record["train"]["lm100m"])
         attn_entry["launches_by_path"]["mesh"] = record["mesh"]["launches"]
         attn_entry["launches"] += record["mesh"]["launches"]
+        mark("18")
         # -- 19. the dry run: the meta trace against the real step -----------
         record["dryrun"] = dry_phase(attn_kernel, card, dev, dry_job)
+        mark("19")
     finally:
         stop_dry_meta(dry_job)
     attn_entry["launches_by_path"]["dryrun"] = record["dryrun"]["launches"]
@@ -5662,12 +6234,31 @@ def main() -> int:
     attn_entry["launches"] += record["split_decode"]["launches"]
     attn_entry["modes"] = ["output", "return_lse: output and lse (phase 20)"]
     attn_entry["lse_calls"] = record["split_decode"]["cases"]
-    # -- 21. gemma3-1b, whisper-base, internvl2-26b, jamba at full width ----
-    record["families"] = family_phase(ops, ref, attn_kernel, card, dev)
-    for arch, n in record["families"]["launches_by_family"].items():
-        attn_entry["launches_by_path"][f"serve {arch}"] = n
-    attn_entry["launches"] += record["families"]["launches"]
-    attn_entry["lm_calls"] += record["families"]["calls"]
+    # phase 23's dry run needs no card: it traces beside phases 21-22
+    big_job = start_card_less("big_train_meta")
+    try:
+        # -- 21. gemma3-1b, whisper-base, internvl2-26b, jamba at full width
+        # -- 22. mixtral-8x22b, nemotron-4-340b, qwen1.5-110b at full width
+        mark("20")
+        record["families"] = family_phase(ops, ref, attn_kernel, card, dev)
+        mark("21")
+        record["big_families"] = big_family_phase(ops, ref, attn_kernel,
+                                                  card, dev)
+        mark("22")
+        for key in ("families", "big_families"):
+            for arch, n in record[key]["launches_by_family"].items():
+                attn_entry["launches_by_path"][f"serve {arch}"] = n
+            attn_entry["launches"] += record[key]["launches"]
+            attn_entry["lm_calls"] += record[key]["calls"]
+        # -- 23. the >=100B training recipe: mixtral-8x22b cut in depth ----
+        record["big_train"] = big_train_phase(ops, attn_kernel, card, dev,
+                                              big_job)
+        mark("23")
+    finally:
+        stop_dry_meta(big_job)
+    attn_entry["launches_by_path"]["train mixtral-8x22b"] = \
+        record["big_train"]["launches"]
+    attn_entry["launches"] += record["big_train"]["launches"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -465,6 +465,17 @@ def compile_layer(spec: LayerSpec, inp: np.ndarray, *,
                          ref_output_matrix=ref)
 
 
+def verify_layer(layer: CompiledLayer, *, backend: str = "oracle",
+                 device=None):
+    """Run one compiled layer's program on the chosen backend (``oracle``,
+    ``fast``, ``batched`` or ``cuda``; the last three on ``device``, the
+    card unless the caller names another) and assert it reproduces the
+    compiler's expected OUT region.  Returns the
+    :class:`~repro_torch.core.simulator.SimReport`."""
+    from .simulator import verify_program
+    return verify_program(layer.program, backend=backend, device=device)
+
+
 def decode_layer_output(layer: CompiledLayer, out_matrix: np.ndarray
                         ) -> np.ndarray:
     """§4.2 host reshaping, stage (i)+(ii) entry: from the decoded (M, N)

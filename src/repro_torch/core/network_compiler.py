@@ -49,6 +49,7 @@ import torch
 from repro_torch.device import DeviceLike, device_of, resolve_device
 
 from . import staging
+from .conv_lowering import mat2tensor
 from .cuda_backend import StackForm, _execute_stack, stack_form
 from .cycle_model import CycleReport, analyze_programs
 from .dram import DramAllocator
@@ -62,6 +63,8 @@ from .simulator import SimReport, make_simulator, run_instructions
 # engines can; ``serve_one`` runs the per-image interpreters or the kernel.
 SERVE_BACKENDS = ("batched", "cuda")
 SERVE_ONE_BACKENDS = ("oracle", "fast", "cuda")
+# ``verify`` runs the compile-time input on any backend
+VERIFY_BACKENDS = ("oracle", "fast", "batched", "cuda")
 
 
 @dataclasses.dataclass
@@ -519,6 +522,11 @@ class NetworkProgram:
             raise CompileError(
                 f"run_functional supports backend in {SERVE_ONE_BACKENDS}, "
                 f"got {backend!r}", constraint="run-functional-backend")
+        return self._functional(backend, device, fault_hook, check_chaining)
+
+    def _functional(self, backend: str, device: DeviceLike, fault_hook,
+                    check_chaining: bool
+                    ) -> Tuple[np.ndarray, List[SimReport]]:
         if backend == "cuda":
             self._refuse_hooks(fault_hook, False)
         dev = resolve_device(device)
@@ -529,6 +537,27 @@ class NetworkProgram:
         sem, reports = self._run_chain(stack, first, execute,
                                        check_chaining=check_chaining)
         return self._outputs(sem)[0], reports
+
+    def verify(self, *, backend: str = "cuda", device: DeviceLike = None
+               ) -> Tuple[np.ndarray, List[SimReport]]:
+        """Run the chain over the compile-time input, each staged input
+        checked as :meth:`run_functional` checks it, and assert the final
+        output equals the compiler's reference of the last layer.
+        ``backend`` is one of :data:`VERIFY_BACKENDS` (``batched`` over a
+        stack of one).  Returns (final output, reports)."""
+        if backend not in VERIFY_BACKENDS:
+            raise CompileError(
+                f"verify supports backend in {VERIFY_BACKENDS}, got "
+                f"{backend!r}", constraint="verify-backend")
+        out, reports = self._functional(backend, device, None, True)
+        last = self.layers[-1]
+        expected = last.ref_output_matrix
+        if last.spec.kind == "conv":
+            expected = mat2tensor(expected, last.out_h, last.out_w)
+        np.testing.assert_array_equal(
+            out, expected, err_msg=f"network output on {backend!r} differs "
+                                   f"from the compiler's reference")
+        return out, reports
 
 
 def calibrate_network(specs: Sequence[LayerSpec],

@@ -17,7 +17,9 @@ Two references live here:
 * :class:`LeNet5Float` — a float32 ``nn.Module`` over the same
   (integer-valued) weights, ``F.conv2d`` on NCHW/OIHW: the classification
   reference.  Its forward, :func:`lenet5_forward`, is also the trainable
-  float LeNet-5's (:mod:`repro_torch.quantize.train`).
+  float LeNet-5's (:mod:`repro_torch.quantize.train`);
+  :func:`reference_forward_float` is the reference's function of that
+  name, one image on an explicit device.
 
 Weights travel between the two packages as a mapping of named numpy
 arrays (``dataclasses.asdict`` of either package's :class:`LeNetWeights`);
@@ -37,6 +39,7 @@ from torch import nn
 from repro_torch.core.conv_lowering import conv2d_reference
 from repro_torch.core.layer_compiler import LayerSpec
 from repro_torch.core.layout import truncate_int8
+from repro_torch.device import DeviceLike, resolve_device, strict_float32
 
 from .weights import WeightsError, checked_arrays  # noqa: F401
 
@@ -200,6 +203,20 @@ class LeNet5Float(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return lenet5_forward(dict(self.named_buffers()), x)
+
+
+def reference_forward_float(weights: LeNetWeights, image: np.ndarray, *,
+                            device: DeviceLike = None) -> np.ndarray:
+    """Float32 forward over the same (integer-valued) weights — the
+    reference's classification reference — on ``device`` (the card unless
+    the caller names another), TF32 off: ``(1, 10)`` logits on the host
+    for a ``(1, 1, 32, 32)`` image."""
+    dev = resolve_device(device)
+    p = {name: torch.as_tensor(getattr(weights, name).astype(np.float32),
+                               device=dev) for name in LENET5_SHAPES}
+    x = torch.as_tensor(np.asarray(image, np.float32), device=dev)
+    with strict_float32():
+        return lenet5_forward(p, x).cpu().numpy()
 
 
 def synthetic_digit(seed: int = 0) -> np.ndarray:

@@ -12,9 +12,10 @@ holds the step and two trees of moments, each leaf a float32 tensor or a
 ``torch.no_grad()`` with the reference's operations in the reference's
 order.  It writes the new parameters and moments into the tensors it is
 given and returns the same trees: a leaf is taken ``UPDATE_CHUNK``
-values (whole rows of its leading axis) at a time, so the float32
-temporaries of the largest leaf are never held at once beside the
-parameters, gradients and moments.
+values (whole rows of its last axis) at a time, so the float32
+temporaries of the largest leaf (a stacked expert leaf is 1.6 B values
+in mixtral-8x22b) are never held at once beside the parameters,
+gradients and moments.
 
 On a mesh the leaves are DTensors, and the moments take their
 parameter's placements (an 8-bit moment's block scales those of
@@ -194,6 +195,25 @@ def _rows(shape: Tuple[int, ...]) -> List[slice]:
     return [slice(lo, lo + step) for lo in range(0, shape[0], step)]
 
 
+def _fold(x):
+    """``x`` (a tensor or a :class:`Moment8`) with every axis but the last
+    folded into its leading one, a view: the rows of ``_rows`` are then
+    last-axis rows, whatever the leaf's stacking (a stacked expert leaf
+    (L, E, d, f) has rows of E·d·f values).  The 8-bit blocks lie along
+    the last axis, so the update is the same.  Left as it is where it has
+    two axes or fewer or is not contiguous."""
+    if isinstance(x, Moment8):
+        return Moment8(_fold(x.q), _fold(x.scale))
+    if x.dim() <= 2 or not x.is_contiguous():
+        return x
+    return x.view(-1, x.shape[-1])
+
+
+def _foldable(*xs) -> bool:
+    parts = [t for x in xs for t in (x if isinstance(x, Moment8) else (x,))]
+    return all(t.dim() > 2 and t.is_contiguous() for t in parts)
+
+
 def _local(x):
     return x.to_local() if is_dtensor(x) else x
 
@@ -221,6 +241,7 @@ def global_norm(tree) -> torch.Tensor:
             if not _first_copy(g):
                 continue
             g = g.to_local()
+        g = _fold(g)
         for sl in _rows(tuple(g.shape)):
             total = total + torch.sum(torch.square(g[sl].to(torch.float32)))
     total = torch.as_tensor(total, dtype=torch.float32)
@@ -326,6 +347,8 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState
               if isinstance(mu, Moment8) else _local(mu))
         nu = (Moment8(_local(nu.q), _local(nu.scale))
               if isinstance(nu, Moment8) else _local(nu))
+        if _foldable(p, g, mu, nu):
+            p, g, mu, nu = (_fold(x) for x in (p, g, mu, nu))
         for sl in _rows(tuple(p.shape)):
             leaf(p[sl], g[sl], _at(mu, sl), _at(nu, sl))
     return params, AdamWState(step, state.mu, state.nu), {

@@ -123,33 +123,67 @@ def make_grad_fn(cfg: ModelConfig, train_cfg: TrainConfig
         return _plain(loss.detach()), {k: _plain(v.detach())
                                        for k, v in metrics.items()}, tree
 
+    def added(params, batch, acc: list):
+        """One microbatch's (loss, metrics), its gradients added into
+        ``acc`` (a leaf a parameter, in ``grad_accum_dtype``; None before
+        the first microbatch, which then takes a cast copy: 0 + g,
+        exactly).  Each leaf's gradient is cast and added as the backward
+        produces it (a post-accumulate hook) and then dropped, so a
+        microbatch's float32 gradients are never held all at once beside
+        the accumulator: one card holds mixtral-8x22b's 2-layer step only
+        so."""
+        leaves = tensors(params)
+        dtype = train_cfg.grad_accum_dtype
+
+        def hook(i):
+            def add(p):
+                g = _like(p.grad, p)
+                p.grad = None
+                if acc[i] is None:
+                    acc[i] = g.to(dtype, copy=True)
+                else:
+                    acc[i].add_(g.to(dtype))
+            return add
+
+        for p in leaves:
+            p.grad = None
+        handles = [p.register_post_accumulate_grad_hook(hook(i))
+                   for i, p in enumerate(leaves)]
+        try:
+            with mesh_scope(params):
+                loss, metrics = loss_fn(params, cfg, batch, train_cfg)
+                loss.backward()
+        finally:
+            for h in handles:
+                h.remove()
+        for i, p in enumerate(leaves):      # a leaf the loss does not reach
+            if acc[i] is None:
+                acc[i] = torch.zeros_like(p, dtype=dtype)
+        return _plain(loss.detach()), {k: _plain(v.detach())
+                                       for k, v in metrics.items()}
+
     def accumulated(params, batch):
         m = train_cfg.microbatches
         n = next(iter(batch.values())).shape[0]
         if n % m:
             raise ValueError(f"a batch of {n} does not split into {m} "
                              f"microbatches")
-        size = n // m
-        g_acc = loss_acc = met_acc = None
+        acc = [None] * len(tensors(params))
+        loss_acc = met_acc = None
         for i in range(m):
             mb = {k: _micro(v, i, m) for k, v in batch.items()}
-            loss, metrics, grads = single(params, mb)
-            if g_acc is None:           # 0 + g, exactly
-                g_acc = tree_map(
-                    lambda g: g.to(train_cfg.grad_accum_dtype, copy=True),
-                    grads, is_tensor)
+            loss, metrics = added(params, mb, acc)
+            if loss_acc is None:
                 loss_acc, met_acc = loss, dict(metrics)
-                continue
-            for a, g in zip(tensors(g_acc), tensors(grads)):
-                a.add_(g.to(train_cfg.grad_accum_dtype))
-            del grads
-            loss_acc = loss_acc + loss
-            met_acc = {k: met_acc[k] + metrics[k] for k in met_acc}
+            else:
+                loss_acc = loss_acc + loss
+                met_acc = {k: met_acc[k] + metrics[k] for k in met_acc}
         inv = 1.0 / m
-        for a in tensors(g_acc):
+        for a in acc:
             a.mul_(inv)
+        it = iter(acc)
         return loss_acc * inv, {k: v * inv for k, v in met_acc.items()}, \
-            g_acc
+            tree_map(lambda _: next(it), params, is_tensor)
 
     return accumulated if train_cfg.microbatches > 1 else single
 

@@ -438,3 +438,50 @@ def test_plan_phase_21_calls():
                     group = shape[1] // shape[2]
                     assert p.path == ("bf16_split" if group * shape[3]
                                       <= fa.SPLIT_ROWS else "bf16_tiles")
+
+
+def test_plan_phase_22_calls():
+    """Phase 22's geometries: mixtral-8x22b's windowed prefill past its
+    4,096 window on ``bf16_tiles`` (one launch), its ring decode on
+    ``bf16_split`` with GQA group 6 packed (split kernel and combine);
+    nemotron-4-340b's float32 prefill and decode at D = 192 on the
+    ``(192, 64, 16, 2)`` instantiation; every call of each family's serve (``family_calls``
+    over its own prompts) gets a path on an instantiation the libraries
+    hold."""
+    by_name = {c["name"]: fa.plan(*c["shape"], c["dtype"],
+                                  causal=c["causal"], window=c["window"],
+                                  q_offset=c["q_offset"])
+               for c in smoke.big_family_calls()}
+    pre = by_name["mixtral-8x22b windowed prefill"]
+    assert pre.path == "bf16_tiles" and pre.launches == 1
+    assert pre.shape[3] > 4096
+    dec = by_name["mixtral-8x22b ring decode"]
+    assert dec.path == "bf16_split" and dec.splits > 1 and dec.launches == 2
+    for name in ("nemotron-4-340b prefill", "nemotron-4-340b decode"):
+        p = by_name[name]
+        assert p.path == "f32"
+        assert (192, p.block_q, p.block_kv, p.stages) in fa.F32_INSTANTIATIONS
+    for fam in smoke.BIG_FAMILIES:
+        cfg = smoke.family_config(fam)
+        work = smoke.family_prompts(fam, cfg)
+        if fam["entry"] == "server":
+            b = smoke.FAMILY_BATCH
+            s_alls = [max(len(p) for p in work[g:g + b])
+                      for g in range(0, len(work), b)]
+        else:
+            s_alls = [t.shape[1] for t, _ in work]
+        for s_all in s_alls:
+            calls = smoke.family_calls(
+                fa, cfg, smoke.FAMILY_BATCH, s_all, fam["max_seq"],
+                range(s_all, s_all + smoke.FAMILY_NEW - 1))
+            assert len(calls) == cfg.n_layers * smoke.FAMILY_NEW
+            for shape, kw in calls:
+                p = fa.plan(*shape, fam["dtype"], **kw)
+                assert 0 < p.smem_bytes <= fa.SMEM_LIMIT
+                if fam["dtype"] == torch.float32:
+                    assert (shape[5], p.block_q, p.block_kv, p.stages) in \
+                        fa.F32_INSTANTIATIONS
+                else:
+                    group = shape[1] // shape[2]
+                    assert p.path == ("bf16_split" if group * shape[3]
+                                      <= fa.SPLIT_ROWS else "bf16_tiles")

@@ -254,3 +254,197 @@ def test_stacked_leaves_draw_at_the_repeat_count_as_the_reference():
         assert abs(float(w.std()) * np.sqrt(2) - 1) < 0.02
     for w in tail:
         assert abs(float(w.std()) * np.sqrt(64) - 1) < 0.03
+
+
+def test_phase_22_configurations_fit_the_card():
+    """Phase 22's three families (``BIG_FAMILIES``): the published
+    configuration cut in depth only, weights and a ``FAMILY_BATCH`` ×
+    ``max_seq`` cache at the family's dtype under 80 GB (counted on
+    ``meta``) at the sizes phase 22 names; the published depth of each
+    does not fit."""
+    sizes = {}
+    for fam in smoke.BIG_FAMILIES:
+        cfg = smoke.family_config(fam)
+        full = get_config(fam["arch"])
+        assert dataclasses.replace(cfg, n_layers=full.n_layers) == full
+        need = smoke.family_bytes(fam)
+        elt = 4 if fam["dtype"] == torch.float32 else 2
+        n = param_count(model_defs(cfg))
+        assert need["weights"] == elt * n
+        assert 0 < need["cache"] < need["weights"]
+        assert need["weights"] + need["cache"] < smoke.CARD_BYTES
+        assert elt * param_count(model_defs(full)) > smoke.CARD_BYTES
+        sizes[fam["arch"]] = (cfg.n_layers, round(need["weights"] / 1e9, 2),
+                              round(need["cache"] / 1e9, 2))
+    assert sizes == {"mixtral-8x22b": (4, 20.84, 0.27),
+                     "nemotron-4-340b": (1, 51.56, 0.06),
+                     "qwen1.5-110b": (8, 26.73, 0.17)}
+    nem = get_config("nemotron-4-340b")
+    assert 2 * nem.vocab * nem.d_model == 9_437_184_000
+
+
+def test_phase_22_mixtral_cut_and_prompts():
+    """mixtral-8x22b's 4-layer cut keeps sliding-window attention and MoE
+    on every layer, as all 56 have; its 8 prompts lie in 3,968–4,480 with
+    at least two past the 4,096 window, so the ring wraps at prefill; the
+    cache's ``max_seq`` holds the longest prompt and its 16 tokens; the
+    windowed prefill timed alone is at the longest prompt."""
+    fam = smoke.BIG_FAMILIES[0]
+    cut, full = smoke.family_config(fam), get_config(fam["arch"])
+    assert cut.n_layers == 4 and cut.local_window == 4096
+    assert set(cut.layer_schedule()) == set(full.layer_schedule()) \
+        == {"attn_swa"}
+    assert all(cut.moe_layers()) and all(full.moe_layers())
+    assert (cut.moe.n_experts, cut.moe.top_k) == (8, 2)
+    lengths = [len(p) for p in smoke.family_prompts(fam, cut)]
+    assert len(lengths) == 8 and min(lengths) >= 3968 \
+        and max(lengths) <= 4480
+    assert sum(n > cut.local_window for n in lengths) >= 2
+    assert max(lengths) + smoke.FAMILY_NEW <= fam["max_seq"]
+    calls = {c["name"]: c for c in smoke.big_family_calls()}
+    prefill = calls["mixtral-8x22b windowed prefill"]
+    assert prefill["shape"] == (4, 48, 8, max(lengths), max(lengths), 128)
+    assert prefill["window"] == 4096
+    assert calls["mixtral-8x22b ring decode"]["shape"][4] == 4096
+    assert calls["nemotron-4-340b decode"]["shape"] == (4, 96, 8, 1, 1280,
+                                                        192)
+    qwen = smoke.BIG_FAMILIES[2]
+    assert [t.shape for t, _ in smoke.family_prompts(
+        qwen, smoke.family_config(qwen))] == [(4, 768), (4, 1024)]
+
+
+def test_phase_22_family_calls_are_the_servers(monkeypatch):
+    """``family_calls`` and ``planned_launches`` for mixtral smoke (window
+    8) served through ``Server`` with prompts that cross the window: the
+    calls the port's CPU serve makes on the kernel's branch of
+    ``layers.attention`` (``attention_ref`` standing in for the launch),
+    shape and masks, in order, and their plans' launches."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import layers
+    from repro_torch.models.params import init_params
+    cfg = get_smoke("mixtral-8x22b")
+    assert cfg.local_window == 8
+    seen = []
+
+    def fake(q, k, v, *, causal=True, window=None, q_offset=0, backend):
+        seen.append(((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                      k.shape[2], q.shape[3]),
+                     dict(causal=causal, window=window, q_offset=q_offset)))
+        return tref.attention_ref(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
+
+    for module in (layers, port_engine):
+        monkeypatch.setattr(module, "uses_kernel",
+                            lambda x: not layers.plain_mode())
+    monkeypatch.setattr(ops, "attention", fake)
+    params = init_params(model_defs(cfg), seed=0, dtype=torch.float32,
+                         device="cpu")
+    max_seq, new = 32, 6
+    server = Server(cfg, params, batch_size=smoke.FAMILY_BATCH,
+                    max_seq=max_seq, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(5)
+    lengths = (12, 15, 17, 20)
+    for rid, n in enumerate(lengths):
+        server.submit(Request(rid, rng.integers(0, cfg.vocab, n).astype(
+            np.int32), new))
+    results = server.run()
+    assert sorted(results) == [0, 1, 2, 3]
+    s_all = max(lengths)
+    want = smoke.family_calls(fa, cfg, smoke.FAMILY_BATCH, s_all, max_seq,
+                              range(s_all, s_all + new - 1))
+    norm = lambda kw: dict(dict(window=None, q_offset=0), **kw)
+    assert [(s, norm(kw)) for s, kw in want] == seen
+    decodes = [kw for s, kw in seen if s[3] == 1]
+    assert decodes[0] == dict(causal=False, window=None, q_offset=0)
+    sms = 132
+    assert smoke.planned_launches(fa, want, torch.bfloat16, sms) == sum(
+        fa.plan(*s, torch.bfloat16, **kw, sm_count=sms).launches
+        for s, kw in seen)
+
+
+def test_phase_23_state_bytes_under_the_depth_rule():
+    """Phase 23's training state (float32 parameters and one microbatch's
+    float32 gradients, the bf16 accumulator, two int8 moments with their
+    block scales), reckoned on ``meta``: 1 layer (2.91 B parameters)
+    about 35 GB, 2 layers (5.41 B) about 65 GB, under the depth rule's
+    72 GB, 3 layers over it; the rule takes 2 layers only where the dry
+    run's 2-layer peak is under 72 GB."""
+    state = {n: smoke.big_train_state_bytes(n) for n in (1, 2, 3)}
+    assert [round(state[n]["params"] / 1e9, 2) for n in (1, 2)] \
+        == [2.91, 5.41]
+    for n, st in state.items():
+        p = st["params"]
+        assert (st["parameters"], st["gradients"], st["accumulator"]) == (
+            4 * p, 4 * p, 2 * p)
+        assert 2 * p < st["moments"] < 2.1 * p
+        assert st["total"] == sum(st[k] for k in (
+            "parameters", "gradients", "accumulator", "moments"))
+    assert [round(state[n]["total"] / 1e9) for n in (1, 2)] == [35, 65]
+    assert state[2]["total"] < smoke.BIG_TRAIN_PEAK_LIMIT \
+        < state[3]["total"]
+    rule = lambda peak: smoke.big_train_depth(
+        {1: {"predicted_peak_bytes": 0}, 2: {"predicted_peak_bytes": peak}})
+    assert rule(state[2]["total"] + 5e9) == 2
+    assert rule(smoke.BIG_TRAIN_PEAK_LIMIT) == 1
+
+
+def test_phase_23_dry_run_and_update_check_at_smoke_size(tmp_path):
+    """Phase 23's pieces on mixtral smoke: ``big_train_meta`` (its own
+    process, a fake group) traces the recipe's step at 1 and 2 layers,
+    each peak at least the state the step holds; ``eightbit_update_check``
+    with both sides on the CPU finds every leaf equal (the router's 4
+    experts, a padded 256-block)."""
+    import subprocess
+    import sys
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import default_train_config
+    from repro_torch.models.params import (abstract_params, init_params,
+                                           tensors)
+    from repro_torch.optim.adamw import scale_blocks
+    from repro_torch.train.train_step import make_grad_fn
+    out = tmp_path / "meta.pt"
+    code = ("import dataclasses, sys; sys.path.insert(0, 'src'); "
+            "import chip_smoke; from repro_torch.configs import get_smoke; "
+            "chip_smoke.big_train_meta(sys.argv[1], cfg_of=lambda n: "
+            "dataclasses.replace(get_smoke('mixtral-8x22b'), n_layers=n), "
+            "seq_len=32)")
+    proc = subprocess.run([sys.executable, "-c", code, str(out)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    meta = torch.load(out, weights_only=False)
+    base = get_smoke("mixtral-8x22b")
+    for n in (1, 2):
+        cfg = dataclasses.replace(base, n_layers=n)
+        leaves = tensors(abstract_params(model_defs(cfg), torch.float32))
+        p = sum(t.numel() for t in leaves)
+        scales = sum(int(np.prod(t.shape[:-1])) * scale_blocks(t.shape[-1])
+                     for t in leaves)
+        held = 4 * p + 2 * p + 8 * scales            # parameters, moments
+        assert meta[n]["local_arg_bytes"] >= held
+        assert meta[n]["peak_temp_bytes"] >= 4 * p + 2 * p   # grads, acc
+        assert meta[n]["predicted_peak_bytes"] == (
+            meta[n]["local_arg_bytes"] + meta[n]["peak_temp_bytes"])
+    assert meta[2]["predicted_peak_bytes"] > meta[1]["predicted_peak_bytes"]
+
+    cfg = dataclasses.replace(base, n_layers=2)
+    tc = default_train_config("mixtral-8x22b", smoke.BIG_TRAIN_BATCH, 3)
+    params = init_params(smoke.fan_in_defs(model_defs(cfg)), seed=0,
+                         dtype=torch.float32, device="cpu")
+    for t in tensors(params):
+        t.requires_grad_(True)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (8, 16)))
+             for k in ("tokens", "labels")}
+    _, _, grads = make_grad_fn(cfg, tc)(params, batch)
+    got = smoke.eightbit_update_check(tc.opt, params, grads)()
+    assert got["failures"] == [] and len(got["rounds"]) == 2
+    for row in got["rounds"]:
+        assert row["grad_norm_rel"] == 0
+        for leaf in row["leaves"].values():
+            assert leaf["mu codes"]["differing"] == 0
+            assert leaf["param"]["equal_share"] == 1.0
+    router = got["rounds"][0]["leaves"]["blocks/0/ffn/router"]
+    assert router["elements"] == 2 * cfg.d_model * cfg.moe.n_experts
