@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import DeviceLike, device_of, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import truncate_int8, wrap_int32
@@ -440,52 +441,61 @@ def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
     b = stack.shape[0]
     mp, np_ = p.padded_shape
     m, n = p.valid_shape
-    a = _decode_inp(stack, p)                       # (B, Mp, Kp)
-    w = _decode_wgt(stack, p)                       # (B, Kp, Np)
-    x = _decode_acc32(stack, p, p.acc) if p.acc else None
-    res = _decode_acc32(stack, p, p.res) if p.res else None
-    uniform_w = form.uniform_w
-    fuse_bias = form.fuse_bias
-    bias = x[:, 0] if x is not None and p.fused and fuse_bias else None
+    fused = p.fused and form.fuse_bias
+    with tracing.span("repro_torch.layer.decode"):
+        a = _decode_inp(stack, p)                   # (B, Mp, Kp)
+        w = _decode_wgt(stack, p)                   # (B, Kp, Np)
+        x = _decode_acc32(stack, p, p.acc) if p.acc else None
+        res = _decode_acc32(stack, p, p.res) if p.res else None
+        bias = x[:, 0] if x is not None and fused else None
+        one_launch = form.uniform_w and (bias is None or form.uniform_bias)
+        if one_launch:
+            # the launch's operands: the stacked rows, the shared weights
+            a_op = a.reshape(b * mp, -1).contiguous()
+            w_op = w[0].contiguous()
+            bias_op = bias[0].contiguous() if bias is not None else None
 
-    if p.fused and fuse_bias:
+    if fused:
         # -- whole program inside the kernel --------------------------------
-        if uniform_w and (bias is None or form.uniform_bias):
-            out = _kernel_gemm(
-                a.reshape(b * mp, -1), w[0],
-                bias[0] if bias is not None else None,
-                relu=p.relu, shift=p.shift, saturate=saturate,
-                out_dtype=torch.int8)
-            out = out.reshape(b, mp, np_)
-        else:
-            out = torch.stack([
-                _kernel_gemm(a[i], w[i],
-                             bias[i] if bias is not None else None,
-                             relu=p.relu, shift=p.shift, saturate=saturate,
-                             out_dtype=torch.int8)
-                for i in range(b)])
-        if bias is not None:
-            out[:, m:, :] = 0          # oracle pad rows: 0·B + 0 preload
+        with tracing.span("repro_torch.layer.gemm"):
+            if one_launch:
+                out = _kernel_gemm(
+                    a_op, w_op, bias_op,
+                    relu=p.relu, shift=p.shift, saturate=saturate,
+                    out_dtype=torch.int8)
+                out = out.reshape(b, mp, np_)
+            else:
+                out = torch.stack([
+                    _kernel_gemm(a[i], w[i],
+                                 bias[i] if bias is not None else None,
+                                 relu=p.relu, shift=p.shift,
+                                 saturate=saturate, out_dtype=torch.int8)
+                    for i in range(b)])
     else:
         # -- kernel GEMM + vectorised TensorAlu epilogue --------------------
-        if uniform_w:
-            acc = _kernel_gemm(a.reshape(b * mp, -1), w[0], None,
-                               relu=False, shift=0, saturate=False,
-                               out_dtype=torch.int32).reshape(b, mp, np_)
-        else:
-            acc = torch.stack([
-                _kernel_gemm(a[i], w[i], None, relu=False, shift=0,
-                             saturate=False, out_dtype=torch.int32)
-                for i in range(b)])
-        if x is not None:                           # ACC preload (C = A·B+X)
-            acc = _wrap32(acc.to(torch.int64) + x.to(torch.int64))
-        vec = _to_vectors(acc, p)
-        res_vec = _to_vectors(res, p) if res is not None else None
-        vec = apply_alu_epilogue(vec, p.alu_ops, res_vec,
-                                 _lowered_alu(prog, p, stack.device))
-        out = _commit_int8(_to_matrix(vec, p), saturate)
+        with tracing.span("repro_torch.layer.gemm"):
+            if one_launch:
+                acc = _kernel_gemm(a_op, w_op, None, relu=False, shift=0,
+                                   saturate=False, out_dtype=torch.int32
+                                   ).reshape(b, mp, np_)
+            else:
+                acc = torch.stack([
+                    _kernel_gemm(a[i], w[i], None, relu=False, shift=0,
+                                 saturate=False, out_dtype=torch.int32)
+                    for i in range(b)])
+        with tracing.span("repro_torch.layer.epilogue"):
+            if x is not None:                       # ACC preload (C = A·B+X)
+                acc = _wrap32(acc.to(torch.int64) + x.to(torch.int64))
+            vec = _to_vectors(acc, p)
+            res_vec = _to_vectors(res, p) if res is not None else None
+            vec = apply_alu_epilogue(vec, p.alu_ops, res_vec,
+                                     _lowered_alu(prog, p, stack.device))
+            out = _commit_int8(_to_matrix(vec, p), saturate)
 
-    _encode_out(stack, p, out)
+    with tracing.span("repro_torch.layer.encode", bytes=b * p.out[1]):
+        if bias is not None:
+            out[:, m:, :] = 0          # oracle pad rows: 0·B + 0 preload
+        _encode_out(stack, p, out)
     report = SimReport()
     report.gemm_loops = b * prog.gemm_loops()
     report.alu_loops = b * prog.alu_loops()

@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import DeviceLike, device_of, resolve_device
 
 from . import staging
@@ -323,25 +324,37 @@ class NetworkProgram:
         sems: Dict[int, torch.Tensor] = {}
         last = self._last_reads()
         srcs, rsrcs = self._sources(), self._res_sources()
+        b = stack.shape[0]
         for k, layer in enumerate(self.layers):
-            sem_in = first if srcs[k] < 0 else sems[srcs[k]]
-            A = self._input_matrices(layer, sem_in)
-            if check_chaining:
-                np.testing.assert_array_equal(
-                    A[0].cpu().numpy(), layer.input_matrix,
-                    err_msg=f"layer {srcs[k]}->{k} reshaping mismatch")
-            self._stage_layer_input_batch(stack, layer, A)
-            if rsrcs[k] is not None:
-                sem_res = first if rsrcs[k] < 0 else sems[rsrcs[k]]
-                R = self._stage_residual_batch(stack, layer, sem_res)
-                if check_chaining:
-                    np.testing.assert_array_equal(
-                        R[0].cpu().numpy(), layer.residual_matrix,
-                        err_msg=f"layer {layer.spec.name!r}: residual "
-                                f"operand mismatch")
-            reports.append(execute(k, layer, stack))
-            out_mats = staging.decode_out_region_batch(layer.program, stack)
-            sems[k] = staging.decode_layer_output_batch(layer, out_mats)
+            with tracing.span("repro_torch.layer", k=k,
+                              name=layer.spec.name):
+                regions = layer.program.regions
+                staged = regions["inp"].nbytes + (
+                    regions["res"].nbytes if rsrcs[k] is not None else 0)
+                with tracing.span("repro_torch.layer.stage",
+                                  bytes=b * staged):
+                    sem_in = first if srcs[k] < 0 else sems[srcs[k]]
+                    A = self._input_matrices(layer, sem_in)
+                    if check_chaining:
+                        np.testing.assert_array_equal(
+                            A[0].cpu().numpy(), layer.input_matrix,
+                            err_msg=f"layer {srcs[k]}->{k} reshaping "
+                                    f"mismatch")
+                    self._stage_layer_input_batch(stack, layer, A)
+                    if rsrcs[k] is not None:
+                        sem_res = first if rsrcs[k] < 0 else sems[rsrcs[k]]
+                        R = self._stage_residual_batch(stack, layer, sem_res)
+                        if check_chaining:
+                            np.testing.assert_array_equal(
+                                R[0].cpu().numpy(), layer.residual_matrix,
+                                err_msg=f"layer {layer.spec.name!r}: "
+                                        f"residual operand mismatch")
+                reports.append(execute(k, layer, stack))
+                with tracing.span("repro_torch.layer.unpack"):
+                    out_mats = staging.decode_out_region_batch(
+                        layer.program, stack)
+                    sems[k] = staging.decode_layer_output_batch(layer,
+                                                                out_mats)
             for j in [j for j in sems if last.get(j, k) <= k]:
                 del sems[j]             # no later layer reads it
         return sems[len(self.layers) - 1], reports
@@ -417,7 +430,8 @@ class NetworkProgram:
         only once the batch's work is done.  The serving engine's
         ``complete_t`` and ``calibrate_service_model``'s timings rely on
         that: keep the synchronising copy here."""
-        host = sem.cpu().numpy()
+        with tracing.span("repro_torch.serve.output", bytes=sem.nbytes):
+            host = sem.cpu().numpy()
         if self.layers[-1].spec.kind == "conv":
             host = host[:, None]
         return host
@@ -464,12 +478,21 @@ class NetworkProgram:
         if backend == "cuda":
             self._refuse_hooks(fault_hook, count_overflows)
         dev = resolve_device(device)
-        batch = self._as_image_batch(images, dev)
-        stack = self._device_image(dev).expand(batch.shape[0], -1).clone()
-        execute = (self._kernel_executor(dev) if backend == "cuda" else
-                   self._interpreter(backend, fault_hook, count_overflows))
-        sem, reports = self._run_chain(stack, batch, execute)
-        return self._outputs(sem), reports
+        with tracing.span("repro_torch.serve", device=dev,
+                          backend=backend) as call:
+            with tracing.span("repro_torch.serve.input") as sp:
+                batch = self._as_image_batch(images, dev)
+                sp.set(bytes=batch.nbytes)
+            call.set(batch=batch.shape[0])
+            with tracing.span("repro_torch.serve.stack") as sp:
+                stack = self._device_image(dev).expand(
+                    batch.shape[0], -1).clone()
+                sp.set(bytes=stack.nbytes)
+                execute = (self._kernel_executor(dev) if backend == "cuda"
+                           else self._interpreter(backend, fault_hook,
+                                                  count_overflows))
+            sem, reports = self._run_chain(stack, batch, execute)
+            return self._outputs(sem), reports
 
     def serve_one(self, image, *, backend: str = "cuda",
                   device: DeviceLike = None, fault_hook=None,
