@@ -356,8 +356,20 @@ In order it:
    finite losses falling.  Reported: steps, tokens/s, peak memory beside
    the dry run's prediction, a profiled step.
 
-It then prints one JSON line ``{"kernels": [...]}`` (both kernels) before
-the last line.  ``python3 chip_smoke.py --only 3,18,19,20,21,22,23``
+24. holds the TensorAlu epilogue kernel ``vta_alu`` (built in step 2 beside
+   the others) against its plain version (``cuda_backend.plain_alu_epilogue``
+   and ``_encode_out``) at the main path's shapes, exact equality of the
+   whole DRAM stack: every unfused layer of resnet8 (b1b, t2b, t3b, head)
+   at 8,192 images and of LeNet-5 (l1_conv, l2_conv) at 32,768, over
+   seeded random stacks and full-range int32 GEMM results, truncating and
+   saturating; then times the kernel (mean of 20 launches between CUDA
+   events) beside its plain version (mean of 3) and its bytes bound (the
+   GEMM's result, ACC and RES read once, OUT written once, at 3.35 TB/s),
+   with each layer's launch (mode, lanes a thread, blocks, shared memory)
+   and the totals a call.
+
+It then prints one JSON line ``{"kernels": [...]}`` (every kernel) before
+the last line.  ``python3 chip_smoke.py --only 3,18,19,20,21,22,23,24``
 builds and runs any of those phases alone (a development run: phase 18
 then computes its own unsharded baseline, and no kernel line is
 printed).  Any failure raises and exits non-zero.  The last line is
@@ -790,35 +802,50 @@ def compile_cnns() -> list:
     ]
 
 
+def unfused_layers(net, dev) -> int:
+    """The layers of ``net`` that do not fuse into ``vta_gemm`` on
+    ``dev``: each runs its TensorAlu epilogue as one ``vta_alu`` launch."""
+    from repro_torch.core.cuda_backend import plan_cuda
+    return sum(not (plan_cuda(layer.program).fused and form.fuse_bias)
+               for layer, form in zip(net.layers, net.stack_forms(dev)))
+
+
 def serve_cnns(ops, cnns, dev) -> dict:
     """Phase 4b: each CNN of ``compile_cnns`` served on the card through
     ``NetworkProgram.serve`` in batches of ``CNN_BATCHES``, the launch
     counters set to 0 just before and read just after.  Every answer must
-    be bit-exact against the model's integer reference, and ``vta_gemm``'s
-    counter must rise by exactly the layer count per batch (no attention
-    launch).  Returns the record, with the total launches."""
+    be bit-exact against the model's integer reference, ``vta_gemm``'s
+    counter must rise by exactly the layer count per batch and
+    ``vta_alu``'s by the unfused layers' (no attention launch).  Returns
+    the record, with the total launches of each kernel."""
     for _, net, images, _, _ in cnns:
         net.serve(images[:2], device=dev)       # upload the image, warm up
     torch.cuda.synchronize()
     ops.reset_launches()
     served = []
     for name, net, images, _, layers in cnns:
-        per_batch, outs, lo = [], [], 0
+        per_batch, alu_per_batch, outs, lo = [], [], [], 0
         for bsz in CNN_BATCHES:
-            before = ops.launches
+            before, alu_before = ops.launches, ops.alu_launches
             out, _ = net.serve(images[lo:lo + bsz], device=dev)
             per_batch.append(ops.launches - before)
+            alu_per_batch.append(ops.alu_launches - alu_before)
             outs.append(out)
             lo += bsz
-        served.append((name, per_batch, np.concatenate(outs)))
+        served.append((name, per_batch, alu_per_batch, np.concatenate(outs)))
     launches, attn = ops.launches, ops.attention_launches
-    record = {"launches": launches, "models": {}}
-    for (name, net, images, reference, layers), (_, per_batch, logits) in \
-            zip(cnns, served):
-        if per_batch != [layers] * len(CNN_BATCHES) or attn:
+    record = {"launches": launches, "alu_launches": ops.alu_launches,
+              "models": {}}
+    for (name, net, images, reference, layers), \
+            (_, per_batch, alu_per_batch, logits) in zip(cnns, served):
+        unfused = unfused_layers(net, dev)
+        if (per_batch != [layers] * len(CNN_BATCHES)
+                or alu_per_batch != [unfused] * len(CNN_BATCHES) or attn):
             raise AssertionError(f"{name}: kernel launches per batch "
                                  f"{per_batch}, expected {layers} each; "
-                                 f"attention launches {attn}, expected 0")
+                                 f"vta_alu {alu_per_batch}, expected "
+                                 f"{unfused} each; attention launches "
+                                 f"{attn}, expected 0")
         for r, img in enumerate(images):
             if not np.array_equal(logits[r], reference(img)):
                 raise AssertionError(f"{name} request {r}: logits differ "
@@ -828,13 +855,15 @@ def serve_cnns(ops, cnns, dev) -> dict:
         record["models"][name] = {
             "layers": layers, "batches": list(CNN_BATCHES),
             "launches_per_batch": per_batch,
+            "alu_launches_per_batch": alu_per_batch,
             "bit_exact": f"{len(images)}/{len(images)}",
             "chunks_per_layer": net.chunks_per_layer(),
             "input_sources": net.input_sources,
             "residual_sources": net.residual_sources}
         print(f"{name}: {len(images)}/{len(images)} requests bit-exact "
               f"(batches {list(CNN_BATCHES)}); kernel launches {per_batch} "
-              f"per batch ({layers} layers); chunks per layer "
+              f"per batch ({layers} layers), vta_alu {alu_per_batch} "
+              f"({unfused} unfused); chunks per layer "
               f"{net.chunks_per_layer()}")
     return record
 
@@ -926,12 +955,14 @@ def _batches(tickets) -> list:
     return list(seen.values())
 
 
-def _engine_run(ops, vta, net, images, dev, workers, layers, arrivals=None):
+def _engine_run(ops, vta, net, images, dev, workers, layers, unfused,
+                arrivals=None):
     """One measured engine run, the launch counters set to 0 just before it
     and read just after: ``serve_all`` of ``images`` (saturation) or, with
     ``arrivals``, their seeded trace replayed on the wall clock.  Fails
     unless the audit is clean, no request failed and ``vta_gemm`` launched
-    exactly ``layers`` times per executed batch."""
+    exactly ``layers`` times and ``vta_alu`` ``unfused`` times per executed
+    batch."""
     engine = vta.VTAServingEngine(
         net, policy=vta.BatchPolicy(**ENGINE_POLICY),
         backends=("cuda",) * workers, device=dev, slo_s=ENGINE_SLO_S)
@@ -953,18 +984,22 @@ def _engine_run(ops, vta, net, images, dev, workers, layers, arrivals=None):
     finally:
         engine.shutdown()
     launches, attn = ops.launches, ops.attention_launches
+    alu_launches = ops.alu_launches
     batches = _batches(tickets)
     audit = engine.metrics.audit()
     summary = engine.metrics.summary()
     if audit or summary["failed"] or summary["completed"] != len(images):
         raise AssertionError(f"engine run: audit {audit}, summary {summary}")
-    if launches != layers * len(batches) or attn:
-        raise AssertionError(f"engine run: {launches} kernel launches for "
-                             f"{len(batches)} batches of {layers} layers; "
-                             f"attention launches {attn}")
+    if (launches != layers * len(batches)
+            or alu_launches != unfused * len(batches) or attn):
+        raise AssertionError(f"engine run: {launches} kernel launches and "
+                             f"{alu_launches} vta_alu for {len(batches)} "
+                             f"batches of {layers} layers ({unfused} "
+                             f"unfused); attention launches {attn}")
     return outs, {
         "workers": workers, "wall_s": wall,
         "img_per_s": len(images) / wall, "launches": launches,
+        "alu_launches": alu_launches,
         "batches": len(batches),
         "mean_formed_batch": sum(b for b, _ in batches) / len(batches),
         "mean_padded_batch": sum(p for _, p in batches) / len(batches),
@@ -1003,13 +1038,14 @@ def engine_phase(ops, name, net, layers, reference, direct_img_s, dev):
         rec["first_use_ms"][rung] = [t * 1e3 for t in times]
     rate = ENGINE_LOAD * direct_img_s
     arrivals = vta.poisson_arrival_times(rate, ENGINE_REQUESTS, seed=23)
-    _engine_run(ops, vta, net, images[:128], dev, 2, layers,
+    unfused = unfused_layers(net, dev)
+    _engine_run(ops, vta, net, images[:128], dev, 2, layers, unfused,
                 arrivals=arrivals[:128])             # warm-up trace
     runs = []
     for mode in ("saturation", "trace"):
         for workers in (1, 2):
             outs, run = _engine_run(
-                ops, vta, net, images, dev, workers, layers,
+                ops, vta, net, images, dev, workers, layers, unfused,
                 arrivals=arrivals if mode == "trace" else None)
             if not np.array_equal(outs, direct):
                 bad = [r for r in range(len(images))
@@ -1028,7 +1064,8 @@ def engine_phase(ops, name, net, layers, reference, direct_img_s, dev):
                   f"{ENGINE_SLO_S * 1e3:.0f} ms violations "
                   f"{s['slo_violations']}; {len(images)}/{len(images)} "
                   f"bit-exact; audit clean; {run['launches']} launches = "
-                  f"{layers} x {run['batches']}")
+                  f"{layers} x {run['batches']}, vta_alu "
+                  f"{run['alu_launches']} = {unfused} x {run['batches']}")
     model = vta.calibrate_service_model(net, batch=32, device=dev)
     sims = {}
     for workers in (1, 2):
@@ -1052,7 +1089,8 @@ def engine_phase(ops, name, net, layers, reference, direct_img_s, dev):
                service_model={"base_s": model.base_s,
                               "per_image_s": model.per_image_s},
                simulated=sims,
-               launches=sum(r["launches"] for r in runs))
+               launches=sum(r["launches"] for r in runs),
+               alu_launches=sum(r["alu_launches"] for r in runs))
     return rec
 
 
@@ -5599,6 +5637,106 @@ def big_train_phase(ops, fa, card: str, dev, job: Optional[dict] = None
     return out
 
 
+# the batches of the benchmark's cells: resnet8.offline, lenet5.offline
+ALU_BATCHES = {"resnet8": 8192, "lenet5": 32768}
+
+
+def alu_phase(ops, dev) -> dict:
+    """Phase 24: ``vta_alu`` against its plain version and its bound at
+    the unfused layers of resnet8 and LeNet-5, at the cells' batches."""
+    from repro_torch.core import cuda_backend as cb
+    from repro_torch.kernels import vta_alu
+    from repro_torch.lenet5_e2e import compile_lenet5
+    from repro_torch.models import resnet8
+    nets = {"resnet8": resnet8.compile_resnet8()[0],
+            "lenet5": compile_lenet5()[1]}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    rows, totals = [], {}
+    for model, net in nets.items():
+        batch = ALU_BATCHES[model]
+        for layer in net.layers:
+            prog = layer.program
+            p = cb.plan_cuda(prog)
+            if p.fused:
+                continue
+            n_vec = p.alpha * p.beta * p.row_height
+            n = n_vec * p.block_size
+            stack = torch.randint(0, 256,
+                                  (batch, prog.allocator.image_size()),
+                                  dtype=torch.uint8, device=dev,
+                                  generator=gen)
+            gemm = torch.randint(0, 256, (batch * n * 4,), dtype=torch.uint8,
+                                 device=dev, generator=gen).view(torch.int32)
+            table = cb._alu_table(prog, p, dev)
+            blocks = (p.alpha, p.beta, p.row_height, p.block_size)
+
+            def kernel(saturate=False, dram=stack):
+                ops.vta_alu(gemm, dram, table,
+                            blocks=blocks, acc=p.acc, res=p.res, out=p.out,
+                            saturate=saturate)
+
+            def plain(saturate=False, dram=stack):
+                x = cb._decode_acc32(dram, p, p.acc) if p.acc else None
+                r = cb._decode_acc32(dram, p, p.res) if p.res else None
+                cb._encode_out(dram, p, cb.plain_alu_epilogue(
+                    gemm.view(batch, *p.padded_shape), x, r, p,
+                    cb._lowered_alu(prog, p, dev), saturate))
+
+            for saturate in (False, True):
+                want, got = stack.clone(), stack.clone()
+                plain(saturate, want)
+                kernel(saturate, got)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"vta_alu {model} {layer.spec.name} saturate "
+                        f"{saturate}: {int((got != want).sum())} bytes "
+                        f"differ from the plain version")
+                del want, got
+            kernel_ms = cuda_ms(kernel, iters=20, warmup=2)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            nbytes = batch * n * (4 + 1 + 4 * (p.acc is not None)
+                                  + 4 * (p.res is not None))
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            launch = vta_alu.plan(table, batch, n_vec, p.block_size, True)
+            row = {"model": model, "layer": layer.spec.name, "batch": batch,
+                   "n_vec": n_vec, "ops": table.n_ops,
+                   "launch": dataclasses.asdict(launch),
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bytes": nbytes,
+                   "bound_share": bound_ms / kernel_ms}
+            rows.append(row)
+            t = totals.setdefault(model, {"layers": 0, "kernel_ms": 0.0,
+                                          "plain_ms": 0.0, "bound_ms": 0.0})
+            t["layers"] += 1
+            for key in ("kernel_ms", "plain_ms", "bound_ms"):
+                t[key] += row[key]
+            print(f"vta_alu {model} {layer.spec.name} x{batch}: kernel "
+                  f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.4f} ms ({nbytes} B; {row['bound_share']:.1%} "
+                  f"of it), {launch.mode} vec {launch.vec}, "
+                  f"{launch.blocks} blocks, {launch.smem} B shared")
+            del stack, gemm
+            torch.cuda.empty_cache()
+    for model, t in totals.items():
+        print(f"vta_alu {model}: a call's {t['layers']} unfused layers "
+              f"{t['kernel_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.4f} ms")
+    return {"name": "vta_alu", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/vta_alu.cu",
+            "replaces": "none (the reference's epilogue is numpy: "
+                        "src/repro/core/pallas_backend.py "
+                        "apply_alu_epilogue)",
+            "per": ("totals: one call of each cell, the unfused layers "
+                    "timed alone; launches: counted on the main path "
+                    "(phases 4, 4b, 6b)"),
+            "totals": totals, "layers": rows,
+            "ptxas": [line.strip() for line in
+                      vta_alu.KERNEL.build_log.splitlines()
+                      if "ptxas" in line or "spill" in line]}
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -5674,7 +5812,7 @@ def f32_ptxas(log: str) -> list:
     return rows
 
 
-ONLY_PHASES = (3, 18, 19, 20, 21, 22, 23)
+ONLY_PHASES = (3, 18, 19, 20, 21, 22, 23, 24)
 
 
 def only_phases(argv) -> set:
@@ -5701,6 +5839,7 @@ def main() -> int:
     from repro_torch.core.cuda_backend import plan_cuda
     from repro_torch.kernels import flash_attention as attn_kernel
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import vta_alu as alu_kernel
     from repro_torch.kernels import vta_gemm as kernel
     from repro_torch.lenet5_e2e import compile_lenet5, request_images
     from repro_torch.models.lenet import reference_forward_int8
@@ -5725,7 +5864,7 @@ def main() -> int:
         so = k.build()
         return so, time.perf_counter() - t0
 
-    kernels = (kernel.KERNEL, *attn_kernel.KERNELS)
+    kernels = (kernel.KERNEL, *attn_kernel.KERNELS, alu_kernel.KERNEL)
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
         builds = list(pool.map(timed_build, kernels))
     record["build_s"], record["ptxas"] = {}, {}
@@ -5764,7 +5903,7 @@ def main() -> int:
                              f"declared instantiations, or ptxas spills")
     record["sass_vta_gemm"] = sass_counts(builds[0][0])
     record["sass_f32"] = sass_counts(builds[1][0])
-    record["sass_bf16"] = sass_counts(builds[-1][0])
+    record["sass_bf16"] = sass_counts(builds[len(attn_kernel.KERNELS)][0])
     print(f"vta_gemm SASS: {record['sass_vta_gemm']}")
     print(f"f32 attention SASS: {record['sass_f32']}")
     print(f"bf16 attention SASS: {record['sass_bf16']}")
@@ -5780,6 +5919,8 @@ def main() -> int:
         if 3 in only:
             record["grid_worst"] = check_kernel_grid(ops, ref, dev)
             record["vta_gemm_repeat"] = repeat_check(ref, dev)
+        if 24 in only:
+            record["vta_alu"] = alu_phase(ops, dev)
         if 18 in only:
             record["mesh"] = mesh_phase(card)
         if 19 in only:
@@ -5824,22 +5965,28 @@ def main() -> int:
     images = request_images(sum(BATCH_SIZES))
     net.serve(images[:2], device=dev)           # upload the image, warm up
     torch.cuda.synchronize()
+    unfused = unfused_layers(net, dev)
 
     ops.reset_launches()
-    per_batch, times, outs = [], [], []
+    per_batch, alu_per_batch, times, outs = [], [], [], []
     lo = 0
     for bsz in BATCH_SIZES:
-        before = ops.launches
+        before, alu_before = ops.launches, ops.alu_launches
         t0 = time.perf_counter()
         out, _ = net.serve(images[lo:lo + bsz], device=dev)
         times.append(time.perf_counter() - t0)
         per_batch.append(ops.launches - before)
+        alu_per_batch.append(ops.alu_launches - alu_before)
         outs.append(out)
         lo += bsz
-    launches = ops.launches
-    if per_batch != [5] * len(BATCH_SIZES) or ops.attention_launches:
+    launches, alu_launches = ops.launches, ops.alu_launches
+    if (per_batch != [5] * len(BATCH_SIZES) or unfused != 2
+            or alu_per_batch != [2] * len(BATCH_SIZES)
+            or ops.attention_launches):
         raise AssertionError(f"kernel launches per batch {per_batch}, "
-                             f"expected 5 each; attention launches "
+                             f"expected 5 each; vta_alu {alu_per_batch}, "
+                             f"expected 2 each ({unfused} unfused layers); "
+                             f"attention launches "
                              f"{ops.attention_launches}, expected 0")
     logits = np.concatenate(outs)
     for r, img in enumerate(images):
@@ -5850,19 +5997,23 @@ def main() -> int:
     print(f"LeNet-5: {len(images)}/{len(images)} requests bit-exact; "
           f"kernel launches {launches} ({per_batch} per batch; layers "
           f"int32-out+TensorAlu {fused.count(False)}, fused int8 "
-          f"{fused.count(True)})")
+          f"{fused.count(True)}); vta_alu {alu_launches} ({alu_per_batch} "
+          f"per batch)")
     # the reference's check of a compiled network, on the card: the chain
     # over the compile-time input, each staged input and the output
     # against the compiler's (``NetworkProgram.verify``)
     ops.reset_launches()
     verified, _ = net.verify(backend="cuda", device=dev)
     record["lenet5_verify"] = {"backend": "cuda", "launches": ops.launches,
+                               "alu_launches": ops.alu_launches,
                                "output": verified.tolist()}
-    if ops.launches != len(net.layers):
+    if ops.launches != len(net.layers) or ops.alu_launches != unfused:
         raise AssertionError(f"LeNet-5 verify: {ops.launches} launches, "
-                             f"expected {len(net.layers)}")
+                             f"expected {len(net.layers)}; vta_alu "
+                             f"{ops.alu_launches}, expected {unfused}")
     print(f"LeNet-5 NetworkProgram.verify(backend='cuda'): the output equals "
-          f"the compiler's reference ({ops.launches} launches)")
+          f"the compiler's reference ({ops.launches} launches, vta_alu "
+          f"{ops.alu_launches})")
 
     # -- 4b. main path: resnet8, resnet_tiny, the CIFAR CNN on the card -----
     cnns = compile_cnns()
@@ -5962,6 +6113,17 @@ def main() -> int:
                              for e in record["engine"].values())
     entry["launches_by_path"].update(
         {f"engine_{k}": e["launches"] for k, e in record["engine"].items()})
+
+    # -- 24. the TensorAlu epilogue kernel at the cells' shapes -----------
+    alu_entry = record["vta_alu"] = alu_phase(ops, dev)
+    alu_entry["launches_by_path"] = {
+        "lenet5": alu_launches,
+        "lenet5_verify": record["lenet5_verify"]["alu_launches"],
+        **{name: sum(m["alu_launches_per_batch"]) for name, m in
+           record["cnn_serve"]["models"].items()},
+        **{f"engine_{k}": e["alu_launches"]
+           for k, e in record["engine"].items()}}
+    alu_entry["launches"] = sum(alu_entry["launches_by_path"].values())
 
     mark("3-6b")
     # -- 7. flash_attention vs plain over the grid ------------------------
@@ -6262,6 +6424,7 @@ def main() -> int:
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    record["kernels"].append(record.pop("vta_alu"))
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": record["kernels"]}))
     print(json.dumps({"ok": True, "device": {

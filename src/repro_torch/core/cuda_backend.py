@@ -20,7 +20,9 @@ When the program's ALU epilogue is exactly the fused-kernel form
 (``[relu?][shr?]`` with a row-broadcast bias) the whole layer runs inside
 the kernel; richer programs (pool pair lattices, indexed SHR, residual
 ADD) run the GEMM on the kernel with an int32 output and the remaining
-TensorAlu ops as the vectorised torch epilogue below, which mirrors
+TensorAlu ops as a second kernel, ``vta_alu``, which reads the GEMM's
+result, ACC and RES in place and writes OUT, in one launch a layer.  Its
+plain version, the vectorised torch epilogue below (the CPU path), mirrors
 ``gemm_compiler``'s reference semantics op for op (wraparound included).
 """
 
@@ -35,6 +37,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.device import DeviceLike, device_of, resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import vta_alu
 from repro_torch.kernels.ref import truncate_int8, wrap_int32
 
 from . import isa
@@ -256,17 +259,25 @@ class _PairLattice:
     sequential: bool
 
 
-def _pair_lattice(pairs: Tuple[Tuple[int, int], ...], op: isa.AluOp,
-                  device: torch.device) -> _PairLattice:
-    """Host-side classification (as the reference's ``_pair_apply``):
-    disjoint dst/src lattices vectorise with duplicate-merging scatters —
-    exact for ADD (mod-2³² congruence) and MIN/MAX (idempotent merges);
-    anything order-dependent runs the sequential loop."""
+def _pair_arrays(pairs: Tuple[Tuple[int, int], ...], op: isa.AluOp
+                 ) -> Tuple[np.ndarray, np.ndarray, bool]:
+    """``(dst, src, sequential)`` of a pair op, classified on the host (as
+    the reference's ``_pair_apply``): disjoint dst/src lattices vectorise
+    with duplicate-merging scatters — exact for ADD (mod-2³² congruence)
+    and MIN/MAX (idempotent merges); anything order-dependent runs the
+    pairs in order."""
     dst = np.fromiter((d for d, _ in pairs), dtype=np.int64, count=len(pairs))
     src = np.fromiter((s for _, s in pairs), dtype=np.int64, count=len(pairs))
     sequential = (np.intersect1d(dst, src).size > 0
                   or (op not in (isa.AluOp.ADD, isa.AluOp.MIN, isa.AluOp.MAX)
                       and len(np.unique(dst)) != len(dst)))
+    return dst, src, sequential
+
+
+def _pair_lattice(pairs: Tuple[Tuple[int, int], ...], op: isa.AluOp,
+                  device: torch.device) -> _PairLattice:
+    """:func:`_pair_arrays` as device tensors, for the torch epilogue."""
+    dst, src, sequential = _pair_arrays(pairs, op)
     as_t = lambda x: torch.as_tensor(x, dtype=torch.int64, device=device)
     return _PairLattice(dst=as_t(dst), src=as_t(src),
                         touched=as_t(np.unique(dst)), sequential=sequential)
@@ -314,17 +325,92 @@ def lower_alu(alu_ops, device: torch.device) -> List[object]:
     return lowered
 
 
-def _lowered_alu(prog, p: CudaPlan, device: torch.device) -> List[object]:
-    """:func:`lower_alu` of ``prog``, built once per program and device so
-    a served batch copies no indices to the device.  Racing threads may
-    both build the list; each stores it whole, so the race only duplicates
-    work."""
-    cache: Dict[str, List[object]] = prog.__dict__.setdefault(
-        "_cuda_alu", {})
+def _per_device(prog, attr: str, device: torch.device, build):
+    """``build()`` once per program and device, kept on ``prog`` under
+    ``attr``, so a served batch copies nothing to the device for it.
+    Racing threads may both build it; each stores it whole, so the race
+    only duplicates work."""
+    cache: Dict[str, object] = prog.__dict__.setdefault(attr, {})
     key = device_of(device)
     if key not in cache:
-        cache[key] = lower_alu(p.alu_ops, device)
+        cache[key] = build()
     return cache[key]
+
+
+def _lowered_alu(prog, p: CudaPlan, device: torch.device) -> List[object]:
+    """:func:`lower_alu` of ``prog``, once per program and device."""
+    return _per_device(prog, "_cuda_alu", device,
+                       lambda: lower_alu(p.alu_ops, device))
+
+
+def lower_alu_table(alu_ops, n_vec: int,
+                    device: torch.device) -> vta_alu.AluTable:
+    """An ALU program as the ``vta_alu`` kernel's table on ``device``: one
+    row of ``vta_alu.ROW`` int64 words an op (kind, ALU op, immediate or
+    RES pre-shift, offsets into the data after the rows), then the data.
+    An indexed op keeps its indices once each (the plain version's
+    ``vec[:, idx] = f(vec[:, idx])`` applies ``f`` once to a repeated
+    index); a pair op whose lattice :func:`_pair_arrays` vectorises keeps
+    its dsts, each dst's offsets into the srcs, and the srcs grouped by dst
+    in the program's order; any other pair op keeps its (dst, src) pairs
+    in order.  Every index must name one of the ``n_vec`` vectors."""
+    kinds, rows, data = [], [], []
+    base = len(alu_ops) * vta_alu.ROW
+
+    def put(values) -> int:
+        """Append ``values`` to the data; their first word's offset."""
+        bad = [int(v) for v in values if not 0 <= v < n_vec]
+        if bad:
+            raise CompileError(
+                f"ALU indices {bad[:4]} outside the program's {n_vec} result "
+                f"vectors", constraint="cuda-alu-index")
+        start = base + len(data)
+        data.extend(int(v) for v in values)
+        return start
+
+    for spec in alu_ops:
+        op = isa.AluOp(spec.op)
+        if isinstance(spec, AluImmOp):
+            kind, row = "imm", [spec.imm]
+        elif isinstance(spec, AluResidualOp):
+            kind, row = "res", [spec.pre_shift]
+        elif isinstance(spec, AluIndexedImmOp):
+            idx = np.unique(np.asarray(spec.indices, dtype=np.int64))
+            kind, row = "indexed", [spec.imm, put(idx), len(idx)]
+        elif isinstance(spec, AluPairOp):
+            dst, src, sequential = _pair_arrays(spec.pairs, op)
+            if sequential:
+                kind = "pair_seq"
+                row = [0, put(np.stack([dst, src], 1).reshape(-1)), len(dst)]
+            else:
+                order = np.argsort(dst, kind="stable")
+                dsts, counts = np.unique(dst, return_counts=True)
+                offsets = np.concatenate([[0], np.cumsum(counts)])
+                kind = "pair"
+                row = [0, put(dsts), len(dsts), base + len(data)]
+                data.extend(int(o) for o in offsets)    # into the srcs
+                row.append(put(src[order]))
+        else:
+            raise CompileError(f"unknown ALU spec {type(spec).__name__}",
+                               constraint="cuda-alu-op")
+        kinds.append(kind)
+        rows.append([vta_alu.KINDS.index(kind), int(op), *row]
+                    + [0] * (vta_alu.ROW - 2 - len(row)))
+    structural = [i for i, k in enumerate(kinds)
+                  if k not in vta_alu.ELEMENTWISE]
+    lead = structural[0] if structural else len(kinds)
+    tail = structural[-1] + 1 if structural else len(kinds)
+    words = np.asarray([w for r in rows for w in r] + data, dtype=np.int64)
+    return vta_alu.AluTable(
+        words=torch.as_tensor(words, device=device), n_ops=len(kinds),
+        lead=lead, tail=tail, residual="res" in kinds)
+
+
+def _alu_table(prog, p: CudaPlan, device: torch.device) -> vta_alu.AluTable:
+    """:func:`lower_alu_table` of ``prog``, once per program and device."""
+    n_vec = p.alpha * p.beta * p.row_height
+    return _per_device(prog, "_cuda_alu_table", device,
+                       lambda: lower_alu_table(p.alu_ops, n_vec, device))
 
 
 def apply_alu_epilogue(vec: torch.Tensor, alu_ops,
@@ -379,6 +465,20 @@ def _commit_int8(acc: torch.Tensor, saturate: bool) -> torch.Tensor:
     return truncate_int8(acc)
 
 
+def plain_alu_epilogue(acc: torch.Tensor, x: Optional[torch.Tensor],
+                       res: Optional[torch.Tensor], p: CudaPlan,
+                       lowered: List[object], saturate: bool) -> torch.Tensor:
+    """The plain version of the ``vta_alu`` kernel: the GEMM's (B, Mp, Np)
+    int32 result with the ACC preload ``x``, the TensorAlu program (``res``
+    the decoded RES) and the commit, as a (B, Mp, Np) int8 matrix."""
+    if x is not None:                               # ACC preload (C = A·B+X)
+        acc = _wrap32(acc.to(torch.int64) + x.to(torch.int64))
+    vec = _to_vectors(acc, p)
+    res_vec = _to_vectors(res, p) if res is not None else None
+    vec = apply_alu_epilogue(vec, p.alu_ops, res_vec, lowered)
+    return _commit_int8(_to_matrix(vec, p), saturate)
+
+
 @dataclasses.dataclass(frozen=True)
 class StackForm:
     """The data-dependent answers :func:`_execute_stack` needs before it
@@ -430,7 +530,9 @@ def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
                    form: Optional[StackForm] = None) -> SimReport:
     """Run ``prog`` over every DRAM row of ``stack``, writing OUT bytes in
     place.  Weight-uniform batches collapse to a single stacked kernel
-    launch; varied weights fall back to one launch per row.
+    launch; varied weights fall back to one launch per row.  On a CUDA
+    stack an unfused program's epilogue is one ``vta_alu`` launch over
+    every row, which reads each row's ACC and RES in place.
 
     ``form`` is the stack's :class:`StackForm`; a caller that passes none
     (a simulator over an arbitrary stack, whose rows may differ) gets it
@@ -442,11 +544,14 @@ def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
     mp, np_ = p.padded_shape
     m, n = p.valid_shape
     fused = p.fused and form.fuse_bias
+    on_card = stack.device.type == "cuda"
     with tracing.span("repro_torch.layer.decode"):
         a = _decode_inp(stack, p)                   # (B, Mp, Kp)
         w = _decode_wgt(stack, p)                   # (B, Kp, Np)
-        x = _decode_acc32(stack, p, p.acc) if p.acc else None
-        res = _decode_acc32(stack, p, p.res) if p.res else None
+        # the kernel epilogue reads ACC and RES in place
+        x = (_decode_acc32(stack, p, p.acc)
+             if p.acc and (fused or not on_card) else None)
+        res = _decode_acc32(stack, p, p.res) if p.res and not on_card else None
         bias = x[:, 0] if x is not None and fused else None
         one_launch = form.uniform_w and (bias is None or form.uniform_bias)
         if one_launch:
@@ -484,18 +589,22 @@ def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
                                  saturate=False, out_dtype=torch.int32)
                     for i in range(b)])
         with tracing.span("repro_torch.layer.epilogue"):
-            if x is not None:                       # ACC preload (C = A·B+X)
-                acc = _wrap32(acc.to(torch.int64) + x.to(torch.int64))
-            vec = _to_vectors(acc, p)
-            res_vec = _to_vectors(res, p) if res is not None else None
-            vec = apply_alu_epilogue(vec, p.alu_ops, res_vec,
-                                     _lowered_alu(prog, p, stack.device))
-            out = _commit_int8(_to_matrix(vec, p), saturate)
+            if on_card:                             # OUT written in place
+                kernel_ops.vta_alu(
+                    acc, stack, _alu_table(prog, p, stack.device),
+                    blocks=(p.alpha, p.beta, p.row_height, p.block_size),
+                    acc=p.acc, res=p.res, out=p.out, saturate=saturate)
+                out = None
+            else:
+                out = plain_alu_epilogue(
+                    acc, x, res, p, _lowered_alu(prog, p, stack.device),
+                    saturate)
 
     with tracing.span("repro_torch.layer.encode", bytes=b * p.out[1]):
-        if bias is not None:
-            out[:, m:, :] = 0          # oracle pad rows: 0·B + 0 preload
-        _encode_out(stack, p, out)
+        if out is not None:
+            if bias is not None:
+                out[:, m:, :] = 0      # oracle pad rows: 0·B + 0 preload
+            _encode_out(stack, p, out)
     report = SimReport()
     report.gemm_loops = b * prog.gemm_loops()
     report.alu_loops = b * prog.alu_loops()

@@ -3,10 +3,12 @@
 A CPU tensor goes to the plain torch version (``ref.vta_gemm_ref``,
 ``ref.attention_ref``); a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback from one to the other.  ``launches`` counts
-kernel launches made through :func:`vta_matmul` and ``attention_launches``
-the attention kernels launched (``flash_attention.launches``: the count
-the C entry points report), so a run can show that its main path went
-through the kernels.
+kernel launches made through :func:`vta_matmul`, ``alu_launches`` the
+TensorAlu epilogue kernels launched through :func:`vta_alu` (counted apart,
+so ``launches`` stays the GEMM's), and ``attention_launches`` the attention
+kernels launched (``flash_attention.launches``: the count the C entry
+points report), so a run can show that its main path went through the
+kernels.
 
 The attention kernel has no backward (nor has the reference's).  Under
 grad it is launched through :func:`with_plain_backward`: the output
@@ -28,11 +30,13 @@ from repro_torch.core.errors import CompileError
 
 from . import flash_attention as _flash
 from . import ref as _ref
+from . import vta_alu as _vta_alu
 from . import vta_gemm as _vta_gemm
 
 _BACKENDS = ("auto", "cuda", "torch")
 
 launches = 0            # kernel launches made by vta_matmul
+alu_launches = 0        # kernel launches made by vta_alu
 # serving workers launch from several threads at once: ``launches += 1`` is
 # a read-modify-write, so it is taken under this lock
 _launches_lock = threading.Lock()
@@ -44,10 +48,16 @@ def _count_launch() -> None:
         launches += 1
 
 
+def _count_alu_launch() -> None:
+    global alu_launches
+    with _launches_lock:
+        alu_launches += 1
+
+
 def reset_launches() -> None:
-    global launches
+    global launches, alu_launches
     with _launches_lock, _flash.launches_lock:
-        launches = 0
+        launches = alu_launches = 0
         _flash.launches = 0
 
 
@@ -91,6 +101,22 @@ def vta_matmul(a: torch.Tensor, b: torch.Tensor,
                              saturate=saturate, out_dtype=out_dtype)
     _count_launch()
     return out
+
+
+def vta_alu(gemm: torch.Tensor, stack: torch.Tensor,
+            table: "_vta_alu.AluTable", *, blocks, acc, res, out,
+            saturate: bool) -> None:
+    """The TensorAlu epilogue kernel over every image of ``stack``
+    (``vta_alu.vta_alu``): OUT from the GEMM's int32 result, ACC and RES.
+    CUDA tensors only; the plain version for CPU tensors is
+    ``core/cuda_backend.py``'s torch epilogue, which its caller runs."""
+    if gemm.device.type != "cuda":
+        raise ValueError("vta_alu launches the kernel and needs CUDA "
+                         f"tensors; got {gemm.device} (the plain version is "
+                         "cuda_backend.plain_alu_epilogue)")
+    _vta_alu.vta_alu(gemm, stack, table, blocks=blocks, acc=acc, res=res,
+                     out=out, saturate=saturate)
+    _count_alu_launch()
 
 
 Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],

@@ -32,6 +32,8 @@ from repro_torch.core.errors import CompileError                 # noqa: E402
 from repro_torch.core.program import VTAProgram                  # noqa: E402
 from repro_torch.kernels import ops as tops                      # noqa: E402
 from test_torch_compiler import PROGRAMS, build_programs         # noqa: E402
+from torch_alu_cases import alu_cases as _alu_cases              # noqa: E402
+from torch_alu_cases import alu_ops as _alu_ops                  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -118,40 +120,6 @@ def test_batch_stack_matches_batched_simulator(vary):
     got = staging.decode_out_region_batch(progs[0], sim.dram).numpy()
     np.testing.assert_array_equal(got, want)
     assert report.gemm_loops == 4 * progs[0].gemm_loops()
-
-
-def _alu_cases():
-    add, mx, mn, shr = (jisa.AluOp.ADD, jisa.AluOp.MAX, jisa.AluOp.MIN,
-                        jisa.AluOp.SHR)
-    disjoint = tuple((d, d + 8) for d in range(8))
-    dup_dst = ((0, 8), (0, 9), (1, 10), (0, 11))
-    overlap = ((0, 1), (1, 2), (2, 3), (4, 0))
-    return [
-        ("imm", [("imm", add, -7), ("imm", mx, 0), ("imm", shr, 3),
-                 ("imm", mn, 100)]),
-        ("indexed", [("idx", shr, 2, (0, 3, 5)), ("idx", add, 9, (1, 2))]),
-        ("pair_add", [("pair", add, disjoint), ("pair", add, dup_dst)]),
-        ("pair_minmax", [("pair", mx, dup_dst), ("pair", mn, disjoint)]),
-        ("pair_shr", [("pair", shr, disjoint)]),
-        ("pair_overlap", [("pair", add, overlap), ("pair", mx, overlap),
-                          ("pair", shr, overlap)]),
-        ("residual", [("res", add, 2), ("res", mx, 0), ("res", shr, 0)]),
-    ]
-
-
-def _alu_ops(gc, isa, ops):
-    out = []
-    for kind, op, *rest in ops:
-        op = isa.AluOp(int(op))
-        if kind == "imm":
-            out.append(gc.AluImmOp(op, rest[0]))
-        elif kind == "idx":
-            out.append(gc.AluIndexedImmOp(op, rest[0], rest[1]))
-        elif kind == "pair":
-            out.append(gc.AluPairOp(op, rest[0]))
-        else:
-            out.append(gc.AluResidualOp(op, pre_shift=rest[0]))
-    return out
 
 
 @pytest.mark.parametrize("case", range(len(_alu_cases())),

@@ -20,11 +20,17 @@ and prints:
   ``repro_torch.`` span (where the port has them) and the innermost host
   operation open on the host at its middle;
 * where the port has spans (``repro_torch.tracing``): device ms a call
-  by layer and leaf span (CUDA events), the seven span metrics
+  by layer and leaf span, as the spans' CUDA events time them and as the
+  operations they launched sum (0 where a span launched none, as an
+  unfused layer's ``layer.encode`` on the card), the seven span metrics
   (``tools/span_metrics.py``), each leaf kind's device time summed from
   the operations it launched beside its event time, the device
   operations by name and launching span, and the operations launched in
-  a ``serve`` call outside any leaf span.
+  a ``serve`` call outside any leaf span.  The port's own kernels are
+  put down by name where the trace links their launch to no leaf span
+  (``KERNEL_SPANS``: ``vta_gemm`` to ``layer.gemm``, the TensorAlu
+  epilogue's ``vta_alu`` to ``layer.epilogue``); ``misplaced_kernels``
+  lists any that the trace links to another span.
 
 Prints the card's name and power limit, and as its last line one JSON
 object; ``--out`` appends that object to a file, and ``--chrome`` keeps
@@ -52,6 +58,42 @@ LEAVES = ("repro_torch.serve.input", "repro_torch.serve.stack",
           "repro_torch.layer.gemm", "repro_torch.layer.epilogue",
           "repro_torch.layer.encode", "repro_torch.layer.unpack",
           "repro_torch.serve.output")
+LAYER = "repro_torch.layer"
+# the port's kernels by name, and the leaf span each is launched in
+KERNEL_SPANS = {"vta_gemm": "repro_torch.layer.gemm",
+                "vta_alu": "repro_torch.layer.epilogue"}
+
+
+def leaf_of(op: dict) -> str:
+    """The leaf span a device operation is put down to: the one the trace
+    links its launch to, else, for the port's own kernels, by name."""
+    if op["span"] in LEAVES:
+        return op["span"]
+    named = [span for key, span in KERNEL_SPANS.items() if key in op["name"]]
+    return named[0] if named else op["span"]
+
+
+def layer_of(events: list, spans: list):
+    """A function from an operation (of ``tracing.attribute``) to the
+    ``k name`` of the layer whose span launched it ("serve" outside any
+    layer), by the layer annotations of the trace in start order, which
+    are the log's layer spans in start order; None where the two do not
+    pair up."""
+    marks = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("cat") == "user_annotation"
+                   and e["name"] == LAYER)
+    layers = [s for s in spans if s["name"] == LAYER]
+    if len(marks) != len(layers):
+        return None
+    names = [f"{s['attrs']['k']} {s['attrs']['name']}" for s in layers]
+
+    def find(op: dict) -> str:
+        ts = op["span_ts"]
+        for (a, b), name in zip(marks, names):
+            if ts is not None and a <= ts <= b:
+                return name
+        return "serve"
+    return find
 
 
 def card(torch) -> dict:
@@ -183,25 +225,36 @@ def main() -> int:
             events_ms[s["name"]] += s["device_ms"] / args.calls
         launched = collections.defaultdict(float)
         by_op = collections.defaultdict(float)
+        by_layer_ops = collections.defaultdict(float)
         labels = {d[1]: d[3] for d in tr["device"]}
-        stray = []
+        stray, misplaced = [], []
+        row_of = layer_of(events, snap["spans"])
         for o in tracing.attribute(events):
             if o["in_serve"]:
                 ms = o["dur"] / 1e3 / args.calls
-                launched[o["span"]] += ms
-                by_op[(labels.get(o["ts"], o["name"]), o["span"])] += ms
-                if o["span"] not in LEAVES:
+                leaf = leaf_of(o)
+                launched[leaf] += ms
+                by_op[(labels.get(o["ts"], o["name"]), leaf)] += ms
+                if row_of is not None:
+                    by_layer_ops[(row_of(o), leaf)] += ms
+                if leaf not in LEAVES:
                     stray.append([o["name"], o["span"]])
+                if o["span"] in LEAVES and any(
+                        key in o["name"] and span != o["span"]
+                        for key, span in KERNEL_SPANS.items()):
+                    misplaced.append([o["name"], o["span"]])
         result.update(
             spans=len(snap["spans"]), dropped=snap["dropped"],
             span_metrics={m: read(rec)
                           for m, read in span_metrics.READERS.items()},
-            by_layer=[[r, k, ms] for (r, k), ms in table.items()],
+            by_layer=[[r, k, ms, by_layer_ops.get((r, k), 0.0)
+                       if row_of is not None else None]
+                      for (r, k), ms in table.items()],
             leaf_kinds={k: [launched.get(k, 0.0), ms]
                         for k, ms in events_ms.items()},
             ops_by_span=sorted([[op, k, ms] for (op, k), ms in by_op.items()],
                                key=lambda r: -r[2]),
-            outside_leaves=stray)
+            outside_leaves=stray, misplaced_kernels=misplaced)
     print(f"{args.label} {args.cell} on {result['card']}")
     for key, value in result.items():
         if key not in ("label", "cell", "card"):
