@@ -9,11 +9,11 @@ import numpy as np
 WEIGHTS, CALIBRATION, TRAFFIC = 1, 2, 3
 
 
-def rng(seed: int, stream: int) -> np.random.Generator:
-    """The generator of ``stream`` for ``--seed`` ``seed`` (any whole
-    number; taken modulo 2**64)."""
+def rng(seed: int, stream: int, *sub: int) -> np.random.Generator:
+    """The generator of ``stream`` (and of its part ``sub``, where given)
+    for ``--seed`` ``seed`` (any whole number; taken modulo 2**64)."""
     return np.random.default_rng(
-        np.random.SeedSequence([int(seed) % 2 ** 64, stream]))
+        np.random.SeedSequence([int(seed) % 2 ** 64, stream, *sub]))
 
 
 def weights(config: dict, seed: int) -> dict:

@@ -171,3 +171,71 @@ def test_nearest_rank():
     assert harness.nearest_rank(values, 95) == 95.0
     assert harness.nearest_rank(values[:10], 95) == 10.0
     assert harness.nearest_rank([3.0], 95) == 3.0
+
+
+def _server_rec(tr=None):
+    """Four requests due in the window, served in two batches by one
+    worker: batch A (3 real rows padded to 4) dispatched at 10.0, batch B
+    (1 of 1) at 10.5; times in seconds."""
+    req = {"due": np.array([9.000, 9.001, 9.002, 10.400]),
+           "enqueue": np.array([9.001, 9.003, 9.002, 10.410]),
+           "dispatch": np.array([10.0, 10.0, 10.0, 10.5]),
+           "complete": np.array([10.2, 10.2, 10.2, 10.6]),
+           "batch": np.array([3, 3, 3, 1]),
+           "padded": np.array([4, 4, 4, 1]),
+           "worker": np.array([0, 0, 0, 0])}
+    return {"config": _config("resnet8"), "batch": None, "compile_s": 0.7,
+            "window": {"seconds": 2.0, "calls": 4, "images": 4000},
+            "device": {"kind": H100}, "requests": req, "trace": tr}
+
+
+def test_server_readers_by_hand():
+    read = lambda m: _metric(m).read(_server_rec())
+    # nearest rank p95 of four values is the largest
+    assert read("queue_wait_p95_ms") == pytest.approx(999.0)
+    assert read("service_p95_ms") == pytest.approx(200.0)
+    assert read("admission_p95_ms") == pytest.approx(10.0)
+    # batch A 3/4 and batch B 1/1, each once
+    assert read("batch_fill") == pytest.approx(100 * (0.75 + 1.0) / 2)
+    assert read("mfu") == pytest.approx(
+        100 * 2 * 13_550_208 * 4000 / 2.0 / 1.979e15)
+    for name in ("queue_wait_p95_ms", "service_p95_ms", "admission_p95_ms",
+                 "batch_fill"):
+        assert _metric(name).read({"trace": None}) is None, name
+
+
+def test_idle_share_reads_a_server_trace():
+    """The server's traced stretch is one span on the harness's thread;
+    the device operations come from the engine's worker, whose host
+    operations the profiler may not record: the share is still the span
+    less the union of the device's intervals."""
+    ev = [{"ph": "X", "cat": "user_annotation", "name": trace.SPAN,
+           "ts": 0, "dur": 1000},
+          {"ph": "X", "cat": "kernel", "name": "vta_gemm_kernel",
+           "ts": 100, "dur": 100, "tid": 7, "args": {"correlation": 1}},
+          {"ph": "X", "cat": "kernel", "name": "elementwise", "ts": 150,
+           "dur": 100, "tid": 7},
+          {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 990,
+           "dur": 50, "tid": 7}]
+    tr = trace.reduce(ev)
+    assert _metric("idle_share").read(_server_rec(tr)) == pytest.approx(
+        100 * (1 - (150 + 10) / 1000))
+
+def test_a_trace_without_kernels_fails_a_run_on_the_card(monkeypatch):
+    """A traced stretch on the card always launches kernels: one whose
+    trace holds copies and no kernel has lost the device's records, and
+    the run fails rather than read an idle share from the copies."""
+    import torch
+    ev = [{"ph": "X", "cat": "user_annotation", "name": trace.SPAN,
+           "ts": 0, "dur": 1000},
+          {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 990,
+           "dur": 50, "tid": 7}]
+    lost = trace.reduce(ev)
+    monkeypatch.setattr(trace, "profile", lambda call, calls: dict(lost))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        harness._traced(None, 1, torch.device("cuda"))
+    assert harness._traced(None, 1, torch.device("cpu"))["device"]
+    kept = trace.reduce(ev + [{"ph": "X", "cat": "kernel", "name": "k",
+                               "ts": 100, "dur": 10, "tid": 7}])
+    monkeypatch.setattr(trace, "profile", lambda call, calls: dict(kept))
+    assert len(harness._traced(None, 1, torch.device("cuda"))["device"]) == 2
