@@ -588,7 +588,8 @@ def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
                     _kernel_gemm(a[i], w[i], None, relu=False, shift=0,
                                  saturate=False, out_dtype=torch.int32)
                     for i in range(b)])
-        with tracing.span("repro_torch.layer.epilogue"):
+        with tracing.span("repro_torch.layer.epilogue",
+                          alu=prog.alu_kind or "program"):
             if on_card:                             # OUT written in place
                 kernel_ops.vta_alu(
                     acc, stack, _alu_table(prog, p, stack.device),

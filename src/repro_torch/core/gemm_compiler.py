@@ -47,7 +47,7 @@ from .dram import DramAllocator
 from .errors import CompileError
 from .hwconfig import VTAConfig, vta_default
 from .layout import (matrix_padding, matrix_splitting, binarize_blocks,
-                     should_pad_height, pad_to_multiple)
+                     exact_matmul, should_pad_height, pad_to_multiple)
 from .program import OutputMeta, VTAProgram
 
 
@@ -224,6 +224,44 @@ def plan_chunks(cfg: VTAConfig, alpha: int, lam: int, beta: int,
     ``max_lam_c``/``max_alpha_c`` cap the tile sizes below the buffer
     limits — the makespan-driven planner uses them to generate split
     candidates (more load groups / more chunks = more overlap)."""
+    # a row group must fit one chunk: where the widest would not, the
+    # chunks take fewer block columns so that they take more block rows
+    span = _widest_run(row_groups)
+    lam_c, beta_c, alpha_c = chunk_dims(
+        cfg, alpha, lam, beta, row_height, acc_copies=acc_copies,
+        double_buffer=double_buffer, max_lam_c=max_lam_c,
+        max_alpha_c=max_alpha_c, min_alpha_c=min(span, alpha))
+    plan = ChunkPlan(alpha, lam, beta, alpha_c, lam_c, beta_c, row_height,
+                     alpha_segs=_segment(alpha, alpha_c, row_groups),
+                     beta_segs=_segment(beta, beta_c, col_groups),
+                     acc_copies=acc_copies, double_buffer=double_buffer)
+    _validate_plan(cfg, plan)
+    return plan
+
+
+def _widest_run(groups: Sequence[Tuple[int, int]]) -> int:
+    """The most blocks one run of :func:`_segment` must hold: groups that
+    share a block must share a run, so they chain."""
+    widest, run = 1, None
+    for lo, hi in sorted(groups):
+        if run is not None and lo <= run[1]:
+            run = (run[0], max(run[1], hi))
+        else:
+            run = (lo, hi)
+        widest = max(widest, run[1] - run[0] + 1)
+    return widest
+
+
+def chunk_dims(cfg: VTAConfig, alpha: int, lam: int, beta: int,
+               row_height: int, *, acc_copies: int = 1,
+               double_buffer: bool = False,
+               max_lam_c: Optional[int] = None,
+               max_alpha_c: Optional[int] = None,
+               min_alpha_c: int = 1) -> Tuple[int, int, int]:
+    """The largest chunk ``(lam_c, beta_c, alpha_c)`` every buffer holds
+    (see :func:`plan_chunks`): λ first, then β, then α.  Where that leaves
+    ``alpha_c`` under ``min_alpha_c`` (a row group's span), ``beta_c`` is
+    cut until ``min_alpha_c`` block rows fit, if any ``beta_c`` lets them."""
     div = 2 if double_buffer else 1
     uop_reserve = div
     inp_budget = cfg.inp_buff_vectors // div
@@ -238,19 +276,23 @@ def plan_chunks(cfg: VTAConfig, alpha: int, lam: int, beta: int,
                         acc_budget // row_height,
                         out_budget // row_height,
                         cfg.uop_buff_entries - uop_reserve))
-    alpha_c = max(1, min(alpha,
-                         inp_budget // (row_height * lam_c),
-                         acc_budget // (row_height * beta_c),
-                         out_budget // (row_height * beta_c),
-                         (cfg.uop_buff_entries - uop_reserve) // beta_c))
+
+    def alpha_for(b_c: int) -> int:
+        return max(1, min(alpha,
+                          inp_budget // (row_height * lam_c),
+                          acc_budget // (row_height * b_c),
+                          out_budget // (row_height * b_c),
+                          (cfg.uop_buff_entries - uop_reserve) // b_c))
+
+    alpha_c = alpha_for(beta_c)
+    if alpha_c < min_alpha_c:
+        fit = max(1, min(acc_budget, out_budget) // (row_height * min_alpha_c))
+        if fit < beta_c:
+            beta_c = fit
+            alpha_c = alpha_for(beta_c)
     if max_alpha_c is not None:
         alpha_c = max(1, min(alpha_c, max_alpha_c))
-    plan = ChunkPlan(alpha, lam, beta, alpha_c, lam_c, beta_c, row_height,
-                     alpha_segs=_segment(alpha, alpha_c, row_groups),
-                     beta_segs=_segment(beta, beta_c, col_groups),
-                     acc_copies=acc_copies, double_buffer=double_buffer)
-    _validate_plan(cfg, plan)
-    return plan
+    return lam_c, beta_c, alpha_c
 
 
 def _validate_plan(cfg: VTAConfig, p: ChunkPlan) -> None:
@@ -272,15 +314,24 @@ def _ranges(total: int, chunk: int):
         yield start, min(chunk, total - start)
 
 
-def _chunk_local_index(v: int, i0: int, a_c: int, j0: int, b_c: int,
-                       beta: int, row_height: int) -> Optional[int]:
-    """Global result-vector index → index into this chunk's ACC window, or
-    ``None`` when the vector lives in another chunk (block-major, §3.2)."""
-    br, rem = divmod(v, beta * row_height)
-    bc, within = divmod(rem, row_height)
-    if not (i0 <= br < i0 + a_c and j0 <= bc < j0 + b_c):
-        return None
-    return ((br - i0) * b_c + (bc - j0)) * row_height + within
+def _chunk_local_indices(v: np.ndarray, i0: int, a_c: int, j0: int,
+                         b_c: int, beta: int, row_height: int) -> np.ndarray:
+    """Global result-vector indices → indices into this chunk's ACC window,
+    -1 where a vector lives in another chunk (block-major, §3.2)."""
+    br, rem = np.divmod(v, beta * row_height)
+    bc, within = np.divmod(rem, row_height)
+    inside = (br >= i0) & (br < i0 + a_c) & (bc >= j0) & (bc < j0 + b_c)
+    local = ((br - i0) * b_c + (bc - j0)) * row_height + within
+    return np.where(inside, local, -1)
+
+
+def _spec_arrays(spec) -> Tuple[np.ndarray, ...]:
+    """An indexed op's indices, or a pair op's dsts and srcs, as int64
+    arrays."""
+    if isinstance(spec, AluIndexedImmOp):
+        return (np.asarray(spec.indices, dtype=np.int64),)
+    pairs = np.asarray(spec.pairs, dtype=np.int64).reshape(-1, 2)
+    return pairs[:, 0], pairs[:, 1]
 
 
 def _alu_chunk_groups(alu_ops: Sequence, beta: int, row_height: int
@@ -291,14 +342,15 @@ def _alu_chunk_groups(alu_ops: Sequence, beta: int, row_height: int
     stride = beta * row_height
     for spec in alu_ops:
         if isinstance(spec, AluPairOp):
-            for dst, src in spec.pairs:
-                br_d, br_s = dst // stride, src // stride
-                bc_d = (dst // row_height) % beta
-                bc_s = (src // row_height) % beta
-                if br_d != br_s:
-                    row_groups.append((min(br_d, br_s), max(br_d, br_s)))
-                if bc_d != bc_s:
-                    col_groups.append((min(bc_d, bc_s), max(bc_d, bc_s)))
+            dst, src = _spec_arrays(spec)
+            br_d, br_s = dst // stride, src // stride
+            bc_d = (dst // row_height) % beta
+            bc_s = (src // row_height) % beta
+            for groups, a, b in ((row_groups, br_d, br_s),
+                                 (col_groups, bc_d, bc_s)):
+                apart = a != b
+                groups.extend(zip(np.minimum(a, b)[apart].tolist(),
+                                  np.maximum(a, b)[apart].tolist()))
     return row_groups, col_groups
 
 
@@ -316,10 +368,10 @@ def reference_result(A: np.ndarray, B: np.ndarray, X: Optional[np.ndarray],
     bs = cfg.block_size
     if row_height is None:
         row_height = bs if should_pad_height(A) else 1
-    Ap = matrix_padding(A, bs, pad_height=row_height > 1).astype(np.int32)
-    Bp = matrix_padding(B, bs, pad_height=True).astype(np.int32)
-    acc = Ap @ Bp   # int32 with wraparound handled by numpy int32 ops below
-    acc = acc.astype(np.int64)
+    Ap = matrix_padding(A, bs, pad_height=row_height > 1)
+    Bp = matrix_padding(B, bs, pad_height=True)
+    # exact, then wrapped below: congruent modulo 2**32 to int32 arithmetic
+    acc = exact_matmul(Ap, Bp)
     if X is not None:
         Xp = np.zeros(acc.shape, dtype=np.int64)
         Xp[:X.shape[0], :X.shape[1]] = X.astype(np.int64)
@@ -340,8 +392,7 @@ def reference_result(A: np.ndarray, B: np.ndarray, X: Optional[np.ndarray],
         elif isinstance(spec, AluIndexedImmOp):
             vec = _alu_apply(vec, spec.op, spec.imm, np.asarray(spec.indices))
         elif isinstance(spec, AluPairOp):
-            for dst, src in spec.pairs:
-                vec = _alu_pair(vec, spec.op, dst, src)
+            vec = _alu_pairs(vec, spec)
         elif isinstance(spec, AluResidualOp):
             if res_vec is None:
                 raise CompileError(
@@ -395,6 +446,29 @@ def _alu_residual(vec, op, res64):
     else:
         raise ValueError(op)
     return _wrap_int32(r)
+
+
+def _alu_pairs(vec, spec):
+    """A pair op's pairs applied in order.  Where no src is a dst, every
+    pair reads the state before the op, so the pairs merge at once: MIN
+    and MAX are order-free, and ADD wrapped once at the end equals ADD
+    wrapped at every step (both are exact modulo 2**32)."""
+    dst, src = _spec_arrays(spec)
+    ordered = (np.intersect1d(dst, src).size > 0
+               or spec.op not in (isa.AluOp.MIN, isa.AluOp.MAX,
+                                  isa.AluOp.ADD))
+    if ordered:
+        for d, s in spec.pairs:
+            vec = _alu_pair(vec, spec.op, d, s)
+        return vec
+    acc = vec.astype(np.int64)
+    merge = {isa.AluOp.MIN: np.minimum, isa.AluOp.MAX: np.maximum,
+             isa.AluOp.ADD: np.add}[spec.op]
+    merge.at(acc, dst, vec[src].astype(np.int64))
+    out = vec.copy()
+    touched = np.unique(dst)
+    out[touched] = _wrap_int32(acc[touched])
+    return out
 
 
 def _alu_pair(vec, op, dst, src):
@@ -569,6 +643,9 @@ def compile_matmul(A: np.ndarray, B: np.ndarray, *,
 
     # ---------------- UOPs + emission (per candidate plan) ----------------
     capacity = cfg.uop_buff_entries
+    spec_arrays = [_spec_arrays(spec)
+                   if isinstance(spec, (AluIndexedImmOp, AluPairOp)) else ()
+                   for spec in alu_ops]
 
     def _build(plan: ChunkPlan):
         """UOP DRAM layout + instruction emitter for ``plan`` under
@@ -588,10 +665,8 @@ def compile_matmul(A: np.ndarray, B: np.ndarray, *,
                             wgt_idx=wgt_off + j)
                     for i in range(a_c) for j in range(b_c)]
 
-        def _alu_chunk_uops(spec, i0: int, a_c: int, j0: int, b_c: int,
-                            acc_off: int) -> List[isa.Uop]:
-            local = lambda v: _chunk_local_index(v, i0, a_c, j0, b_c, beta,
-                                                 row_height)
+        def _alu_chunk_uops(spec, arrays, i0: int, a_c: int, j0: int,
+                            b_c: int, acc_off: int) -> List[isa.Uop]:
             out: List[isa.Uop] = []
             if isinstance(spec, AluResidualOp):
                 # The residual window sits right after the chunk's result
@@ -606,27 +681,31 @@ def compile_matmul(A: np.ndarray, B: np.ndarray, *,
                 out.append(isa.Uop(acc_idx=acc_off, inp_idx=base, wgt_idx=0))
                 return out
             if isinstance(spec, AluIndexedImmOp):
-                for v in spec.indices:
-                    lv = local(v)
-                    if lv is not None:
-                        out.append(isa.Uop(acc_idx=acc_off + lv,
-                                           inp_idx=acc_off + lv, wgt_idx=0))
-            else:
-                for dst, src in spec.pairs:
-                    ld, ls = local(dst), local(src)
-                    if (ld is None) != (ls is None):
-                        raise AssertionError(   # plan alignment guarantees
-                            f"pair ({dst}, {src}) straddles a chunk "
-                            f"boundary")
-                    if ld is not None:
-                        out.append(isa.Uop(acc_idx=acc_off + ld,
-                                           inp_idx=acc_off + ls, wgt_idx=0))
-            return out
+                lv = _chunk_local_indices(arrays[0], i0, a_c, j0, b_c,
+                                          beta, row_height)
+                return [isa.Uop(acc_idx=acc_off + v, inp_idx=acc_off + v,
+                                wgt_idx=0) for v in lv[lv >= 0].tolist()]
+            dst, src = arrays
+            ld = _chunk_local_indices(dst, i0, a_c, j0, b_c, beta,
+                                      row_height)
+            ls = _chunk_local_indices(src, i0, a_c, j0, b_c, beta,
+                                      row_height)
+            split = (ld < 0) != (ls < 0)
+            if split.any():
+                k = int(np.argmax(split))
+                raise AssertionError(   # plan alignment guarantees
+                    f"pair ({dst[k]}, {src[k]}) straddles a chunk "
+                    f"boundary")
+            here = ld >= 0
+            return [isa.Uop(acc_idx=acc_off + d, inp_idx=acc_off + s_,
+                            wgt_idx=0)
+                    for d, s_ in zip(ld[here].tolist(), ls[here].tolist())]
 
         chunk_alu_uops = [
             [None if isinstance(spec, AluImmOp)
-             else _alu_chunk_uops(spec, i0, a_c, j0, b_c, sched.acc_base(ci))
-             for spec in alu_ops]
+             else _alu_chunk_uops(spec, arrays, i0, a_c, j0, b_c,
+                                  sched.acc_base(ci))
+             for spec, arrays in zip(alu_ops, spec_arrays)]
             for ci, (i0, a_c, j0, b_c) in enumerate(chunk_list)]
 
         # GEMM uop sets are keyed by geometry *and* buffer phases: the

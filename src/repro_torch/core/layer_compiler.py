@@ -32,16 +32,19 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from .conv_lowering import (ConvGeometry, PoolPlan, avgpool2x2_plan,
-                            flatten_tensor, global_avgpool_plan, im2row,
-                            ker2col, mat2tensor, maxpool2x2_plan, tensor2mat)
+                            expand_rows, flatten_tensor, global_avgpool_plan,
+                            im2row, ker2col, mat2tensor, maxpool2x2_plan,
+                            maxpool3x3s2_matrix, maxpool3x3s2_plan,
+                            tensor2mat)
 from .dram import DramAllocator
 from .errors import CompileError
 from .gemm_compiler import (AluImmOp, AluIndexedImmOp, AluPairOp,
-                            AluResidualOp, compile_matmul)
+                            AluResidualOp, chunk_dims, compile_matmul)
 from .hwconfig import VTAConfig, vta_default
-from .layout import pad_to_multiple, should_pad_height, truncate_int8
+from .layout import (exact_matmul, pad_to_multiple, should_pad_height,
+                     truncate_int8)
 from .program import VTAProgram
-from . import isa
+from . import isa, pipeline_schedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +63,8 @@ class LayerSpec:
     stride: int = 1
     padding: int = 0               # symmetric zero-padding (conv only)
     relu: bool = False
-    pool: Optional[str] = None     # None | "avg2x2" | "max2x2" | "gap"
+    pool: Optional[str] = None     # None | "avg2x2" | "max2x2" |
+                                   # "max3x3s2" | "gap"
     requant_shift: Optional[int] = None   # None = choose statically
     # Residual-add fusion (DESIGN.md §Graph): the layer closes a skip
     # connection — after the GEMM result is requantised (``requant_shift``)
@@ -68,7 +72,9 @@ class LayerSpec:
     # vector-vector ADD (``residual_pre_shift`` equalises its scale), then
     # ``relu`` applies *post-add* and ``residual_shift`` requantises the
     # sum.  ``compile_layer`` must then receive the skip activation via
-    # its ``residual=`` argument.  Pooling cannot fuse with a residual.
+    # its ``residual=`` argument.  Of the pools only the GAP fuses with a
+    # residual, after the join's ReLU (``residual_shift`` then requantises
+    # the GAP's sum: ResNet-50's head).
     residual_add: bool = False
     residual_pre_shift: int = 0
     residual_shift: Optional[int] = None  # None = choose statically
@@ -96,6 +102,9 @@ class CompiledLayer:
     # scale) and the post-add requant shift actually compiled in.
     residual_matrix: Optional[np.ndarray] = None
     residual_shift: Optional[int] = None
+    # The im2row row each row of ``input_matrix`` copies (-1: a zero row),
+    # or None where A is the im2row itself (PoolPlan.input_rows)
+    input_rows: Optional[Tuple[int, ...]] = None
 
     @property
     def gemm_loops(self) -> int:
@@ -115,11 +124,15 @@ def _vec_index(row: int, col_block: int, beta: int, row_height: int) -> int:
     return (block_row * beta + col_block) * row_height + within
 
 
-def pool_plan_for(spec: LayerSpec,
-                  geo: Optional[ConvGeometry]) -> Optional[PoolPlan]:
+def pool_plan_for(spec: LayerSpec, geo: Optional[ConvGeometry], *,
+                  max_rows: Optional[int] = None,
+                  block: int = 1) -> Optional[PoolPlan]:
     """The pooling plan a LayerSpec asks for (None = no pooling).  The
     single place pool kinds are interpreted — unknown kinds raise here for
-    the compiler and the calibration path alike."""
+    the compiler and the calibration path alike.  ``max_rows``/``block``
+    tile the 3×3/s2 max pool's result into chunks of at most ``max_rows``
+    rows (:func:`~repro_torch.core.conv_lowering.maxpool3x3s2_plan`; None:
+    the conv's own rows)."""
     if spec.pool is None:
         return None
     if geo is None:
@@ -133,12 +146,19 @@ def pool_plan_for(spec: LayerSpec,
                 constraint="pool-even-dims")
         return (avgpool2x2_plan if spec.pool == "avg2x2"
                 else maxpool2x2_plan)(geo.out_h, geo.out_w)
+    if spec.pool == "max3x3s2":
+        try:
+            return maxpool3x3s2_plan(geo.out_h, geo.out_w,
+                                     max_rows=max_rows, block=block)
+        except ValueError as exc:
+            raise CompileError(str(exc), layer=spec.name,
+                               constraint="pool-tile-chunk") from None
     if spec.pool == "gap":
         check_gap_geometry(geo.out_h, geo.out_w, layer=spec.name)
         return global_avgpool_plan(geo.out_h, geo.out_w)
     raise CompileError(f"unsupported pool kind {spec.pool!r} (expected "
-                       f"'avg2x2', 'max2x2' or 'gap')", layer=spec.name,
-                       constraint="pool-kind")
+                       f"'avg2x2', 'max2x2', 'max3x3s2' or 'gap')",
+                       layer=spec.name, constraint="pool-kind")
 
 
 def pool_divisor(pool_plan: Optional[PoolPlan]) -> int:
@@ -164,13 +184,18 @@ def check_stride_tiling(geo: ConvGeometry, *, layer: str = "") -> None:
     uncovered tail of the padded input is ``(in + 2·pad - k) mod stride``
     columns/rows wide, and anything beyond the trailing ``pad`` of those
     is input data the conv would silently ignore — which the compiler
-    refuses (never silent wrong bytes).  Shared by the layer compiler and
-    the graph shape-inference pass so the two front ends cannot drift.
+    refuses (never silent wrong bytes).  A kernel narrower than its stride
+    (the 1×1/s2 projection shortcut of ResNet) reads every ``stride``-th
+    pixel by definition, skipped pixels included, so that axis passes.
+    Shared by the layer compiler and the graph shape-inference pass so the
+    two front ends cannot drift.
     """
     if geo.stride == 1:
         return
     for axis, extent, k in (("height", geo.in_h, geo.kh),
                             ("width", geo.in_w, geo.kw)):
+        if k < geo.stride:
+            continue
         leftover = (extent + 2 * geo.pad - k) % geo.stride
         if leftover > geo.pad:
             raise CompileError(
@@ -182,20 +207,16 @@ def check_stride_tiling(geo: ConvGeometry, *, layer: str = "") -> None:
 
 
 def check_gap_geometry(out_h: int, out_w: int, *, layer: str = "") -> None:
-    """Global-avg-pool map constraints (DESIGN.md §Strided-lowering): the
-    ÷(H·W) must be one exact SHR, so the map must be square with a
-    power-of-two position count.  Shared by the layer compiler and the
+    """Global-avg-pool map constraint (DESIGN.md §Strided-lowering): the
+    map must be square.  Any position count reduces exactly (the ADD tree
+    of :func:`~repro_torch.core.conv_lowering.global_avgpool_plan`); the
+    ÷(H·W) is one exact SHR on a power-of-two count and the requant's
+    power-of-two scale on any other.  Shared by the layer compiler and the
     graph shape-inference pass so the two front ends cannot drift."""
     if out_h != out_w:
         raise CompileError(
             f"global avg pool needs a square map, got {out_h}x{out_w}",
             layer=layer, constraint="gap-square")
-    n = out_h * out_w
-    if n & (n - 1):
-        raise CompileError(
-            f"global avg pool needs a power-of-two position count for "
-            f"the exact SHR division, got {out_h}x{out_w}",
-            layer=layer, constraint="gap-pow2")
 
 
 def layer_matrices(spec: LayerSpec, inp: np.ndarray
@@ -275,7 +296,7 @@ def reference_layer_acc(A: np.ndarray, B: np.ndarray,
                         pool_plan: Optional[PoolPlan]) -> np.ndarray:
     """int64 accumulator right before the final SHR — used for the static
     requant-shift choice and overflow check."""
-    acc = A.astype(np.int64) @ B.astype(np.int64)
+    acc = exact_matmul(A, B)
     if bias is not None:
         acc = acc + bias.astype(np.int64)[None, :]
     if relu:
@@ -284,6 +305,8 @@ def reference_layer_acc(A: np.ndarray, B: np.ndarray,
         if pool_plan.mode == "gap":
             # every spatial position folds into row 0 (÷ in the requant)
             return acc.sum(axis=0, keepdims=True)
+        if pool_plan.mode == "max3x3":
+            return maxpool3x3s2_matrix(acc, pool_plan.in_w)
         pooled = np.zeros((len(pool_plan.keep_rows), acc.shape[1]),
                           dtype=np.int64)
         for r, base in enumerate(pool_plan.keep_rows):
@@ -320,11 +343,11 @@ def _compile_residual_layer(spec: LayerSpec, A: np.ndarray, B: np.ndarray,
                             schedule: str = "serialized") -> CompiledLayer:
     """The residual-closing layer (DESIGN.md §Graph): GEMM → SHR(requant)
     → on-VTA vector-vector ADD with the ACC-loaded skip operand →
-    optional ReLU → SHR(post-add requant)."""
-    if spec.pool is not None:
+    optional ReLU → [GAP tree] → SHR(post-add requant)."""
+    if spec.pool not in (None, "gap"):
         raise CompileError(
-            "pooling cannot fuse with a residual add (downsample with a "
-            "strided conv instead)", layer=spec.name,
+            "of the pools only the GAP fuses with a residual add "
+            "(downsample with a strided conv instead)", layer=spec.name,
             constraint="residual-no-pool")
     if residual is None:
         raise CompileError(
@@ -338,7 +361,7 @@ def _compile_residual_layer(spec: LayerSpec, A: np.ndarray, B: np.ndarray,
     M, N = A.shape[0], B.shape[1]
     R = residual_operand_matrix(spec, residual, (M, N))
 
-    acc = A.astype(np.int64) @ B.astype(np.int64)
+    acc = exact_matmul(A, B)
     if spec.bias is not None:
         acc = acc + spec.bias.astype(np.int64)[None, :]
     s_conv = (spec.requant_shift if spec.requant_shift is not None
@@ -346,6 +369,9 @@ def _compile_residual_layer(spec: LayerSpec, A: np.ndarray, B: np.ndarray,
     t = (acc >> s_conv) + (R.astype(np.int64) >> spec.residual_pre_shift)
     if spec.relu:
         t = np.maximum(t, 0)
+    gap = pool_plan_for(spec, geo)
+    if gap is not None:
+        t = t.sum(axis=0, keepdims=True)
     s_add = (spec.residual_shift if spec.residual_shift is not None
              else choose_requant_shift(t))
     final = t >> s_add
@@ -362,19 +388,67 @@ def _compile_residual_layer(spec: LayerSpec, A: np.ndarray, B: np.ndarray,
                                  pre_shift=spec.residual_pre_shift))
     if spec.relu:
         alu_ops.append(AluImmOp.relu())
+    if gap is not None:
+        row_height = cfg.block_size if should_pad_height(A) else M
+        alu_ops += _pool_alu_ops(gap, N, cfg.block_size, row_height)
     if s_add > 0:
         alu_ops.append(AluImmOp.shr(s_add))
 
     prog = compile_matmul(A, B, bias=spec.bias, alu_ops=alu_ops, residual=R,
                           cfg=cfg, name=spec.name, allocator=allocator,
                           schedule=schedule)
+    prog.alu_kind = "join" if gap is None else "join+gap"
     out_h = geo.out_h if geo is not None else None
     out_w = geo.out_w if geo is not None else None
+    if gap is not None:
+        out_h, out_w = gap.out_h, gap.out_w
     return CompiledLayer(spec=spec, program=prog, input_matrix=A,
                          weight_matrix=B, requant_shift=s_conv,
-                         keep_rows=None, out_h=out_h, out_w=out_w,
+                         keep_rows=gap.keep_rows if gap else None,
+                         out_h=out_h, out_w=out_w,
                          ref_output_matrix=truncate_int8(final),
                          residual_matrix=R, residual_shift=s_add)
+
+
+def _pool_alu_ops(pool_plan: PoolPlan, n: int, block_size: int,
+                  row_height: int) -> List[object]:
+    """A pool's pair ops over the result vectors: one ``AluPairOp`` per
+    dependency level.  2×2 and 3×3 windows are one flat independent set;
+    the GAP tree emits one op per round so every instruction's (dst, src)
+    lattice stays disjoint (vectorisable) while the read-after-write chain
+    lives *between* instructions."""
+    beta = pad_to_multiple(n, block_size) // block_size
+    pool_op = (isa.AluOp.ADD if pool_plan.mode in ("avg", "gap")
+               else isa.AluOp.MAX)
+    ops: List[object] = []
+    for round_pairs in pool_plan.rounds or (pool_plan.add_pairs,):
+        pairs = []
+        for dst, src in round_pairs:
+            for j in range(beta):
+                pairs.append((_vec_index(dst, j, beta, row_height),
+                              _vec_index(src, j, beta, row_height)))
+        ops.append(AluPairOp(pool_op, tuple(pairs)))
+    return ops
+
+
+POOL_KINDS = {"avg": "pool2x2", "max": "pool2x2", "max3x3": "maxpool3x3s2",
+              "gap": "gap"}
+
+
+def _pool_capacity(A: np.ndarray, B: np.ndarray, cfg: VTAConfig,
+                   schedule: str) -> Tuple[int, int]:
+    """``(max_rows, block)``: the result rows one SRAM chunk of this GEMM
+    holds under ``schedule`` (a tiled pool keeps each tile inside one), and
+    the rows of a block row."""
+    bs = cfg.block_size
+    rh = bs if should_pad_height(A) else A.shape[0]
+    lam = pad_to_multiple(A.shape[1], bs) // bs
+    beta = pad_to_multiple(B.shape[1], bs) // bs
+    double = (schedule == pipeline_schedule.PIPELINED
+              and pipeline_schedule.pipelinable(cfg, rh, 1))
+    _, _, alpha_c = chunk_dims(cfg, A.shape[0], lam, beta, rh,
+                               double_buffer=double)
+    return alpha_c * rh, rh
 
 
 def compile_layer(spec: LayerSpec, inp: np.ndarray, *,
@@ -397,11 +471,14 @@ def compile_layer(spec: LayerSpec, inp: np.ndarray, *,
         raise CompileError(
             "residual operand passed to a layer without residual_add",
             layer=spec.name, constraint="residual-unexpected-operand")
-    M, K = A.shape
     N = B.shape[1]
 
     # ---- pooling plan (indices in matrix-row space) ----
-    pool_plan = pool_plan_for(spec, geo)
+    if spec.pool == "max3x3s2" and geo is not None:
+        max_rows, block = _pool_capacity(A, B, cfg, schedule)
+        pool_plan = pool_plan_for(spec, geo, max_rows=max_rows, block=block)
+    else:
+        pool_plan = pool_plan_for(spec, geo)
 
     # ---- static requant shift (+ overflow check) ----
     acc_pre_shift = reference_layer_acc(A, B, spec.bias, spec.relu, pool_plan)
@@ -416,26 +493,16 @@ def compile_layer(spec: LayerSpec, inp: np.ndarray, *,
             constraint="requant-int8-range")
 
     # ---- ALU program over ACC vectors (block-major indices) ----
+    input_rows = pool_plan.input_rows if pool_plan is not None else None
+    A = expand_rows(A, input_rows)
     pad_h = should_pad_height(A)
-    row_height = bs if pad_h else M
+    row_height = bs if pad_h else A.shape[0]
     beta = pad_to_multiple(N, bs) // bs
     alu_ops: List[object] = []
     if spec.relu:
         alu_ops.append(AluImmOp.relu())
     if pool_plan is not None:
-        pool_op = isa.AluOp.MAX if pool_plan.mode == "max" else isa.AluOp.ADD
-        # One AluPairOp per dependency level: 2×2 windows are one flat
-        # independent set; the GAP tree emits one op per round so every
-        # instruction's (dst, src) lattice stays disjoint (vectorisable)
-        # while the read-after-write chain lives *between* instructions.
-        rounds = pool_plan.rounds or (pool_plan.add_pairs,)
-        for round_pairs in rounds:
-            pairs = []
-            for dst, src in round_pairs:
-                for j in range(beta):
-                    pairs.append((_vec_index(dst, j, beta, row_height),
-                                  _vec_index(src, j, beta, row_height)))
-            alu_ops.append(AluPairOp(pool_op, tuple(pairs)))
+        alu_ops += _pool_alu_ops(pool_plan, N, bs, row_height)
         total_shift = pool_div + shift
         if total_shift > 0:
             idx = []
@@ -450,6 +517,8 @@ def compile_layer(spec: LayerSpec, inp: np.ndarray, *,
     prog = compile_matmul(A, B, bias=spec.bias, alu_ops=alu_ops, cfg=cfg,
                           name=spec.name, allocator=allocator,
                           schedule=schedule)
+    if pool_plan is not None:
+        prog.alu_kind = POOL_KINDS[pool_plan.mode]
 
     # ---- reference post-reshape output matrix (int8) ----
     ref = truncate_int8(final)
@@ -462,7 +531,7 @@ def compile_layer(spec: LayerSpec, inp: np.ndarray, *,
     return CompiledLayer(spec=spec, program=prog, input_matrix=A,
                          weight_matrix=B, requant_shift=shift,
                          keep_rows=keep, out_h=out_h, out_w=out_w,
-                         ref_output_matrix=ref)
+                         ref_output_matrix=ref, input_rows=input_rows)
 
 
 def verify_layer(layer: CompiledLayer, *, backend: str = "oracle",

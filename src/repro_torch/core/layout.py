@@ -27,6 +27,20 @@ def truncate_int8(x: np.ndarray) -> np.ndarray:
     return np.asarray(x).astype(np.uint8).view(np.int8)
 
 
+def exact_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The integer product ``a @ b`` as int64, exactly.  Where no partial
+    sum can reach 2**53 (``max|a| · max|b| · K``, the bound of every
+    int8 layer), it runs in float64, whose BLAS is many times numpy's
+    integer loop and holds every such integer exactly; otherwise in
+    int64."""
+    k = a.shape[-1]
+    bound = (int(np.abs(a).max(initial=0)) * int(np.abs(b).max(initial=0))
+             * k)
+    if bound < 2 ** 53:
+        return (a.astype(np.float64) @ b.astype(np.float64)).astype(np.int64)
+    return a.astype(np.int64) @ b.astype(np.int64)
+
+
 def requant_int8(x: np.ndarray, *, saturate: bool = False) -> np.ndarray:
     """Post-SHR ACC→OUT narrowing under the device's semantics: wrap
     (:func:`truncate_int8`) by default, clip with ``saturate=True`` —

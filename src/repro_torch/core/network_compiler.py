@@ -252,12 +252,13 @@ class NetworkProgram:
     def _input_matrices(layer: CompiledLayer,
                         sem: torch.Tensor) -> torch.Tensor:
         """(B, M, K) input matrices of ``layer`` from the previous layer's
-        semantic outputs: im2row (conv) or NCHW flatten (fc)."""
+        semantic outputs: im2row (conv; its rows laid out as a tiled
+        pool's ``input_rows`` name them) or NCHW flatten (fc)."""
         spec = layer.spec
         if spec.kind == "conv":
             _, _, kh, kw = spec.weights.shape
-            return staging.im2row_batch(sem, kh, kw, spec.stride,
-                                        spec.padding)
+            return staging.expand_rows_batch(layer, staging.im2row_batch(
+                sem, kh, kw, spec.stride, spec.padding))
         return sem.reshape(sem.shape[0], 1, -1)
 
     def _stage_layer_input_batch(self, stack: torch.Tensor,

@@ -64,6 +64,10 @@ class VTAProgram:
     # backend lowers from (DESIGN.md §2).  ``None`` (hand-written
     # streams) marks the program as not pallas-executable.
     alu_ops: Optional[Tuple] = None
+    # What the ALU program computes, for the spans ("join", "gap",
+    # "join+gap", "pool2x2", "maxpool3x3s2"); None where the compiler of a
+    # layer set none (the program fuses into the GEMM, or no layer made it)
+    alu_kind: Optional[str] = None
     # CRC32 of every segment, captured by finalize() — the integrity
     # reference the harden/ guards verify serves against (DESIGN.md
     # §Hardening).  Segment bytes are immutable, so the values stay valid

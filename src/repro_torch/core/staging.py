@@ -6,7 +6,9 @@ for the whole network, so the same four transformations run here in
 torch, byte-identical to their numpy counterparts (pinned by
 ``tests/test_torch_lenet5.py``):
 
-* :func:`im2row_batch`          — ``conv_lowering.im2row_batch``
+* :func:`im2row_batch`          — ``conv_lowering.im2row_batch``, and
+  :func:`expand_rows_batch` — ``conv_lowering.expand_rows`` (a tiled
+  pool's layout of the result rows) over the batch axis
 * :func:`tensor2mat_batch`      — ``conv_lowering.tensor2mat`` over the
   batch axis, and :func:`residual_operand_batch` —
   ``layer_compiler.residual_operand_matrix`` over it (a residual layer's
@@ -128,6 +130,30 @@ def _keep_index(layer, device: torch.device) -> torch.Tensor:
         cache[key] = torch.as_tensor(layer.keep_rows, dtype=torch.int64,
                                      device=device)
     return cache[key]
+
+
+def _rows_index(layer, m: int, device: torch.device) -> torch.Tensor:
+    """``layer.input_rows`` with each -1 made ``m``: the index of a zero
+    row appended to the ``m`` im2row rows."""
+    # racing threads may both build the index; each stores it whole
+    cache: Dict[str, torch.Tensor] = layer.__dict__.setdefault(
+        "_input_rows_t", {})
+    key = device_of(device)
+    if key not in cache:
+        rows = torch.as_tensor(layer.input_rows, dtype=torch.int64)
+        cache[key] = torch.where(rows < 0, m, rows).to(device)
+    return cache[key]
+
+
+def expand_rows_batch(layer, mats: torch.Tensor) -> torch.Tensor:
+    """``(B, M, K)`` im2row matrices → the rows ``layer.input_rows`` names
+    (``conv_lowering.expand_rows`` over the batch axis: -1 is a zero row);
+    ``mats`` itself where the layer has none."""
+    if layer.input_rows is None:
+        return mats
+    b, m, k = mats.shape
+    padded = torch.cat([mats, mats.new_zeros((b, 1, k))], dim=1)
+    return padded.index_select(1, _rows_index(layer, m, mats.device))
 
 
 def decode_layer_output_batch(layer, out_mats: torch.Tensor) -> torch.Tensor:

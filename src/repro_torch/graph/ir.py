@@ -14,9 +14,12 @@ certifies the whole structure is a DAG before any pass runs):
     relu(x)                      — MAX(x, 0)
     pool(x; "max2x2"|"avg2x2")   — 2×2/stride-2 window; avg produces the
                                    window *sum* (÷4 lives in the requant)
+    pool(x; "max3x3s2")          — 3×3/stride-2/pad-1 max window (ResNet's
+                                   stem); the padding is left out
     global_avg_pool(x)           — (1,F,H,W) → (1,F,1,1) spatial *sum*
-                                   (÷(H·W) lives in the requant; needs a
-                                   square power-of-two map)
+                                   (÷(H·W) lives in the requant, a power
+                                   of two at least floor(log2(H·W)); needs
+                                   a square map)
     requant(x; shift)            — arithmetic right shift (None = planned)
     add(a, b)                    — the residual join (+ planned pre-shifts)
     flatten(x)                   — NCHW → (1, C·H·W)
@@ -47,7 +50,7 @@ NODE_ARITY = {
     "input": 0, "conv": 1, "fc": 1, "relu": 1, "pool": 1,
     "global_avg_pool": 1, "requant": 1, "add": 2, "flatten": 1,
 }
-POOL_MODES = ("max2x2", "avg2x2")
+POOL_MODES = ("max2x2", "avg2x2", "max3x3s2")
 
 
 @dataclasses.dataclass

@@ -29,7 +29,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from repro_torch.core.conv_lowering import (ConvGeometry, im2row, ker2col,
-                                      mat2tensor)
+                                      mat2tensor, maxpool3x3s2_matrix,
+                                      maxpool3x3s2_out, tensor2mat)
+from repro_torch.core.layout import exact_matmul
 from repro_torch.core.errors import CompileError
 from repro_torch.core.layer_compiler import (check_gap_geometry,
                                        check_stride_tiling,
@@ -101,6 +103,9 @@ def _node_shape(node: Node, ins: List[Tuple[int, ...]]) -> Tuple[int, ...]:
         if len(s) != 4:
             raise CompileError(f"pool input must be 4-D, got {s}",
                                layer=node.name, constraint="pool-input-rank")
+        if node.mode == "max3x3s2":
+            return (s[0], s[1], maxpool3x3s2_out(s[2]),
+                    maxpool3x3s2_out(s[3]))
         if s[2] % 2 or s[3] % 2:
             raise CompileError(
                 f"2x2 pooling needs even spatial dims, got {s[2]}x{s[3]}",
@@ -180,8 +185,8 @@ def _eval_node(node: Node, ins: List[np.ndarray], refs: Tuple[str, ...],
         _check_int8(node, refs[0], ins[0], "conv input")
         x = ins[0].astype(np.int8)
         f, c, kh, kw = node.weights.shape
-        A = im2row(x, kh, kw, node.stride, node.padding).astype(np.int64)
-        acc = A @ ker2col(node.weights).astype(np.int64)
+        acc = exact_matmul(im2row(x, kh, kw, node.stride, node.padding),
+                           ker2col(node.weights))
         if node.bias is not None:
             acc = acc + node.bias.astype(np.int64)[None, :]
         _, _, h, w = ins[0].shape
@@ -189,7 +194,7 @@ def _eval_node(node: Node, ins: List[np.ndarray], refs: Tuple[str, ...],
         return mat2tensor(acc, geo.out_h, geo.out_w)
     if node.kind == "fc":
         _check_int8(node, refs[0], ins[0], "fc input")
-        acc = ins[0] @ node.weights.astype(np.int64)
+        acc = exact_matmul(ins[0], node.weights)
         if node.bias is not None:
             acc = acc + node.bias.astype(np.int64)[None, :]
         return acc
@@ -197,6 +202,11 @@ def _eval_node(node: Node, ins: List[np.ndarray], refs: Tuple[str, ...],
         return np.maximum(ins[0], 0)
     if node.kind == "pool":
         t = ins[0]
+        if node.mode == "max3x3s2":
+            _, f, h, w = t.shape
+            pooled = maxpool3x3s2_matrix(tensor2mat(t), w)
+            return mat2tensor(pooled, maxpool3x3s2_out(h),
+                              maxpool3x3s2_out(w))
         q = (t[:, :, 0::2, 0::2], t[:, :, 0::2, 1::2],
              t[:, :, 1::2, 0::2], t[:, :, 1::2, 1::2])
         if node.mode == "max2x2":
@@ -336,7 +346,9 @@ def plan_requant(graph: Graph, calib: Sequence[np.ndarray], *,
 
 
 def _gap_div(in_shape: Tuple[int, ...]) -> int:
-    """log2 of a GAP node's spatial position count (the ÷(H·W) SHR)."""
+    """floor(log2) of a GAP node's spatial position count: the ÷(H·W) SHR
+    on a power-of-two count, and on any other (7×7 = 49: 5) the
+    power-of-two scale the GAP's sum stands at over the average."""
     return (in_shape[2] * in_shape[3]).bit_length() - 1
 
 
@@ -376,7 +388,8 @@ class Step:
     stride: int
     padding: int
     relu: bool
-    pool: Optional[str]              # max2x2 | avg2x2 | None
+    pool: Optional[str]              # max2x2 | avg2x2 | max3x3s2 | gap |
+                                     # None
     requant_shift: int               # LayerSpec shift (pool ÷4 excluded)
     residual_source: Optional[str] = None
     residual_pre_shift: int = 0
@@ -390,7 +403,8 @@ def linearize(graph: Graph) -> List[Step]:
 
         conv → [relu] → [pool|global_avg_pool] → requant       (linear)
         fc   → [relu] → requant                                (linear)
-        conv|fc → requant → add(·, skip) → [relu] → requant    (residual)
+        conv|fc → requant → add(·, skip) → [relu]
+                → [global_avg_pool] → requant                  (residual)
 
     plus ``flatten`` folded into the fc that consumes it.  Anything else
     raises :class:`CompileError`.  Requant shifts must be planned first.
@@ -485,9 +499,9 @@ def linearize(graph: Graph) -> List[Step]:
             if maybe_add.kind == "add":
                 other = [r for r in maybe_add.inputs if r != q.name]
                 if len(other) == 1 and other[0] in materialized:
-                    step = _residual_step(graph, cons, node, chain, in_value,
-                                          q_shift, maybe_add, other[0],
-                                          single, shift_of)
+                    step = _residual_step(graph, shapes, node, chain,
+                                          in_value, q_shift, maybe_add,
+                                          other[0], single, shift_of)
         if step is None:
             step = Step(name=name, kind=node.kind,
                         node_names=tuple(chain), input_value=in_value,
@@ -514,10 +528,11 @@ def linearize(graph: Graph) -> List[Step]:
     return steps
 
 
-def _residual_step(graph: Graph, cons, linear: Node, chain: List[str],
+def _residual_step(graph: Graph, shapes, linear: Node, chain: List[str],
                    in_value: str, q_shift: int, add: Node, skip: str,
                    single, shift_of) -> Step:
-    """Fuse ``linear → requant → add(·, skip) → [relu] → requant``."""
+    """Fuse ``linear → requant → add(·, skip) → [relu] → [gap] →
+    requant``; the last requant's shift covers the GAP's whole sum."""
     if add.pre_shifts is None:
         raise CompileError("add pre-shifts unplanned — run plan_requant",
                            layer=add.name, constraint="requant-planned")
@@ -533,17 +548,29 @@ def _residual_step(graph: Graph, cons, linear: Node, chain: List[str],
         chain.append(nxt.name)
         cur = nxt.name
         nxt = graph.node(single(cur, "relu result must fuse"))
+    pool = None
+    if nxt.kind == "global_avg_pool" and linear.kind == "conv":
+        pool = "gap"
+        chain.append(nxt.name)
+        floor = _gap_div(shapes[nxt.inputs[0]])
+        cur = nxt.name
+        nxt = graph.node(single(cur, "pool result must fuse"))
     if nxt.kind != "requant":
         raise CompileError(
             f"residual add must be requantised before any other consumer "
             f"(found {nxt.kind} {nxt.name!r})", layer=add.name,
             constraint="requant-required")
+    if pool is not None and shift_of(nxt.name) < floor:
+        raise CompileError(
+            f"requant after a pooled reduction must shift by >= {floor} "
+            f"(the fused division), got {shift_of(nxt.name)}",
+            layer=nxt.name, constraint="gap-min-shift")
     chain.append(nxt.name)
     return Step(name=linear.name, kind=linear.kind, node_names=tuple(chain),
                 input_value=in_value, output_value=nxt.name,
                 weights=linear.weights, bias=linear.bias,
                 stride=linear.stride, padding=linear.padding, relu=relu,
-                pool=None,
+                pool=pool,
                 # the branch operand's scale-equalising shift folds into
                 # the pre-add requant: (x >> q) >> pre == x >> (q + pre)
                 requant_shift=q_shift + branch_pre,

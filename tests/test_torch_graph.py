@@ -165,12 +165,36 @@ def _steps_equal(ts, js):
                 assert td[key] == jd[key], (t.name, key)
 
 
+# refusals of the reference that the port lifts and the seeded graphs can
+# reach: a GAP over a square map whose position count is not a power of
+# two (ResNet-50's 7×7).  Where the reference stops there, the port goes
+# on, and the passes after it are the port's alone.  (The seeded stride-2
+# convs all have kernel ≥ stride, whose refusals the port keeps.)
+LIFTED = {"gap-pow2"}
+
+
+def _gap_maps(graph, shapes):
+    """(H, W) of every global-avg-pool input in ``graph``."""
+    return [shapes[n.inputs[0]][2:] for n in graph.nodes.values()
+            if n.kind == "global_avg_pool"]
+
+
 @pytest.mark.parametrize("seed", range(40))
 def test_passes_agree_on_seeded_graphs(seed):
     t, j = _run_passes("port", seed), _run_passes("reference", seed)
-    assert [k for k in t if k not in ("img", "graph")] == \
-        [k for k in j if k not in ("img", "graph")]
-    for key in [k for k in j if k not in ("img", "graph", "build")]:
+    t_keys = [k for k in t if k not in ("img", "graph")]
+    j_keys = [k for k in j if k not in ("img", "graph")]
+    lifted = j[j_keys[-1]][0] == "error" and j[j_keys[-1]][1] in LIFTED \
+        and t[j_keys[-1]][0] == "ok"
+    if lifted:
+        assert t_keys[:len(j_keys)] == j_keys
+        maps = _gap_maps(t["graph"], t["infer_shapes"][1])
+        assert maps and all(h == w and (h * w) & (h * w - 1)
+                            for h, w in maps), maps
+        j_keys = j_keys[:-1]
+    else:
+        assert t_keys == j_keys
+    for key in [k for k in j_keys if k != "build"]:
         (kind, val), (tkind, tval) = j[key], t[key]
         assert tkind == kind, (key, tval, val)
         if kind == "error":
@@ -311,7 +335,10 @@ def test_malformed_graphs_raise_the_same_constraint(index):
         t_fn()
     assert texc.value.constraint == jexc.value.constraint, t_name
     assert texc.value.constraint is not None
-    assert str(texc.value) == str(jexc.value)
+    # the port's message lists its pool modes, which hold one more
+    said = str(texc.value).replace(str(tgraph.ir.POOL_MODES),
+                                   str(jgraph.ir.POOL_MODES))
+    assert said == str(jexc.value)
 
 
 @pytest.mark.parametrize("model", ["resnet8", "resnet_tiny"])

@@ -26,7 +26,10 @@ and prints:
   (``tools/span_metrics.py``), each leaf kind's device time summed from
   the operations it launched beside its event time, the device
   operations by name and launching span, and the operations launched in
-  a ``serve`` call outside any leaf span.  The port's own kernels are
+  a ``serve`` call outside any leaf span; ``epilogue_by_alu``: the
+  epilogue spans' event ms a call by the ALU program's kind (their
+  ``alu`` attribute: ``join``, ``gap``, ``join+gap``, ``pool2x2``,
+  ``maxpool3x3s2``).  The port's own kernels are
   put down by name where the trace links their launch to no leaf span
   (``KERNEL_SPANS``: ``vta_gemm`` to ``layer.gemm``, the TensorAlu
   epilogue's ``vta_alu`` to ``layer.epilogue``); ``misplaced_kernels``
@@ -59,6 +62,7 @@ LEAVES = ("repro_torch.serve.input", "repro_torch.serve.stack",
           "repro_torch.layer.encode", "repro_torch.layer.unpack",
           "repro_torch.serve.output")
 LAYER = "repro_torch.layer"
+EPILOGUE = "repro_torch.layer.epilogue"
 # the port's kernels by name, and the leaf span each is launched in
 KERNEL_SPANS = {"vta_gemm": "repro_torch.layer.gemm",
                 "vta_alu": "repro_torch.layer.epilogue"}
@@ -214,6 +218,7 @@ def main() -> int:
         spans = {s["id"]: s for s in snap["spans"]}
         table = collections.defaultdict(float)
         events_ms = collections.defaultdict(float)
+        by_alu = collections.defaultdict(float)
         for s in snap["spans"]:
             if s["name"] not in LEAVES:
                 continue
@@ -223,6 +228,9 @@ def main() -> int:
                    else "serve")
             table[(row, s["name"])] += s["device_ms"] / args.calls
             events_ms[s["name"]] += s["device_ms"] / args.calls
+            if s["name"] == EPILOGUE:
+                by_alu[s["attrs"].get("alu", "-")] += (s["device_ms"]
+                                                      / args.calls)
         launched = collections.defaultdict(float)
         by_op = collections.defaultdict(float)
         by_layer_ops = collections.defaultdict(float)
@@ -252,6 +260,7 @@ def main() -> int:
                       for (r, k), ms in table.items()],
             leaf_kinds={k: [launched.get(k, 0.0), ms]
                         for k, ms in events_ms.items()},
+            epilogue_by_alu=dict(by_alu),
             ops_by_span=sorted([[op, k, ms] for (op, k), ms in by_op.items()],
                                key=lambda r: -r[2]),
             outside_leaves=stray, misplaced_kernels=misplaced)
