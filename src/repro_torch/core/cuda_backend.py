@@ -24,6 +24,12 @@ TensorAlu ops as a second kernel, ``vta_alu``, which reads the GEMM's
 result, ACC and RES in place and writes OUT, in one launch a layer.  Its
 plain version, the vectorised torch epilogue below (the CPU path), mirrors
 ``gemm_compiler``'s reference semantics op for op (wraparound included).
+
+Where every row of the stack was served from one compiled image, the
+caller passes that image's constants (:class:`StackConsts`): the kernel's
+weights and fused bias, decoded once, and the image the epilogue reads the
+ACC preload from.  The stack then needs only what varies by image (INP,
+RES, OUT).  Without them each row's WGT and ACC are read off the stack.
 """
 
 from __future__ import annotations
@@ -469,8 +475,9 @@ def plain_alu_epilogue(acc: torch.Tensor, x: Optional[torch.Tensor],
                        res: Optional[torch.Tensor], p: CudaPlan,
                        lowered: List[object], saturate: bool) -> torch.Tensor:
     """The plain version of the ``vta_alu`` kernel: the GEMM's (B, Mp, Np)
-    int32 result with the ACC preload ``x``, the TensorAlu program (``res``
-    the decoded RES) and the commit, as a (B, Mp, Np) int8 matrix."""
+    int32 result with the ACC preload ``x`` (one image's broadcasts over
+    the batch), the TensorAlu program (``res`` the decoded RES) and the
+    commit, as a (B, Mp, Np) int8 matrix."""
     if x is not None:                               # ACC preload (C = A·B+X)
         acc = _wrap32(acc.to(torch.int64) + x.to(torch.int64))
     vec = _to_vectors(acc, p)
@@ -526,39 +533,75 @@ def stack_form(prog, stack: torch.Tensor) -> StackForm:
     return StackForm(uniform_w, fuse_bias, uniform_bias)
 
 
+@dataclasses.dataclass(frozen=True)
+class StackConsts:
+    """A program's constant operands, read once from the compiled DRAM
+    image: the kernel's weights ``w`` ((Kp, Np) int8, contiguous), the
+    fused bias ``bias`` ((Np,) int32; None where the layer fuses none) and
+    ``image``, the (1, nbytes) image every row's ACC preload is read from."""
+
+    image: torch.Tensor
+    w: torch.Tensor
+    bias: Optional[torch.Tensor]
+
+
+def stack_consts(prog, image: torch.Tensor, form: StackForm) -> StackConsts:
+    """:class:`StackConsts` of ``prog`` from the compiled ``image`` (one
+    row, or 1-D), whose :class:`StackForm` is ``form``."""
+    p = plan_cuda(prog)
+    row = image.reshape(1, -1)
+    w = _decode_wgt(row, p)[0].contiguous()
+    bias = (_decode_acc32(row, p, p.acc)[0, 0].contiguous()
+            if p.acc and p.fused and form.fuse_bias else None)
+    return StackConsts(row, w, bias)
+
+
 def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
-                   form: Optional[StackForm] = None) -> SimReport:
+                   form: Optional[StackForm] = None,
+                   consts: Optional[StackConsts] = None) -> SimReport:
     """Run ``prog`` over every DRAM row of ``stack``, writing OUT bytes in
     place.  Weight-uniform batches collapse to a single stacked kernel
     launch; varied weights fall back to one launch per row.  On a CUDA
     stack an unfused program's epilogue is one ``vta_alu`` launch over
-    every row, which reads each row's ACC and RES in place.
+    every row, which reads RES in place and ACC where it lies.
 
     ``form`` is the stack's :class:`StackForm`; a caller that passes none
     (a simulator over an arbitrary stack, whose rows may differ) gets it
-    read off the stack, which synchronises with the device."""
+    read off the stack, which synchronises with the device.  ``consts``,
+    where given, are the weights and ACC preload of the one image every
+    row was served from: the stack's WGT and ACC are then never read, and
+    the rows launch once.  Without them each row's own are read."""
     p = plan_cuda(prog)
+    # the rows WGT and the ACC preload are read from
+    acc_rows = stack if consts is None else consts.image
     if form is None:
-        form = stack_form(prog, stack)
+        form = stack_form(prog, acc_rows)
     b = stack.shape[0]
     mp, np_ = p.padded_shape
     m, n = p.valid_shape
     fused = p.fused and form.fuse_bias
     on_card = stack.device.type == "cuda"
-    with tracing.span("repro_torch.layer.decode"):
+    with tracing.span("repro_torch.layer.decode",
+                      consts="rows" if consts is None else "image") as sp:
         a = _decode_inp(stack, p)                   # (B, Mp, Kp)
-        w = _decode_wgt(stack, p)                   # (B, Kp, Np)
-        # the kernel epilogue reads ACC and RES in place
-        x = (_decode_acc32(stack, p, p.acc)
-             if p.acc and (fused or not on_card) else None)
-        res = _decode_acc32(stack, p, p.res) if p.res and not on_card else None
-        bias = x[:, 0] if x is not None and fused else None
-        one_launch = form.uniform_w and (bias is None or form.uniform_bias)
+        if consts is None:
+            w = _decode_wgt(stack, p)               # (B, Kp, Np)
+            x = _decode_acc32(stack, p, p.acc) if p.acc and fused else None
+            bias = x[:, 0] if x is not None else None
+            one_launch = form.uniform_w and (bias is None or form.uniform_bias)
+            sp.set(bytes=b * (p.inp[1] + p.wgt[1]
+                              + (p.acc[1] if x is not None else 0)))
+        else:
+            bias, one_launch = consts.bias, True
+            sp.set(bytes=b * p.inp[1])
         if one_launch:
             # the launch's operands: the stacked rows, the shared weights
             a_op = a.reshape(b * mp, -1).contiguous()
-            w_op = w[0].contiguous()
-            bias_op = bias[0].contiguous() if bias is not None else None
+            if consts is None:
+                w_op = w[0].contiguous()
+                bias_op = bias[0].contiguous() if bias is not None else None
+            else:
+                w_op, bias_op = consts.w, consts.bias
 
     if fused:
         # -- whole program inside the kernel --------------------------------
@@ -594,9 +637,13 @@ def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
                 kernel_ops.vta_alu(
                     acc, stack, _alu_table(prog, p, stack.device),
                     blocks=(p.alpha, p.beta, p.row_height, p.block_size),
-                    acc=p.acc, res=p.res, out=p.out, saturate=saturate)
+                    acc=p.acc, res=p.res, out=p.out, saturate=saturate,
+                    acc_images=None if consts is None else consts.image)
                 out = None
             else:
+                x = (_decode_acc32(acc_rows, p, p.acc).expand(b, -1, -1)
+                     if p.acc else None)
+                res = _decode_acc32(stack, p, p.res) if p.res else None
                 out = plain_alu_epilogue(
                     acc, x, res, p, _lowered_alu(prog, p, stack.device),
                     saturate)

@@ -35,7 +35,14 @@ object).  The fused-path decision of every layer (:class:`~repro_torch.
 core.cuda_backend.StackForm`: uniform weights, a row-broadcast bias, zero
 pad rows) depends only on that image, which serving never writes outside
 the INP and RES regions, so it is read once per image and cached here;
-serving a batch then reads nothing back but the logits.
+serving a batch then reads nothing back but the logits.  So are each
+layer's constants (:class:`~repro_torch.core.cuda_backend.StackConsts`: the
+kernel's weights and fused bias, and the image its epilogue reads the ACC
+preload from).  The ``cuda`` backend serves from them over a stack that
+holds only what varies by image: it is allocated, not a copy of the image,
+and staging, the kernels and the encode write every byte of it that is
+read.  The interpreters execute instructions that load WGT, ACC, UOP and
+INSN from DRAM, so their stacks hold the whole image in every row.
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ from repro_torch.device import DeviceLike, device_of, resolve_device
 
 from . import staging
 from .conv_lowering import mat2tensor
-from .cuda_backend import StackForm, _execute_stack, stack_form
+from .cuda_backend import (StackConsts, StackForm, _execute_stack,
+                           stack_consts, stack_form)
 from .cycle_model import CycleReport, analyze_programs
 from .dram import DramAllocator
 from .errors import CompileError
@@ -93,8 +101,9 @@ class NetworkProgram:
     # (segments it was built from, the DRAM image uploaded to the device)
     _device_images: Dict[str, Tuple[tuple, torch.Tensor]] = \
         dataclasses.field(default_factory=dict, repr=False, compare=False)
-    # (that image, every layer's StackForm over it)
-    _stack_forms: Dict[str, Tuple[torch.Tensor, List[StackForm]]] = \
+    # (that image, every layer's StackForm and StackConsts over it)
+    _image_reads: Dict[str, Tuple[torch.Tensor, List[StackForm],
+                                  List[StackConsts]]] = \
         dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def _sources(self) -> List[int]:
@@ -201,23 +210,33 @@ class NetworkProgram:
             self._device_images[key] = cached
         return cached[1]
 
-    def stack_forms(self, device: DeviceLike = None) -> List[StackForm]:
-        """Each layer's :class:`StackForm` over the compiled image on
-        ``device``, read once and cached.  A served stack is that image in
-        every row with only the INP and RES regions restaged (zero-padded
-        by :func:`staging.batch_matrix_to_binary`), so the image's answers
-        are the stack's for every batch.  Read off one row, ``uniform_w``
-        and ``uniform_bias`` are True by construction; only ``fuse_bias``
-        comes from the image's data."""
+    def _image_read(self, device: DeviceLike
+                    ) -> Tuple[List[StackForm], List[StackConsts]]:
+        """Each layer's :class:`StackForm` and :class:`StackConsts` over
+        the compiled image on ``device``, read once per image and cached
+        (rebuilt with the image, when a segment was replaced)."""
         dev = resolve_device(device)
         key = device_of(dev)
         image = self._device_image(dev)
-        cached = self._stack_forms.get(key)
+        cached = self._image_reads.get(key)
         if cached is None or cached[0] is not image:
-            cached = (image, [stack_form(l.program, image.reshape(1, -1))
-                              for l in self.layers])
-            self._stack_forms[key] = cached
-        return cached[1]
+            forms = [stack_form(l.program, image.reshape(1, -1))
+                     for l in self.layers]
+            consts = [stack_consts(l.program, image, form)
+                      for l, form in zip(self.layers, forms)]
+            cached = (image, forms, consts)
+            self._image_reads[key] = cached
+        return cached[1], cached[2]
+
+    def stack_forms(self, device: DeviceLike = None) -> List[StackForm]:
+        """Each layer's :class:`StackForm` over the compiled image on
+        ``device``, read once and cached.  A served stack's rows all stand
+        for that image with only the INP and RES regions restaged
+        (zero-padded by :func:`staging.batch_matrix_to_binary`), so the
+        image's answers are the stack's for every batch.  Read off one
+        row, ``uniform_w`` and ``uniform_bias`` are True by construction;
+        only ``fuse_bias`` comes from the image's data."""
+        return self._image_read(device)[0]
 
     def _as_image_batch(self, images, device: torch.device) -> torch.Tensor:
         """Normalise a request batch to one ``(B,) + input_shape[1:]`` int8
@@ -372,10 +391,12 @@ class NetworkProgram:
 
     def _kernel_executor(self, dev: torch.device):
         """Each layer as one ``vta_gemm`` launch (plus its epilogue) over
-        the stack, with the layer's cached :class:`StackForm`."""
-        forms = self.stack_forms(dev)
+        the stack, with the layer's cached :class:`StackForm` and
+        :class:`StackConsts`: the stack's WGT and ACC are not read."""
+        forms, consts = self._image_read(dev)
         return lambda k, layer, stack: _execute_stack(
-            layer.program, stack, saturate=False, form=forms[k])
+            layer.program, stack, saturate=False, form=forms[k],
+            consts=consts[k])
 
     def _interpreter(self, backend: str, fault_hook, count_overflows: bool):
         """Each layer on an instruction interpreter over the stack, its
@@ -486,12 +507,19 @@ class NetworkProgram:
                 sp.set(bytes=batch.nbytes)
             call.set(batch=batch.shape[0])
             with tracing.span("repro_torch.serve.stack") as sp:
-                stack = self._device_image(dev).expand(
-                    batch.shape[0], -1).clone()
-                sp.set(bytes=stack.nbytes)
-                execute = (self._kernel_executor(dev) if backend == "cuda"
-                           else self._interpreter(backend, fault_hook,
-                                                  count_overflows))
+                image = self._device_image(dev)
+                if backend == "cuda":
+                    # nothing to copy: every byte the chain reads is
+                    # written by staging, the kernels or the encode first
+                    stack = torch.empty((batch.shape[0], image.shape[0]),
+                                        dtype=torch.uint8, device=dev)
+                    execute = self._kernel_executor(dev)
+                    sp.set(bytes=0)
+                else:
+                    stack = image.expand(batch.shape[0], -1).clone()
+                    execute = self._interpreter(backend, fault_hook,
+                                                count_overflows)
+                    sp.set(bytes=stack.nbytes)
             sem, reports = self._run_chain(stack, batch, execute)
             return self._outputs(sem), reports
 

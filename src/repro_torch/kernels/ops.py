@@ -105,9 +105,12 @@ def vta_matmul(a: torch.Tensor, b: torch.Tensor,
 
 def vta_alu(gemm: torch.Tensor, stack: torch.Tensor,
             table: "_vta_alu.AluTable", *, blocks, acc, res, out,
-            saturate: bool) -> None:
+            saturate: bool, acc_images: Optional[torch.Tensor] = None
+            ) -> None:
     """The TensorAlu epilogue kernel over every image of ``stack``
-    (``vta_alu.vta_alu``): OUT from the GEMM's int32 result, ACC and RES.
+    (``vta_alu.vta_alu``): OUT from the GEMM's int32 result, ACC (from
+    the one image ``acc_images`` where given, else each image's own) and
+    RES.
     CUDA tensors only; the plain version for CPU tensors is
     ``core/cuda_backend.py``'s torch epilogue, which its caller runs."""
     if gemm.device.type != "cuda":
@@ -115,7 +118,7 @@ def vta_alu(gemm: torch.Tensor, stack: torch.Tensor,
                          f"tensors; got {gemm.device} (the plain version is "
                          "cuda_backend.plain_alu_epilogue)")
     _vta_alu.vta_alu(gemm, stack, table, blocks=blocks, acc=acc, res=res,
-                     out=out, saturate=saturate)
+                     out=out, saturate=saturate, acc_images=acc_images)
     _count_alu_launch()
 
 

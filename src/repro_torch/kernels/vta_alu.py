@@ -33,7 +33,8 @@ from .build import KernelLaunchError
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "vta_alu.cu"
 KERNEL = _build.Kernel(SOURCE, "vta_alu_launch",
-                       [ctypes.c_void_p, ctypes.c_void_p]
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_void_p]
                        + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
                        + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 
@@ -114,10 +115,18 @@ def _offset(region: Optional[Tuple[int, int]], size: int, stride: int,
     return start
 
 
+def _rows(t: torch.Tensor, name: str) -> None:
+    if t.dtype != torch.uint8 or t.dim() != 2 or t.stride(1) != 1:
+        raise ValueError(f"{name} must be a (B, nbytes) uint8 tensor with "
+                         f"unit column stride, got {t.dtype} "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+
+
 def vta_alu(gemm: torch.Tensor, stack: torch.Tensor, table: AluTable, *,
             blocks: Tuple[int, int, int, int],
             acc: Optional[Tuple[int, int]], res: Optional[Tuple[int, int]],
-            out: Tuple[int, int], saturate: bool) -> None:
+            out: Tuple[int, int], saturate: bool,
+            acc_images: Optional[torch.Tensor] = None) -> None:
     """Launch the kernel: OUT of every image of ``stack`` from ``gemm``.
 
     ``gemm`` int32, contiguous, ``B · α · rh · β · bs`` elements: the
@@ -126,7 +135,9 @@ def vta_alu(gemm: torch.Tensor, stack: torch.Tensor, table: AluTable, *,
     (B, nbytes) with unit column stride, on ``gemm``'s device.
     ``blocks`` is (α, β, rh, bs); ``acc``, ``res``, ``out`` the regions'
     (byte offset, byte size) in an image, ``acc``/``res`` None where the
-    program has none.  Launches on the current stream and does not
+    program has none.  ``acc_images``, where given, is one image (uint8
+    (1, nbytes)) whose ACC region every image reads in place of its own
+    (row stride 0).  Launches on the current stream and does not
     synchronise."""
     if table.residual and res is None:
         raise ValueError("the ALU program reads RES; the program has no RES "
@@ -144,26 +155,35 @@ def vta_alu(gemm: torch.Tensor, stack: torch.Tensor, table: AluTable, *,
         raise ValueError(f"gemm must be a contiguous int32 tensor of "
                          f"{batch} x {n} elements, got {gemm.dtype} "
                          f"{tuple(gemm.shape)}")
-    if stack.dtype != torch.uint8 or stack.dim() != 2 or stack.stride(1) != 1:
-        raise ValueError(f"stack must be a (B, nbytes) uint8 tensor with "
-                         f"unit column stride, got {stack.dtype} "
-                         f"{tuple(stack.shape)} strides {stack.stride()}")
+    _rows(stack, "stack")
     stride = stack.stride(0) if batch > 1 else stack.shape[1]
-    acc_off = _offset(acc, 4 * n, stack.shape[1], "ACC")
+    if acc_images is None:
+        acc_images, acc_stride = stack, stride
+    else:
+        _rows(acc_images, "acc_images")
+        if acc_images.device != dev or acc_images.shape[0] != 1:
+            raise ValueError(f"acc_images must be one image on {dev}, got "
+                             f"{tuple(acc_images.shape)} on "
+                             f"{acc_images.device}")
+        acc_stride = 0
+    acc_off = _offset(acc, 4 * n, acc_images.shape[1], "ACC")
     res_off = _offset(res, 4 * n, stack.shape[1], "RES")
     out_off = _offset(out, n, stack.shape[1], "OUT")
-    for other in (acc, res):
+    for other in (acc if acc_images is stack else None, res):
         if other is not None and (other[0] < out_off + n
                                   and out_off < other[0] + other[1]):
             raise ValueError(f"OUT {out} overlaps a region it is computed "
                              f"from, {other}")
     aligned = (gemm.data_ptr() % 16 == 0 and stack.data_ptr() % 16 == 0
-               and stride % 16 == 0 and out_off % 4 == 0
+               and acc_images.data_ptr() % 16 == 0
+               and stride % 16 == 0 and acc_stride % 16 == 0
+               and out_off % 4 == 0
                and all(off % 16 == 0 for off in (acc_off, res_off)
                        if off >= 0))
     p = plan(table, batch, alpha * beta * rh, bs, aligned)
     fn = KERNEL.launcher()
-    args = (gemm.data_ptr(), stack.data_ptr(), stride, acc_off, res_off,
+    args = (gemm.data_ptr(), stack.data_ptr(), stride,
+            acc_images.data_ptr(), acc_stride, acc_off, res_off,
             out_off, table.words.data_ptr(), table.n_ops, table.lead,
             table.tail, batch, alpha, beta, rh, bs, int(saturate),
             MODES.index(p.mode), p.vec, p.smem,

@@ -7,11 +7,15 @@ program of ``torch_alu_cases``, full-range int32 inputs, both commits,
 batches of 1 and 4,096 images of 16 and of 18 vectors; images 16-byte
 aligned and not (the kernel's 4-lane and 1-lane loads); and images too
 large for shared memory (the pair and indexed programs then work in the
-GEMM's result).  Then served networks: LeNet-5, resnet8, the CIFAR CNN and
-resnet_tiny, ``serve`` on the card bit-equal to ``serve`` on the CPU with
-one ``vta_alu`` launch an unfused layer, and under the profiler every
-device operation of an unfused layer's epilogue is the kernel (no int64
-pass) and its encode launches nothing.
+GEMM's result).  The ACC preload read from one image at row stride 0
+(``acc_images``), as ``serve`` reads it from the compiled image: over the
+same programs and over LeNet-5's pooled convs with their compiled image.
+Then served networks: LeNet-5, resnet8, the CIFAR CNN and resnet_tiny,
+``serve`` on the card bit-equal to ``serve`` on the CPU with one
+``vta_alu`` launch an unfused layer; under the profiler every device
+operation of an unfused layer's epilogue is the kernel (no int64 pass),
+its encode launches nothing, the stack is made without a device operation
+and every layer's decode reads its constants from the image.
 
 Every test here is marked ``cuda``: it decides inside the test whether a
 CUDA card is present and skips on a host without one.  The module imports
@@ -73,23 +77,30 @@ def _case(dev, case: int, blocks, batch: int, aligned: bool, seed: int):
             torch.from_numpy(stack).to(dev))
 
 
-def _plain(p, gemm, stack, saturate: bool) -> torch.Tensor:
+def _plain(p, gemm, stack, saturate: bool, acc_images=None
+           ) -> torch.Tensor:
+    """The plain epilogue's stack; ACC from ``acc_images`` (one image,
+    expanded over the batch) where given."""
     want = stack.clone()
-    out = cb.plain_alu_epilogue(
-        gemm, cb._decode_acc32(stack, p, p.acc),
-        cb._decode_acc32(stack, p, p.res), p,
-        cb.lower_alu(p.alu_ops, stack.device), saturate)
+    rows = stack if acc_images is None else acc_images
+    x = cb._decode_acc32(rows, p, p.acc).expand(stack.shape[0], -1, -1)
+    res = cb._decode_acc32(stack, p, p.res) if p.res else None
+    out = cb.plain_alu_epilogue(gemm, x, res, p,
+                                cb.lower_alu(p.alu_ops, stack.device),
+                                saturate)
     cb._encode_out(want, p, out)
     return want
 
 
-def _kernel(p, gemm, stack, saturate: bool) -> torch.Tensor:
+def _kernel(p, gemm, stack, saturate: bool, acc_images=None
+            ) -> torch.Tensor:
     got = stack.clone()
     table = cb.lower_alu_table(p.alu_ops, p.alpha * p.beta * p.row_height,
                                stack.device)
     ops.vta_alu(gemm.clone(), got, table,
                 blocks=(p.alpha, p.beta, p.row_height, p.block_size),
-                acc=p.acc, res=p.res, out=p.out, saturate=saturate)
+                acc=p.acc, res=p.res, out=p.out, saturate=saturate,
+                acc_images=acc_images)
     torch.cuda.synchronize()
     return got
 
@@ -140,6 +151,48 @@ def test_kernel_equals_plain_beyond_shared_memory(case):
     for saturate in (False, True):
         _assert_same(_kernel(p, gemm, stack, saturate),
                      _plain(p, gemm, stack, saturate), p)
+
+
+# every program at 18 vectors; the structural ones past shared memory too
+ONE_IMAGE = ([(i, "18_vectors") for i in range(len(CASES))]
+             + [(i, "4096_vectors") for i in STRUCTURAL])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, blocks", ONE_IMAGE,
+                         ids=[f"{CASES[i][0]}-{b}" for i, b in ONE_IMAGE])
+def test_kernel_reads_acc_from_one_image(case, blocks):
+    """ACC from an image of its own at row stride 0, not the stack's:
+    the stack's own ACC bytes are random and differ from it."""
+    dev = _card()
+    p, gemm, stack = _case(dev, case, BLOCKS[blocks], 33, True, 4600 + case)
+    image = _case(dev, case, BLOCKS[blocks], 1, True, 4700 + case)[2]
+    for saturate in (False, True):
+        _assert_same(_kernel(p, gemm, stack, saturate, image),
+                     _plain(p, gemm, stack, saturate, image), p)
+
+
+@pytest.mark.cuda
+def test_pooled_convs_read_acc_from_the_compiled_image():
+    """LeNet-5's pooled convs (one block an image in shared memory) with
+    their bias preload read from the compiled image on the card, at row
+    stride 0, over 257 images."""
+    dev = _card()
+    net, _ = _network("lenet5")
+    image = net._device_image(dev).reshape(1, -1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(34)
+    pooled = [l for l in net.layers if l.program.alu_kind == "pool2x2"]
+    assert [l.spec.name for l in pooled] == ["l1_conv", "l2_conv"]
+    for layer in pooled:
+        p = cb.plan_cuda(layer.program)
+        gemm = torch.randint(-(2 ** 31), 2 ** 31, (257, *p.padded_shape),
+                             dtype=torch.int32, device=dev, generator=gen)
+        stack = torch.randint(0, 256, (257, image.shape[1]),
+                              dtype=torch.uint8, device=dev, generator=gen)
+        for saturate in (False, True):
+            _assert_same(_kernel(p, gemm, stack, saturate, image),
+                         _plain(p, gemm, stack, saturate, image), p)
 
 
 @pytest.mark.cuda
@@ -228,6 +281,14 @@ def test_epilogue_is_one_kernel_and_encode_is_empty(model, tmp_path):
     spans = [s for s in tracing.snapshot()["spans"] if s["name"] == ENCODE]
     assert [s["attrs"]["bytes"] for s in spans] == [
         len(images) * cb.plan_cuda(l.program).out[1] for l in net.layers]
+    # the stack is allocated, not cloned from the image, and every layer's
+    # decode copies INP alone
+    assert [o["name"] for o in launched
+            if o["span"] == "repro_torch.serve.stack"] == []
+    decodes = [s["attrs"] for s in tracing.snapshot()["spans"]
+               if s["name"] == "repro_torch.layer.decode"]
+    assert decodes == [{"consts": "image", "bytes": len(images) * cb.plan_cuda(
+        l.program).inp[1]} for l in net.layers]
 
 
 @pytest.mark.cuda

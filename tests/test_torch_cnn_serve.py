@@ -178,8 +178,9 @@ def test_no_pair_lattice_is_sequential(nets, model):
 @pytest.mark.parametrize("model", MODELS + ["lenet5"])
 def test_cached_form_equals_per_call_checks(nets, model, monkeypatch):
     """The fused-path decision cached on the program equals what the
-    per-call checks read off the served stack, on every layer, and serving
-    passes it for every layer."""
+    per-call checks read off the served stack, the compiled image in every
+    row with the staged INP and RES, on every layer, and serving passes it
+    and the layer's constants for every layer."""
     if model == "lenet5":
         from repro_torch.lenet5_e2e import compile_lenet5, request_images
         tn = compile_lenet5()[1]
@@ -190,11 +191,20 @@ def test_cached_form_equals_per_call_checks(nets, model, monkeypatch):
     real = tnc._execute_stack
     seen = []
 
-    def spy(prog, stack, *, saturate, form=None):
-        assert form is not None
-        assert form == cuda_backend.stack_form(prog, stack), prog.name
+    def spy(prog, stack, *, saturate, form=None, consts=None):
+        assert form is not None and consts is not None
+        # the served stack holds only what varies by image: read the form
+        # off the image in every row, with this batch's INP and RES
+        full = consts.image.expand(stack.shape[0], -1).clone()
+        for region in ("inp", "res"):
+            if region in prog.regions:
+                r = prog.regions[region]
+                lo = r.phys_addr - prog.allocator.offset
+                full[:, lo:lo + r.nbytes] = stack[:, lo:lo + r.nbytes]
+        assert form == cuda_backend.stack_form(prog, full), prog.name
         seen.append(prog.name)
-        return real(prog, stack, saturate=saturate, form=form)
+        return real(prog, stack, saturate=saturate, form=form,
+                    consts=consts)
 
     monkeypatch.setattr(tnc, "_execute_stack", spy)
     tn.serve(images, device="cpu")

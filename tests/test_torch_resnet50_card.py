@@ -2,8 +2,10 @@
 tiled 3×3/s2 max pool, a join and the join + GAP tree over 9 and 49
 positions, held to ``cuda_backend.plain_alu_epilogue`` (run on the card
 too) by exact equality of the whole DRAM stack it leaves, with full-range
-int32 inputs and both commits; then the small ResNet-50 served on the card
-equal to the CPU with one ``vta_alu`` launch an unfused layer.
+int32 inputs and both commits; the published stem's pool with its bias
+preload read from its compiled image at row stride 0, as ``serve`` reads
+it; then the small ResNet-50 served on the card equal to the CPU with one
+``vta_alu`` launch an unfused layer.
 
 Every test here is marked ``cuda`` and skips on a host without a card:
 
@@ -20,7 +22,7 @@ from repro_torch.core.layer_compiler import LayerSpec, compile_layer  # noqa
 from repro_torch.kernels import ops                              # noqa: E402
 from repro_torch.models import resnet50 as r50                  # noqa: E402
 from test_torch_alu_epilogue_card import (_assert_same, _card,   # noqa: E402
-                                          _kernel)
+                                          _kernel, _plain)
 
 SMALL = r50.ResNet50Shape(input_hw=96, stem_width=8, widths=(8, 16, 32, 64))
 
@@ -56,16 +58,6 @@ def _stack_case(prog, batch: int, dev, seed: int):
     return p, torch.from_numpy(gemm).to(dev), torch.from_numpy(stack).to(dev)
 
 
-def _plain(p, gemm, stack, saturate: bool) -> torch.Tensor:
-    want = stack.clone()
-    res = cb._decode_acc32(stack, p, p.res) if p.res else None
-    out = cb.plain_alu_epilogue(gemm, cb._decode_acc32(stack, p, p.acc), res,
-                                p, cb.lower_alu(p.alu_ops, stack.device),
-                                saturate)
-    cb._encode_out(want, p, out)
-    return want
-
-
 def _check(prog, batch, dev, seed):
     p, gemm, stack = _stack_case(prog, batch, dev, seed)
     for saturate in (False, True):
@@ -90,6 +82,22 @@ def test_kernel_equals_plain_on_the_published_stem():
     prog = _full_stem()
     assert prog.chunk_plan.n_chunks > 1
     _check(prog, 4, dev, 7200)
+
+
+@pytest.mark.cuda
+def test_published_stem_reads_acc_from_its_image():
+    """The stem's 3×3/s2 pool works in place in the GEMM's result (past
+    shared memory) with ACC read from the compiled image, one row for the
+    batch's 5 images."""
+    dev = _card()
+    prog = _full_stem()
+    p, gemm, stack = _stack_case(prog, 5, dev, 7400)
+    image = torch.from_numpy(prog.dram_image()).to(dev).reshape(1, -1)
+    n = p.alpha * p.beta * p.row_height * p.block_size
+    assert n * 4 > 232_448                      # past shared memory
+    for saturate in (False, True):
+        _assert_same(_kernel(p, gemm, stack, saturate, image),
+                     _plain(p, gemm, stack, saturate, image), p)
 
 
 @pytest.mark.cuda

@@ -94,12 +94,19 @@ def test_bytes_are_the_regions_written(nets, model):
                         if s["name"] == name]
     res = [r.get("res") for r in (l.program.regions for l in net.layers)]
     assert got("repro_torch.serve.input") == [images.size]
-    assert got("repro_torch.serve.stack") == [
-        BATCH * net.allocator.image_size()]
+    # the cuda stack is allocated, not a copy of the image: nothing is
+    # written into it before the chain
+    assert got("repro_torch.serve.stack") == [0]
     assert got("repro_torch.layer.stage") == [
         BATCH * (l.program.regions["inp"].nbytes
                  + (r.nbytes if r is not None else 0))
         for l, r in zip(net.layers, res)]
+    # decode copies INP alone: WGT and the ACC preload come from the image
+    assert got("repro_torch.layer.decode") == [
+        BATCH * l.program.regions["inp"].nbytes for l in net.layers]
+    assert [s["attrs"]["consts"] for s in spans
+            if s["name"] == "repro_torch.layer.decode"] == \
+        ["image"] * len(net.layers)
     assert got("repro_torch.layer.encode") == [
         BATCH * l.program.regions["out"].nbytes for l in net.layers]
     last = net.layers[-1].program.output_meta.valid_shape

@@ -67,7 +67,9 @@ def copy_device_ms_per_kimg(rec: dict) -> Optional[float]:
 
 
 def stack_clone_device_ms_per_kimg(rec: dict) -> Optional[float]:
-    """The DRAM image cloned into every row of the stack."""
+    """The DRAM stack made: allocated on the ``cuda`` backend, which
+    copies nothing into it (the interpreters clone the image into every
+    row)."""
     return device_ms_per_kimg(rec, (STACK,))
 
 
@@ -78,8 +80,9 @@ def stage_device_ms_per_kimg(rec: dict) -> Optional[float]:
 
 
 def codec_device_ms_per_kimg(rec: dict) -> Optional[float]:
-    """INP, WGT, ACC and RES decoded into the kernel's operands, OUT
-    written, and OUT read back into the layer's output."""
+    """INP decoded into the kernel's operand (WGT and the bias too where
+    the rows hold their own), OUT written, and OUT read back into the
+    layer's output."""
     return device_ms_per_kimg(rec, (DECODE, ENCODE, UNPACK))
 
 
@@ -103,8 +106,8 @@ def serve_host_ms_per_call(rec: dict) -> Optional[float]:
 
 
 def stack_bytes_per_image(rec: dict) -> Optional[float]:
-    """Bytes written into the DRAM stack, per image: the image cloned into
-    the row, INP and RES, and OUT."""
+    """Bytes written into the DRAM stack, per image: INP and RES, and
+    OUT (and the image cloned into the row, on a backend that clones it)."""
     traced = traced_spans(rec)
     if traced is None:
         return None
