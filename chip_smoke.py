@@ -805,9 +805,7 @@ def compile_cnns() -> list:
 def unfused_layers(net, dev) -> int:
     """The layers of ``net`` that do not fuse into ``vta_gemm`` on
     ``dev``: each runs its TensorAlu epilogue as one ``vta_alu`` launch."""
-    from repro_torch.core.cuda_backend import plan_cuda
-    return sum(not (plan_cuda(layer.program).fused and form.fuse_bias)
-               for layer, form in zip(net.layers, net.stack_forms(dev)))
+    return sum(not c.fused for c in net.layer_consts(dev))
 
 
 def serve_cnns(ops, cnns, dev) -> dict:
@@ -5643,7 +5641,8 @@ ALU_BATCHES = {"resnet8": 8192, "lenet5": 32768}
 
 def alu_phase(ops, dev) -> dict:
     """Phase 24: ``vta_alu`` against its plain version and its bound at
-    the unfused layers of resnet8 and LeNet-5, at the cells' batches."""
+    the unfused layers of resnet8 and LeNet-5, at the cells' batches, ACC
+    read from the compiled image as ``serve`` reads it."""
     from repro_torch.core import cuda_backend as cb
     from repro_torch.kernels import vta_alu
     from repro_torch.lenet5_e2e import compile_lenet5
@@ -5655,6 +5654,7 @@ def alu_phase(ops, dev) -> dict:
     rows, totals = [], {}
     for model, net in nets.items():
         batch = ALU_BATCHES[model]
+        image = net._device_image(dev).reshape(1, -1)
         for layer in net.layers:
             prog = layer.program
             p = cb.plan_cuda(prog)
@@ -5674,10 +5674,11 @@ def alu_phase(ops, dev) -> dict:
             def kernel(saturate=False, dram=stack):
                 ops.vta_alu(gemm, dram, table,
                             blocks=blocks, acc=p.acc, res=p.res, out=p.out,
-                            saturate=saturate)
+                            saturate=saturate, acc_image=image)
 
             def plain(saturate=False, dram=stack):
-                x = cb._decode_acc32(dram, p, p.acc) if p.acc else None
+                x = (cb._decode_acc32(image, p, p.acc).expand(batch, -1, -1)
+                     if p.acc else None)
                 r = cb._decode_acc32(dram, p, p.res) if p.res else None
                 cb._encode_out(dram, p, cb.plain_alu_epilogue(
                     gemm.view(batch, *p.padded_shape), x, r, p,
@@ -5696,8 +5697,8 @@ def alu_phase(ops, dev) -> dict:
                 del want, got
             kernel_ms = cuda_ms(kernel, iters=20, warmup=2)
             plain_ms = cuda_ms(plain, iters=3, warmup=1)
-            nbytes = batch * n * (4 + 1 + 4 * (p.acc is not None)
-                                  + 4 * (p.res is not None))
+            nbytes = (batch * n * (4 + 1 + 4 * (p.res is not None))
+                      + 4 * n * (p.acc is not None))
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             launch = vta_alu.plan(table, batch, n_vec, p.block_size, True)
             row = {"model": model, "layer": layer.spec.name, "batch": batch,

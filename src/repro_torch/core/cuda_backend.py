@@ -25,11 +25,12 @@ result, ACC and RES in place and writes OUT, in one launch a layer.  Its
 plain version, the vectorised torch epilogue below (the CPU path), mirrors
 ``gemm_compiler``'s reference semantics op for op (wraparound included).
 
-Where every row of the stack was served from one compiled image, the
-caller passes that image's constants (:class:`StackConsts`): the kernel's
-weights and fused bias, decoded once, and the image the epilogue reads the
-ACC preload from.  The stack then needs only what varies by image (INP,
-RES, OUT).  Without them each row's WGT and ACC are read off the stack.
+Every row of a stack shares one program's constants (:class:`LayerConsts`:
+the kernel's weights and fused bias, decoded once, the image the epilogue
+reads the ACC preload from, and whether the layer fuses), so the stack
+needs only what varies by image (INP, RES, OUT).  ``NetworkProgram`` reads
+them off the compiled image; the simulator engines off their stack, one
+row at a time where the rows' WGT or ACC differ.
 """
 
 from __future__ import annotations
@@ -487,161 +488,88 @@ def plain_alu_epilogue(acc: torch.Tensor, x: Optional[torch.Tensor],
 
 
 @dataclasses.dataclass(frozen=True)
-class StackForm:
-    """The data-dependent answers :func:`_execute_stack` needs before it
-    picks a path: whether every row of the stack holds the same weights,
-    whether the ACC preload is a row-broadcast bias that fuses into the
-    kernel (its valid rows equal, its pad rows and A's pad rows zero), and
-    whether that bias is the same in every row."""
-
-    uniform_w: bool
-    fuse_bias: bool
-    uniform_bias: bool
-
-
-def stack_form(prog, stack: torch.Tensor) -> StackForm:
-    """Read :class:`StackForm` off ``stack`` for ``prog``.  Each check
-    reads a device value back to the host (one synchronisation each), so
-    a caller that serves one compiled image many times decides once
-    (``NetworkProgram`` caches it per device) and passes the answer in.
-
-    A row-broadcast preload (the bias form every compiled layer uses)
-    fuses into the kernel.  The kernel broadcasts the bias to *every* row
-    including the §3.2 padding rows, where the oracle adds the stored X
-    pad rows instead — fusing therefore also requires A's pad rows to be
-    zero (true for every compiled image and every staged input), so the
-    pad rows' oracle value is exactly 0 and can be committed directly.
-    Pad *columns* need no special-casing in either form: the kernel
-    computes them from the same decoded WGT/bias bytes the oracle
-    reads."""
-    p = plan_cuda(prog)
-    b = stack.shape[0]
-    m = p.valid_shape[0]
-    w = _decode_wgt(stack, p)
-    uniform_w = b == 1 or bool((w == w[0]).all())
-    if p.acc is None:
-        return StackForm(uniform_w, True, True)
-    if not p.fused:
-        return StackForm(uniform_w, False, True)
-    x = _decode_acc32(stack, p, p.acc)
-    a = _decode_inp(stack, p)
-    fuse_bias = (bool((x[:, :m] == x[:, :1]).all())
-                 and bool((x[:, m:] == 0).all())
-                 and bool((a[:, m:] == 0).all()))
-    uniform_bias = (not fuse_bias or b == 1
-                    or bool((x[:, 0] == x[:1, 0]).all()))
-    return StackForm(uniform_w, fuse_bias, uniform_bias)
-
-
-@dataclasses.dataclass(frozen=True)
-class StackConsts:
-    """A program's constant operands, read once from the compiled DRAM
-    image: the kernel's weights ``w`` ((Kp, Np) int8, contiguous), the
-    fused bias ``bias`` ((Np,) int32; None where the layer fuses none) and
-    ``image``, the (1, nbytes) image every row's ACC preload is read from."""
+class LayerConsts:
+    """A program's constant operands and its fusion decision, read once
+    from rows that share WGT and ACC (``NetworkProgram`` reads them off
+    the compiled image, once per image and device): ``image``, the
+    (1, nbytes) row the epilogue reads the ACC preload from; ``w``, the
+    kernel's (Kp, Np) int8 weights, contiguous; ``bias``, the fused (Np,)
+    int32 bias (None where the layer fuses none); ``fused``, whether the
+    whole layer runs inside ``vta_gemm``."""
 
     image: torch.Tensor
     w: torch.Tensor
     bias: Optional[torch.Tensor]
+    fused: bool
 
 
-def stack_consts(prog, image: torch.Tensor, form: StackForm) -> StackConsts:
-    """:class:`StackConsts` of ``prog`` from the compiled ``image`` (one
-    row, or 1-D), whose :class:`StackForm` is ``form``."""
+def layer_consts(prog, rows: torch.Tensor) -> LayerConsts:
+    """:class:`LayerConsts` of ``prog`` from ``rows`` ((R, nbytes), or one
+    1-D image), whose rows hold the same WGT and ACC bytes.
+
+    A layer fuses where its ALU program has the kernel's form and its ACC
+    preload, if it has one, is a row-broadcast bias (the bias form every
+    compiled layer uses).  The kernel broadcasts the bias to *every* row
+    including the §3.2 padding rows, where the oracle adds the stored X
+    pad rows instead — fusing therefore also requires X's pad rows and
+    A's pad rows in all R rows to be zero (true for every compiled image
+    and every staged input), so the pad rows' oracle value is exactly 0
+    and can be committed directly.  Pad *columns* need no special-casing
+    in either form: the kernel computes them from the same decoded
+    WGT/bias bytes the oracle reads.  Each check reads a device value
+    back to the host (one synchronisation each)."""
     p = plan_cuda(prog)
-    row = image.reshape(1, -1)
-    w = _decode_wgt(row, p)[0].contiguous()
-    bias = (_decode_acc32(row, p, p.acc)[0, 0].contiguous()
-            if p.acc and p.fused and form.fuse_bias else None)
-    return StackConsts(row, w, bias)
+    rows = rows.reshape(-1, rows.shape[-1])
+    image = rows[:1]
+    w = _decode_wgt(image, p)[0].contiguous()
+    if p.acc is None or not p.fused:
+        return LayerConsts(image, w, None, p.fused)
+    m = p.valid_shape[0]
+    x = _decode_acc32(image, p, p.acc)
+    a = _decode_inp(rows, p)
+    fused = (bool((x[:, :m] == x[:, :1]).all())
+             and bool((x[:, m:] == 0).all())
+             and bool((a[:, m:] == 0).all()))
+    return LayerConsts(image, w, x[0, 0].contiguous() if fused else None,
+                       fused)
 
 
-def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
-                   form: Optional[StackForm] = None,
-                   consts: Optional[StackConsts] = None) -> SimReport:
-    """Run ``prog`` over every DRAM row of ``stack``, writing OUT bytes in
-    place.  Weight-uniform batches collapse to a single stacked kernel
-    launch; varied weights fall back to one launch per row.  On a CUDA
-    stack an unfused program's epilogue is one ``vta_alu`` launch over
-    every row, which reads RES in place and ACC where it lies.
-
-    ``form`` is the stack's :class:`StackForm`; a caller that passes none
-    (a simulator over an arbitrary stack, whose rows may differ) gets it
-    read off the stack, which synchronises with the device.  ``consts``,
-    where given, are the weights and ACC preload of the one image every
-    row was served from: the stack's WGT and ACC are then never read, and
-    the rows launch once.  Without them each row's own are read."""
+def _execute_stack(prog, stack: torch.Tensor, consts: LayerConsts, *,
+                   saturate: bool) -> SimReport:
+    """Run ``prog`` over every DRAM row of ``stack``, whose WGT and ACC
+    preload are ``consts``, writing OUT bytes in place: one ``vta_gemm``
+    launch over the stacked rows and, on a layer that does not fuse, its
+    TensorAlu epilogue (on a CUDA stack one ``vta_alu`` launch, which
+    reads RES in place and ACC from ``consts.image``).  The stack's WGT
+    and ACC are not read."""
     p = plan_cuda(prog)
-    # the rows WGT and the ACC preload are read from
-    acc_rows = stack if consts is None else consts.image
-    if form is None:
-        form = stack_form(prog, acc_rows)
     b = stack.shape[0]
     mp, np_ = p.padded_shape
-    m, n = p.valid_shape
-    fused = p.fused and form.fuse_bias
-    on_card = stack.device.type == "cuda"
-    with tracing.span("repro_torch.layer.decode",
-                      consts="rows" if consts is None else "image") as sp:
-        a = _decode_inp(stack, p)                   # (B, Mp, Kp)
-        if consts is None:
-            w = _decode_wgt(stack, p)               # (B, Kp, Np)
-            x = _decode_acc32(stack, p, p.acc) if p.acc and fused else None
-            bias = x[:, 0] if x is not None else None
-            one_launch = form.uniform_w and (bias is None or form.uniform_bias)
-            sp.set(bytes=b * (p.inp[1] + p.wgt[1]
-                              + (p.acc[1] if x is not None else 0)))
+    m = p.valid_shape[0]
+    with tracing.span("repro_torch.layer.decode", bytes=b * p.inp[1]):
+        # the launch's operand: the stacked rows
+        a = _decode_inp(stack, p).reshape(b * mp, -1).contiguous()
+    with tracing.span("repro_torch.layer.gemm"):
+        if consts.fused:                # the whole program inside the kernel
+            out = _kernel_gemm(a, consts.w, consts.bias, relu=p.relu,
+                               shift=p.shift, saturate=saturate,
+                               out_dtype=torch.int8).reshape(b, mp, np_)
         else:
-            bias, one_launch = consts.bias, True
-            sp.set(bytes=b * p.inp[1])
-        if one_launch:
-            # the launch's operands: the stacked rows, the shared weights
-            a_op = a.reshape(b * mp, -1).contiguous()
-            if consts is None:
-                w_op = w[0].contiguous()
-                bias_op = bias[0].contiguous() if bias is not None else None
-            else:
-                w_op, bias_op = consts.w, consts.bias
-
-    if fused:
-        # -- whole program inside the kernel --------------------------------
-        with tracing.span("repro_torch.layer.gemm"):
-            if one_launch:
-                out = _kernel_gemm(
-                    a_op, w_op, bias_op,
-                    relu=p.relu, shift=p.shift, saturate=saturate,
-                    out_dtype=torch.int8)
-                out = out.reshape(b, mp, np_)
-            else:
-                out = torch.stack([
-                    _kernel_gemm(a[i], w[i],
-                                 bias[i] if bias is not None else None,
-                                 relu=p.relu, shift=p.shift,
-                                 saturate=saturate, out_dtype=torch.int8)
-                    for i in range(b)])
-    else:
-        # -- kernel GEMM + vectorised TensorAlu epilogue --------------------
-        with tracing.span("repro_torch.layer.gemm"):
-            if one_launch:
-                acc = _kernel_gemm(a_op, w_op, None, relu=False, shift=0,
-                                   saturate=False, out_dtype=torch.int32
-                                   ).reshape(b, mp, np_)
-            else:
-                acc = torch.stack([
-                    _kernel_gemm(a[i], w[i], None, relu=False, shift=0,
-                                 saturate=False, out_dtype=torch.int32)
-                    for i in range(b)])
+            acc = _kernel_gemm(a, consts.w, None, relu=False, shift=0,
+                               saturate=False, out_dtype=torch.int32
+                               ).reshape(b, mp, np_)
+    if not consts.fused:
         with tracing.span("repro_torch.layer.epilogue",
                           alu=prog.alu_kind or "program"):
-            if on_card:                             # OUT written in place
+            if stack.device.type == "cuda":         # OUT written in place
                 kernel_ops.vta_alu(
                     acc, stack, _alu_table(prog, p, stack.device),
                     blocks=(p.alpha, p.beta, p.row_height, p.block_size),
                     acc=p.acc, res=p.res, out=p.out, saturate=saturate,
-                    acc_images=None if consts is None else consts.image)
+                    acc_image=consts.image)
                 out = None
             else:
-                x = (_decode_acc32(acc_rows, p, p.acc).expand(b, -1, -1)
+                x = (_decode_acc32(consts.image, p, p.acc).expand(b, -1, -1)
                      if p.acc else None)
                 res = _decode_acc32(stack, p, p.res) if p.res else None
                 out = plain_alu_epilogue(
@@ -650,7 +578,7 @@ def _execute_stack(prog, stack: torch.Tensor, *, saturate: bool,
 
     with tracing.span("repro_torch.layer.encode", bytes=b * p.out[1]):
         if out is not None:
-            if bias is not None:
+            if consts.bias is not None:
                 out[:, m:, :] = 0      # oracle pad rows: 0·B + 0 preload
             _encode_out(stack, p, out)
     report = SimReport()
@@ -695,9 +623,8 @@ class CudaSimulator:
     def run_program(self, prog, *, fault_hook=None) -> SimReport:
         _refuse_fault_hook(fault_hook)
         stack = self.dram.reshape(1, -1)
-        report = _execute_stack(prog, stack, saturate=self.saturate)
-        self.dram = stack.reshape(-1)
-        return report
+        return _execute_stack(prog, stack, layer_consts(prog, stack),
+                              saturate=self.saturate)
 
     def run(self, instructions, *, plan=None, fault_hook=None) -> SimReport:
         raise CompileError(
@@ -707,8 +634,10 @@ class CudaSimulator:
 
 
 class BatchCudaSimulator(CudaSimulator):
-    """The batch-axis variant over a ``(batch, nbytes)`` DRAM stack —
-    weight-uniform batches execute as one stacked kernel launch."""
+    """The batch-axis variant over a ``(batch, nbytes)`` DRAM stack: a
+    stack whose rows hold row 0's WGT and ACC bytes executes as one
+    stacked kernel launch; any other, one row at a time, each with its
+    own constants."""
 
     is_batch = True
 
@@ -718,7 +647,19 @@ class BatchCudaSimulator(CudaSimulator):
 
     def run_program(self, prog, *, fault_hook=None) -> SimReport:
         _refuse_fault_hook(fault_hook)
-        return _execute_stack(prog, self.dram, saturate=self.saturate)
+        p, stack = plan_cuda(prog), self.dram
+        if all(bool((stack[:, lo:lo + n] == stack[:1, lo:lo + n]).all())
+               for lo, n in filter(None, (p.wgt, p.acc))):
+            return _execute_stack(prog, stack, layer_consts(prog, stack),
+                                  saturate=self.saturate)
+        report = SimReport()
+        for i in range(stack.shape[0]):
+            row = stack[i:i + 1]
+            r = _execute_stack(prog, row, layer_consts(prog, row),
+                               saturate=self.saturate)
+            report.gemm_loops += r.gemm_loops
+            report.alu_loops += r.alu_loops
+        return report
 
 
 def run_program_cuda(prog, *, device: DeviceLike = None,

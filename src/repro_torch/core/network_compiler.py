@@ -31,16 +31,15 @@ later layer still reads it.
 The device image is the programs' segments placed in one DRAM image and
 uploaded once per device; it is rebuilt when a segment is replaced (a
 segment is an immutable ``bytes`` object, so a fault or a restore is a new
-object).  The fused-path decision of every layer (:class:`~repro_torch.
-core.cuda_backend.StackForm`: uniform weights, a row-broadcast bias, zero
-pad rows) depends only on that image, which serving never writes outside
-the INP and RES regions, so it is read once per image and cached here;
-serving a batch then reads nothing back but the logits.  So are each
-layer's constants (:class:`~repro_torch.core.cuda_backend.StackConsts`: the
-kernel's weights and fused bias, and the image its epilogue reads the ACC
-preload from).  The ``cuda`` backend serves from them over a stack that
-holds only what varies by image: it is allocated, not a copy of the image,
-and staging, the kernels and the encode write every byte of it that is
+object).  Each layer's constants (:class:`~repro_torch.core.cuda_backend.
+LayerConsts`: the kernel's weights and fused bias, the image its epilogue
+reads the ACC preload from, and whether the layer fuses: a row-broadcast
+bias, zero pad rows) depend only on that image, which serving never
+writes outside the INP and RES regions, so they are read once per image
+and cached with it; serving a batch then reads nothing back but the
+logits.  The ``cuda`` backend serves from them over a stack that holds
+only what varies by image: it is allocated, not a copy of the image, and
+staging, the kernels and the encode write every byte of it that is
 read.  The interpreters execute instructions that load WGT, ACC, UOP and
 INSN from DRAM, so their stacks hold the whole image in every row.
 """
@@ -58,8 +57,7 @@ from repro_torch.device import DeviceLike, device_of, resolve_device
 
 from . import staging
 from .conv_lowering import mat2tensor
-from .cuda_backend import (StackConsts, StackForm, _execute_stack,
-                           stack_consts, stack_form)
+from .cuda_backend import LayerConsts, _execute_stack, layer_consts
 from .cycle_model import CycleReport, analyze_programs
 from .dram import DramAllocator
 from .errors import CompileError
@@ -94,16 +92,14 @@ class NetworkProgram:
     input_tensor: np.ndarray
     input_sources: Optional[List[int]] = None
     residual_sources: Optional[List[Optional[int]]] = None
-    # The two caches below are filled on first use per device.  Serving
-    # threads may both miss and both build an entry; each stores a complete
-    # value in one dict assignment, so the race only duplicates work (the
-    # engine's warm-up fills both before its workers start).
-    # (segments it was built from, the DRAM image uploaded to the device)
-    _device_images: Dict[str, Tuple[tuple, torch.Tensor]] = \
-        dataclasses.field(default_factory=dict, repr=False, compare=False)
-    # (that image, every layer's StackForm and StackConsts over it)
-    _image_reads: Dict[str, Tuple[torch.Tensor, List[StackForm],
-                                  List[StackConsts]]] = \
+    # Per device: (the segments it was built from, the DRAM image uploaded
+    # to the device, every layer's LayerConsts over it, or None until the
+    # cuda backend first asks), filled on first use.  Serving threads may
+    # both miss and both build an entry; each stores a complete value in
+    # one dict assignment, so the race only duplicates work (the engine's
+    # warm-up fills it before its workers start).
+    _device_images: Dict[str, Tuple[tuple, torch.Tensor,
+                                    Optional[List[LayerConsts]]]] = \
         dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def _sources(self) -> List[int]:
@@ -196,47 +192,38 @@ class NetworkProgram:
         return tuple((name, data) for layer in self.layers
                      for name, data in layer.program.segments.items())
 
-    def _device_image(self, device: torch.device) -> torch.Tensor:
-        """The DRAM image on ``device``, rebuilt only when a segment was
-        replaced since it was uploaded (compared by identity: segments
-        are immutable ``bytes``)."""
-        key = device_of(device)
+    def _device_entry(self, dev: torch.device) -> tuple:
+        """This device's cache entry, rebuilt when a segment was replaced
+        since the image was uploaded (compared by identity: segments are
+        immutable ``bytes``)."""
         segments = self._segments()
-        cached = self._device_images.get(key)
+        cached = self._device_images.get(device_of(dev))
         if cached is None or len(cached[0]) != len(segments) or any(
                 a[0] != b[0] or a[1] is not b[1]
                 for a, b in zip(cached[0], segments)):
-            cached = (segments, torch.from_numpy(self.dram_image()).to(device))
-            self._device_images[key] = cached
-        return cached[1]
+            cached = (segments, torch.from_numpy(self.dram_image()).to(dev),
+                      None)
+            self._device_images[device_of(dev)] = cached
+        return cached
 
-    def _image_read(self, device: DeviceLike
-                    ) -> Tuple[List[StackForm], List[StackConsts]]:
-        """Each layer's :class:`StackForm` and :class:`StackConsts` over
-        the compiled image on ``device``, read once per image and cached
-        (rebuilt with the image, when a segment was replaced)."""
+    def _device_image(self, device: torch.device) -> torch.Tensor:
+        """The DRAM image on ``device``, uploaded once per image."""
+        return self._device_entry(device)[1]
+
+    def layer_consts(self, device: DeviceLike = None) -> List[LayerConsts]:
+        """Each layer's :class:`LayerConsts` over the compiled image on
+        ``device``, read once per image and cached with it.  A served
+        stack's rows all stand for that image with only the INP and RES
+        regions restaged (zero-padded by
+        :func:`staging.batch_matrix_to_binary`), so the image's constants
+        are the stack's for every batch."""
         dev = resolve_device(device)
-        key = device_of(dev)
-        image = self._device_image(dev)
-        cached = self._image_reads.get(key)
-        if cached is None or cached[0] is not image:
-            forms = [stack_form(l.program, image.reshape(1, -1))
-                     for l in self.layers]
-            consts = [stack_consts(l.program, image, form)
-                      for l, form in zip(self.layers, forms)]
-            cached = (image, forms, consts)
-            self._image_reads[key] = cached
-        return cached[1], cached[2]
-
-    def stack_forms(self, device: DeviceLike = None) -> List[StackForm]:
-        """Each layer's :class:`StackForm` over the compiled image on
-        ``device``, read once and cached.  A served stack's rows all stand
-        for that image with only the INP and RES regions restaged
-        (zero-padded by :func:`staging.batch_matrix_to_binary`), so the
-        image's answers are the stack's for every batch.  Read off one
-        row, ``uniform_w`` and ``uniform_bias`` are True by construction;
-        only ``fuse_bias`` comes from the image's data."""
-        return self._image_read(device)[0]
+        cached = self._device_entry(dev)
+        if cached[2] is None:
+            cached = cached[:2] + ([layer_consts(l.program, cached[1])
+                                    for l in self.layers],)
+            self._device_images[device_of(dev)] = cached
+        return cached[2]
 
     def _as_image_batch(self, images, device: torch.device) -> torch.Tensor:
         """Normalise a request batch to one ``(B,) + input_shape[1:]`` int8
@@ -391,12 +378,11 @@ class NetworkProgram:
 
     def _kernel_executor(self, dev: torch.device):
         """Each layer as one ``vta_gemm`` launch (plus its epilogue) over
-        the stack, with the layer's cached :class:`StackForm` and
-        :class:`StackConsts`: the stack's WGT and ACC are not read."""
-        forms, consts = self._image_read(dev)
+        the stack, with the layer's cached :class:`LayerConsts`: the
+        stack's WGT and ACC are not read."""
+        consts = self.layer_consts(dev)
         return lambda k, layer, stack: _execute_stack(
-            layer.program, stack, saturate=False, form=forms[k],
-            consts=consts[k])
+            layer.program, stack, consts[k], saturate=False)
 
     def _interpreter(self, backend: str, fault_hook, count_overflows: bool):
         """Each layer on an instruction interpreter over the stack, its

@@ -22,9 +22,8 @@
 //   stack  uint8 (B, row_stride): the DRAM images; ACC and RES are int32
 //          and OUT int8 in the §3.2 block layout, which is vector order:
 //          element (v, lane) at v*bs + lane
-//   acc    uint8 (B, acc_stride): the images ACC is read from, the stack
-//          itself or, at acc_stride 0, one image whose ACC every image of
-//          the batch shares (the compiled image's bias preload)
+//   acc    uint8: the one image whose ACC every image of the batch reads
+//          (the compiled image's bias preload)
 //   table  int64: the program, ROW words an op (see Kind), then the
 //          index data of indexed and pair ops
 //
@@ -38,9 +37,9 @@
 // What bounds it on an H100: bytes.  Each element is read once from the
 // GEMM's result, ACC and RES and written once to OUT as a byte: 13 bytes
 // an element with RES, 9 without, at 3.35 TB/s; the arithmetic is a few
-// integer operations an element.  Where the batch shares one ACC (row
-// stride 0), every image reads the same bytes, which L2 can serve after the
-// first images where they fit.  The design moves those bytes once:
+// integer operations an element.  The batch shares one ACC: every image
+// reads the same bytes, which L2 can serve after the first images where
+// they fit.  The design moves those bytes once:
 //
 //  * a program of element-wise ops only (immediate and residual ops)
 //    streams: one thread takes 4 lanes of a vector, loads them with one
@@ -89,9 +88,7 @@ struct Args {
   int32_t* gemm;
   uint8_t* stack;
   long long row_stride;             // bytes from one image to the next
-  const uint8_t* acc;               // the images ACC is read from
-  long long acc_stride;             // bytes from one's ACC to the next; 0
-                                    // where every image reads the same
+  const uint8_t* acc;               // the image ACC is read from
   long long acc_off, res_off, out_off;  // region starts; -1 for no region
   const long long* table;
   int n_ops, lead, tail;            // ops [0, lead) and [tail, n_ops) are
@@ -188,10 +185,10 @@ __device__ __forceinline__ void store_out(uint8_t* p, const int32_t (&x)[VEC],
   }
 }
 
-// image b's ACC region (null without one)
-__device__ __forceinline__ const int32_t* acc_of(const Args& a, long long b) {
+// the ACC region every image reads (null without one)
+__device__ __forceinline__ const int32_t* acc_of(const Args& a) {
   return a.acc_off >= 0
-      ? reinterpret_cast<const int32_t*>(a.acc + b * a.acc_stride + a.acc_off)
+      ? reinterpret_cast<const int32_t*>(a.acc + a.acc_off)
       : nullptr;
 }
 
@@ -258,7 +255,7 @@ vta_alu_stream(Args a, int chunks) {
   const int e = it * VEC;
   uint8_t* img = a.stack + b * a.row_stride;
   int32_t x[VEC];
-  load_result<VEC>(a, a.gemm + b * n, acc_of(a, b), e, x);
+  load_result<VEC>(a, a.gemm + b * n, acc_of(a), e, x);
   elementwise<VEC>(a, 0, a.n_ops, x, res_of(a, img), e);
   store_out<VEC>(img + a.out_off + e, x, a.saturate);
 }
@@ -274,7 +271,7 @@ vta_alu_image(Args a) {
   const long long b = blockIdx.x;
   int32_t* gemm = a.gemm + b * n;
   uint8_t* img = a.stack + b * a.row_stride;
-  const int32_t* acc = acc_of(a, b);
+  const int32_t* acc = acc_of(a);
   const int32_t* res = res_of(a, img);
   int32_t* work = IN_SHARED ? reinterpret_cast<int32_t*>(smem4) : gemm;
   auto slot = [&](int v, int lane) {
@@ -377,28 +374,27 @@ cudaError_t launch(const Args& a, int mode, int batch, int smem,
 // mode: 0 stream, 1 one block an image in `smem` bytes of shared memory,
 // 2 one block an image in place in `gemm`; vec: 4 (16-byte loads: every
 // region start, the row stride and bs multiples of 16, 16 and 4 bytes)
-// or 1.  `acc` and `acc_stride`: the images ACC is read from (the stack
-// and row_stride, or one image and 0).  Anything else is refused with
-// cudaErrorInvalidValue before a launch.
+// or 1.  `acc`: the one image ACC is read from.  Anything else is refused
+// with cudaErrorInvalidValue before a launch.
 extern "C" int vta_alu_launch(void* gemm, void* stack, long long row_stride,
-                              const void* acc, long long acc_stride,
-                              long long acc_off, long long res_off,
-                              long long out_off, const void* table, int n_ops,
+                              const void* acc, long long acc_off,
+                              long long res_off, long long out_off,
+                              const void* table, int n_ops,
                               int lead, int tail, int batch, int alpha,
                               int beta, int rh, int bs, int saturate,
                               int mode, int vec, int smem, void* stream) {
   const long long n = 1LL * alpha * beta * rh * bs;
   const long long chunks = (n / vec + THREADS - 1) / THREADS;
   const bool ok = batch > 0 && n > 0 && n < (1LL << 31) && n % vec == 0 &&
-      (acc_off < 0 || (acc != nullptr && acc_stride >= 0)) &&
+      (acc_off < 0 || acc != nullptr) &&
       (vec == 1 || vec == 4) && 0 <= lead && lead <= tail && tail <= n_ops &&
       (mode == STREAM ? lead == n_ops && batch * chunks < (1LL << 31)
                       : mode == GLOBAL || (mode == SHARED && smem == n * 4 &&
                                            smem <= SMEM_LIMIT));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<int32_t*>(gemm), static_cast<uint8_t*>(stack),
-               row_stride, static_cast<const uint8_t*>(acc), acc_stride,
-               acc_off, res_off, out_off,
+               row_stride, static_cast<const uint8_t*>(acc), acc_off, res_off,
+               out_off,
                static_cast<const long long*>(table), n_ops, lead, tail,
                alpha, beta, rh, bs, saturate};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -105,12 +105,10 @@ def vta_matmul(a: torch.Tensor, b: torch.Tensor,
 
 def vta_alu(gemm: torch.Tensor, stack: torch.Tensor,
             table: "_vta_alu.AluTable", *, blocks, acc, res, out,
-            saturate: bool, acc_images: Optional[torch.Tensor] = None
-            ) -> None:
+            saturate: bool, acc_image: torch.Tensor) -> None:
     """The TensorAlu epilogue kernel over every image of ``stack``
-    (``vta_alu.vta_alu``): OUT from the GEMM's int32 result, ACC (from
-    the one image ``acc_images`` where given, else each image's own) and
-    RES.
+    (``vta_alu.vta_alu``): OUT from the GEMM's int32 result, the ACC of
+    the one image ``acc_image`` and each image's RES.
     CUDA tensors only; the plain version for CPU tensors is
     ``core/cuda_backend.py``'s torch epilogue, which its caller runs."""
     if gemm.device.type != "cuda":
@@ -118,7 +116,7 @@ def vta_alu(gemm: torch.Tensor, stack: torch.Tensor,
                          f"tensors; got {gemm.device} (the plain version is "
                          "cuda_backend.plain_alu_epilogue)")
     _vta_alu.vta_alu(gemm, stack, table, blocks=blocks, acc=acc, res=res,
-                     out=out, saturate=saturate, acc_images=acc_images)
+                     out=out, saturate=saturate, acc_image=acc_image)
     _count_alu_launch()
 
 

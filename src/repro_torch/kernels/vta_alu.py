@@ -2,7 +2,8 @@
 
 The kernel (``csrc/vta_alu.cu``) runs a compiled program's TensorAlu
 epilogue over a batch of DRAM images in one launch: it reads ``vta_gemm``'s
-int32 result and the images' ACC and RES regions, runs the ALU program in
+int32 result, the ACC region of one image (the compiled image's preload,
+shared by the batch) and the images' RES regions, runs the ALU program in
 registers (or, for pair and indexed ops, in shared memory an image) and
 writes the int8 OUT region in place.  Its plain version is
 ``core/cuda_backend.py``'s torch epilogue.
@@ -35,7 +36,7 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "vta_alu.cu"
 KERNEL = _build.Kernel(SOURCE, "vta_alu_launch",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                         ctypes.c_void_p]
-                       + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
                        + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 
 ROW = 8                         # int64 words an op takes (csrc: ROW)
@@ -126,7 +127,7 @@ def vta_alu(gemm: torch.Tensor, stack: torch.Tensor, table: AluTable, *,
             blocks: Tuple[int, int, int, int],
             acc: Optional[Tuple[int, int]], res: Optional[Tuple[int, int]],
             out: Tuple[int, int], saturate: bool,
-            acc_images: Optional[torch.Tensor] = None) -> None:
+            acc_image: torch.Tensor) -> None:
     """Launch the kernel: OUT of every image of ``stack`` from ``gemm``.
 
     ``gemm`` int32, contiguous, ``B · α · rh · β · bs`` elements: the
@@ -135,17 +136,18 @@ def vta_alu(gemm: torch.Tensor, stack: torch.Tensor, table: AluTable, *,
     (B, nbytes) with unit column stride, on ``gemm``'s device.
     ``blocks`` is (α, β, rh, bs); ``acc``, ``res``, ``out`` the regions'
     (byte offset, byte size) in an image, ``acc``/``res`` None where the
-    program has none.  ``acc_images``, where given, is one image (uint8
-    (1, nbytes)) whose ACC region every image reads in place of its own
-    (row stride 0).  Launches on the current stream and does not
-    synchronise."""
+    program has none.  ``acc_image`` is one image (uint8 (1, nbytes), on
+    ``gemm``'s device) whose ACC region every image of the stack reads.
+    Launches on the current stream and does not synchronise."""
     if table.residual and res is None:
         raise ValueError("the ALU program reads RES; the program has no RES "
                          "region")
     dev = gemm.device
-    if dev.type != "cuda" or stack.device != dev or table.words.device != dev:
+    if (dev.type != "cuda" or stack.device != dev
+            or acc_image.device != dev or table.words.device != dev):
         raise ValueError(f"vta_alu launches on one CUDA device; got gemm on "
-                         f"{dev}, stack on {stack.device}, table on "
+                         f"{dev}, stack on {stack.device}, ACC image on "
+                         f"{acc_image.device}, table on "
                          f"{table.words.device}")
     alpha, beta, rh, bs = blocks
     batch = stack.shape[0]
@@ -156,34 +158,30 @@ def vta_alu(gemm: torch.Tensor, stack: torch.Tensor, table: AluTable, *,
                          f"{batch} x {n} elements, got {gemm.dtype} "
                          f"{tuple(gemm.shape)}")
     _rows(stack, "stack")
+    _rows(acc_image, "acc_image")
+    if acc_image.shape[0] != 1:
+        raise ValueError(f"acc_image must be one image, got "
+                         f"{tuple(acc_image.shape)}")
     stride = stack.stride(0) if batch > 1 else stack.shape[1]
-    if acc_images is None:
-        acc_images, acc_stride = stack, stride
-    else:
-        _rows(acc_images, "acc_images")
-        if acc_images.device != dev or acc_images.shape[0] != 1:
-            raise ValueError(f"acc_images must be one image on {dev}, got "
-                             f"{tuple(acc_images.shape)} on "
-                             f"{acc_images.device}")
-        acc_stride = 0
-    acc_off = _offset(acc, 4 * n, acc_images.shape[1], "ACC")
+    acc_off = _offset(acc, 4 * n, acc_image.shape[1], "ACC")
     res_off = _offset(res, 4 * n, stack.shape[1], "RES")
     out_off = _offset(out, n, stack.shape[1], "OUT")
-    for other in (acc if acc_images is stack else None, res):
+    # the ACC image may be a row of the stack (a simulator's), which the
+    # launch writes OUT into
+    for other in (acc, res):
         if other is not None and (other[0] < out_off + n
                                   and out_off < other[0] + other[1]):
             raise ValueError(f"OUT {out} overlaps a region it is computed "
                              f"from, {other}")
     aligned = (gemm.data_ptr() % 16 == 0 and stack.data_ptr() % 16 == 0
-               and acc_images.data_ptr() % 16 == 0
-               and stride % 16 == 0 and acc_stride % 16 == 0
+               and acc_image.data_ptr() % 16 == 0 and stride % 16 == 0
                and out_off % 4 == 0
                and all(off % 16 == 0 for off in (acc_off, res_off)
                        if off >= 0))
     p = plan(table, batch, alpha * beta * rh, bs, aligned)
     fn = KERNEL.launcher()
     args = (gemm.data_ptr(), stack.data_ptr(), stride,
-            acc_images.data_ptr(), acc_stride, acc_off, res_off,
+            acc_image.data_ptr(), acc_off, res_off,
             out_off, table.words.data_ptr(), table.n_ops, table.lead,
             table.tail, batch, alpha, beta, rh, bs, int(saturate),
             MODES.index(p.mode), p.vec, p.smem,

@@ -41,9 +41,9 @@ Design points (the reference's engine, with ``cuda`` in the place of
   across workers by an engine lock and pinned to the batched backend (the
   guard stack's typed refusal otherwise).
 * **Compile-once under traffic** — the warm-up at ``start()`` serves one
-  probe image before any worker thread exists, so the device image, the
-  per-layer ``StackForm`` and plan caches and the kernel build are filled
-  single-threaded.  A ladder rung's first batch still pays for its
+  probe image before any worker thread exists, so the device cache (the
+  image and its layers' ``LayerConsts``), the plan caches and the kernel
+  build are filled single-threaded.  A ladder rung's first batch still pays for its
   ``vta_gemm.plan`` entries and the allocator's growth.
 """
 

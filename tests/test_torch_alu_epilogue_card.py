@@ -7,15 +7,16 @@ program of ``torch_alu_cases``, full-range int32 inputs, both commits,
 batches of 1 and 4,096 images of 16 and of 18 vectors; images 16-byte
 aligned and not (the kernel's 4-lane and 1-lane loads); and images too
 large for shared memory (the pair and indexed programs then work in the
-GEMM's result).  The ACC preload read from one image at row stride 0
-(``acc_images``), as ``serve`` reads it from the compiled image: over the
-same programs and over LeNet-5's pooled convs with their compiled image.
+GEMM's result).  The ACC preload is read from one image (``acc_image``),
+as ``serve`` reads it from the compiled image: the stack's first row, or
+an image of its own whose ACC differs from every row's, over the same
+programs, and over LeNet-5's pooled convs with their compiled image.
 Then served networks: LeNet-5, resnet8, the CIFAR CNN and resnet_tiny,
 ``serve`` on the card bit-equal to ``serve`` on the CPU with one
 ``vta_alu`` launch an unfused layer; under the profiler every device
 operation of an unfused layer's epilogue is the kernel (no int64 pass),
 its encode launches nothing, the stack is made without a device operation
-and every layer's decode reads its constants from the image.
+and every layer's decode copies INP alone.
 
 Every test here is marked ``cuda``: it decides inside the test whether a
 CUDA card is present and skips on a host without one.  The module imports
@@ -77,13 +78,11 @@ def _case(dev, case: int, blocks, batch: int, aligned: bool, seed: int):
             torch.from_numpy(stack).to(dev))
 
 
-def _plain(p, gemm, stack, saturate: bool, acc_images=None
-           ) -> torch.Tensor:
-    """The plain epilogue's stack; ACC from ``acc_images`` (one image,
-    expanded over the batch) where given."""
+def _plain(p, gemm, stack, saturate: bool, acc_image) -> torch.Tensor:
+    """The plain epilogue's stack; ACC from ``acc_image`` (one image,
+    expanded over the batch)."""
     want = stack.clone()
-    rows = stack if acc_images is None else acc_images
-    x = cb._decode_acc32(rows, p, p.acc).expand(stack.shape[0], -1, -1)
+    x = cb._decode_acc32(acc_image, p, p.acc).expand(stack.shape[0], -1, -1)
     res = cb._decode_acc32(stack, p, p.res) if p.res else None
     out = cb.plain_alu_epilogue(gemm, x, res, p,
                                 cb.lower_alu(p.alu_ops, stack.device),
@@ -92,15 +91,14 @@ def _plain(p, gemm, stack, saturate: bool, acc_images=None
     return want
 
 
-def _kernel(p, gemm, stack, saturate: bool, acc_images=None
-            ) -> torch.Tensor:
+def _kernel(p, gemm, stack, saturate: bool, acc_image) -> torch.Tensor:
     got = stack.clone()
     table = cb.lower_alu_table(p.alu_ops, p.alpha * p.beta * p.row_height,
                                stack.device)
     ops.vta_alu(gemm.clone(), got, table,
                 blocks=(p.alpha, p.beta, p.row_height, p.block_size),
                 acc=p.acc, res=p.res, out=p.out, saturate=saturate,
-                acc_images=acc_images)
+                acc_image=acc_image)
     torch.cuda.synchronize()
     return got
 
@@ -125,8 +123,8 @@ def test_kernel_equals_plain(case, blocks, batch, saturate):
     dev = _card()
     p, gemm, stack = _case(dev, case, BLOCKS[blocks], batch, True,
                            4100 + case)
-    _assert_same(_kernel(p, gemm, stack, saturate),
-                 _plain(p, gemm, stack, saturate), p)
+    _assert_same(_kernel(p, gemm, stack, saturate, stack[:1]),
+                 _plain(p, gemm, stack, saturate, stack[:1]), p)
 
 
 @pytest.mark.cuda
@@ -137,8 +135,8 @@ def test_kernel_equals_plain_unaligned(case):
     p, gemm, stack = _case(dev, case, BLOCKS["18_vectors"], 33, False,
                            4200 + case)
     for saturate in (False, True):
-        _assert_same(_kernel(p, gemm, stack, saturate),
-                     _plain(p, gemm, stack, saturate), p)
+        _assert_same(_kernel(p, gemm, stack, saturate, stack[:1]),
+                     _plain(p, gemm, stack, saturate, stack[:1]), p)
 
 
 @pytest.mark.cuda
@@ -149,8 +147,8 @@ def test_kernel_equals_plain_beyond_shared_memory(case):
     p, gemm, stack = _case(dev, case, BLOCKS["4096_vectors"], 6, True,
                            4300 + case)
     for saturate in (False, True):
-        _assert_same(_kernel(p, gemm, stack, saturate),
-                     _plain(p, gemm, stack, saturate), p)
+        _assert_same(_kernel(p, gemm, stack, saturate, stack[:1]),
+                     _plain(p, gemm, stack, saturate, stack[:1]), p)
 
 
 # every program at 18 vectors; the structural ones past shared memory too
@@ -162,8 +160,8 @@ ONE_IMAGE = ([(i, "18_vectors") for i in range(len(CASES))]
 @pytest.mark.parametrize("case, blocks", ONE_IMAGE,
                          ids=[f"{CASES[i][0]}-{b}" for i, b in ONE_IMAGE])
 def test_kernel_reads_acc_from_one_image(case, blocks):
-    """ACC from an image of its own at row stride 0, not the stack's:
-    the stack's own ACC bytes are random and differ from it."""
+    """ACC from an image of its own, not the stack's: the stack's own
+    ACC bytes are random and differ from it."""
     dev = _card()
     p, gemm, stack = _case(dev, case, BLOCKS[blocks], 33, True, 4600 + case)
     image = _case(dev, case, BLOCKS[blocks], 1, True, 4700 + case)[2]
@@ -175,8 +173,8 @@ def test_kernel_reads_acc_from_one_image(case, blocks):
 @pytest.mark.cuda
 def test_pooled_convs_read_acc_from_the_compiled_image():
     """LeNet-5's pooled convs (one block an image in shared memory) with
-    their bias preload read from the compiled image on the card, at row
-    stride 0, over 257 images."""
+    their bias preload read from the compiled image on the card, over 257
+    images."""
     dev = _card()
     net, _ = _network("lenet5")
     image = net._device_image(dev).reshape(1, -1)
@@ -201,7 +199,7 @@ def test_kernel_refuses_cpu_tensors_and_overlaps():
     p, gemm, stack = _case(dev, 0, BLOCKS["16_vectors"], 2, True, 4400)
     table = cb.lower_alu_table(p.alu_ops, 16, dev)
     kw = dict(blocks=(2, 1, 8, 16), acc=p.acc, res=p.res, out=p.out,
-              saturate=False)
+              saturate=False, acc_image=stack[:1])
     with pytest.raises(ValueError, match="CUDA"):
         ops.vta_alu(gemm.cpu(), stack.cpu(), table, **kw)
     with pytest.raises(ValueError, match="overlaps"):
@@ -226,9 +224,7 @@ def _network(model: str):
 
 
 def _unfused(net, dev) -> list:
-    return [k for k, (layer, form) in enumerate(
-        zip(net.layers, net.stack_forms(dev)))
-        if not (cb.plan_cuda(layer.program).fused and form.fuse_bias)]
+    return [k for k, c in enumerate(net.layer_consts(dev)) if not c.fused]
 
 
 @pytest.mark.cuda
@@ -287,7 +283,7 @@ def test_epilogue_is_one_kernel_and_encode_is_empty(model, tmp_path):
             if o["span"] == "repro_torch.serve.stack"] == []
     decodes = [s["attrs"] for s in tracing.snapshot()["spans"]
                if s["name"] == "repro_torch.layer.decode"]
-    assert decodes == [{"consts": "image", "bytes": len(images) * cb.plan_cuda(
+    assert decodes == [{"bytes": len(images) * cb.plan_cuda(
         l.program).inp[1]} for l in net.layers]
 
 
@@ -316,7 +312,8 @@ def test_shared_memory_launches_from_two_threads():
                 ops.vta_alu(gemm.clone(), out, table,
                             blocks=(p.alpha, p.beta, p.row_height,
                                     p.block_size),
-                            acc=p.acc, res=p.res, out=p.out, saturate=False)
+                            acc=p.acc, res=p.res, out=p.out, saturate=False,
+                            acc_image=stack[:1])
             torch.cuda.synchronize()
             got[k] = out
         except Exception as exc:                    # noqa: BLE001
@@ -329,7 +326,7 @@ def test_shared_memory_launches_from_two_threads():
         t.join()
     assert errors == []
     for (p, gemm, stack), out in zip(runs, got):
-        _assert_same(out, _plain(p, gemm, stack, False), p)
+        _assert_same(out, _plain(p, gemm, stack, False, stack[:1]), p)
 
 
 @pytest.mark.cuda

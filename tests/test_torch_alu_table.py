@@ -259,7 +259,8 @@ def test_lowering_refuses_what_the_kernel_cannot_run():
         vta_alu.vta_alu(torch.zeros(256, dtype=torch.int32),
                         torch.zeros(1, 2048, dtype=torch.uint8), res,
                         blocks=(2, 1, 8, 16), acc=None, res=None,
-                        out=(0, 256), saturate=False)
+                        out=(0, 256), saturate=False,
+                        acc_image=torch.zeros(1, 2048, dtype=torch.uint8))
 
 
 def test_launch_plan_follows_the_table():

@@ -177,10 +177,10 @@ def test_no_pair_lattice_is_sequential(nets, model):
 
 @pytest.mark.parametrize("model", MODELS + ["lenet5"])
 def test_cached_form_equals_per_call_checks(nets, model, monkeypatch):
-    """The fused-path decision cached on the program equals what the
-    per-call checks read off the served stack, the compiled image in every
-    row with the staged INP and RES, on every layer, and serving passes it
-    and the layer's constants for every layer."""
+    """Each layer's constants cached on the program equal what
+    ``layer_consts`` reads off the served stack, the compiled image in
+    every row with the staged INP and RES, on every layer; serving passes
+    them for every layer; and the cached fusion decision is the plan's."""
     if model == "lenet5":
         from repro_torch.lenet5_e2e import compile_lenet5, request_images
         tn = compile_lenet5()[1]
@@ -191,30 +191,32 @@ def test_cached_form_equals_per_call_checks(nets, model, monkeypatch):
     real = tnc._execute_stack
     seen = []
 
-    def spy(prog, stack, *, saturate, form=None, consts=None):
-        assert form is not None and consts is not None
-        # the served stack holds only what varies by image: read the form
-        # off the image in every row, with this batch's INP and RES
+    def spy(prog, stack, consts, *, saturate):
+        # the served stack holds only what varies by image: read the
+        # constants off the image in every row, with this batch's INP and
+        # RES
         full = consts.image.expand(stack.shape[0], -1).clone()
         for region in ("inp", "res"):
             if region in prog.regions:
                 r = prog.regions[region]
                 lo = r.phys_addr - prog.allocator.offset
                 full[:, lo:lo + r.nbytes] = stack[:, lo:lo + r.nbytes]
-        assert form == cuda_backend.stack_form(prog, full), prog.name
+        want = cuda_backend.layer_consts(prog, full)
+        assert consts.fused == want.fused, prog.name
+        assert torch.equal(consts.w, want.w), prog.name
+        assert (consts.bias is None) == (want.bias is None), prog.name
+        if want.bias is not None:
+            assert torch.equal(consts.bias, want.bias), prog.name
         seen.append(prog.name)
-        return real(prog, stack, saturate=saturate, form=form,
-                    consts=consts)
+        return real(prog, stack, consts, saturate=saturate)
 
     monkeypatch.setattr(tnc, "_execute_stack", spy)
     tn.serve(images, device="cpu")
     assert seen == [l.program.name for l in tn.layers]
-    forms = tn.stack_forms("cpu")
-    assert tn.stack_forms("cpu") is forms           # read once, cached
-    assert [f.fuse_bias for f in forms] == [
-        cuda_backend.plan_cuda(l.program).fused
-        or cuda_backend.plan_cuda(l.program).acc is None
-        for l in tn.layers]
+    consts = tn.layer_consts("cpu")
+    assert tn.layer_consts("cpu") is consts         # read once, cached
+    assert [c.fused for c in consts] == [
+        cuda_backend.plan_cuda(l.program).fused for l in tn.layers]
 
 
 _CARRIERS = {"resnet8": (t8.resnet8_weights_from_arrays, "fc_b", "fc_w"),

@@ -3,8 +3,7 @@ tiled 3×3/s2 max pool, a join and the join + GAP tree over 9 and 49
 positions, held to ``cuda_backend.plain_alu_epilogue`` (run on the card
 too) by exact equality of the whole DRAM stack it leaves, with full-range
 int32 inputs and both commits; the published stem's pool with its bias
-preload read from its compiled image at row stride 0, as ``serve`` reads
-it; then the small ResNet-50 served on the card equal to the CPU with one
+preload read from its compiled image, as ``serve`` reads it; then the small ResNet-50 served on the card equal to the CPU with one
 ``vta_alu`` launch an unfused layer.
 
 Every test here is marked ``cuda`` and skips on a host without a card:
@@ -61,8 +60,8 @@ def _stack_case(prog, batch: int, dev, seed: int):
 def _check(prog, batch, dev, seed):
     p, gemm, stack = _stack_case(prog, batch, dev, seed)
     for saturate in (False, True):
-        _assert_same(_kernel(p, gemm, stack, saturate),
-                     _plain(p, gemm, stack, saturate), p)
+        _assert_same(_kernel(p, gemm, stack, saturate, stack[:1]),
+                     _plain(p, gemm, stack, saturate, stack[:1]), p)
 
 
 @pytest.mark.cuda

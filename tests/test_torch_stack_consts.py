@@ -3,7 +3,7 @@ every row of the DRAM stack, on the CPU.
 
 ``NetworkProgram.serve(backend="cuda")`` allocates its stack and reads the
 kernel's weights, the fused bias and the ACC preload from the one compiled
-image (``StackConsts``, built once per image and device).  Here, over
+image (``LayerConsts``, built once per image and device).  Here, over
 resnet8, LeNet-5 and the small ResNet-50, at batches of 1 and 3: a stack
 filled with a poison byte before the chain still serves bit for bit what
 the batched interpreter and the model's integer reference give (nothing
@@ -130,23 +130,23 @@ def test_constants_are_built_once_and_rebuilt_with_a_segment(nets, model,
                                                              monkeypatch):
     net, images, _ = nets[model]
     built = []
-    real = tnc.stack_consts
-    monkeypatch.setattr(tnc, "stack_consts",
+    real = tnc.layer_consts
+    monkeypatch.setattr(tnc, "layer_consts",
                         lambda *a: built.append(a[0].name) or real(*a))
-    net._image_reads.clear()
-    consts = net._image_read("cpu")[1]
-    assert net.stack_forms("cpu") is net.stack_forms("cpu")
+    net._device_images.clear()
+    consts = net.layer_consts("cpu")
+    assert net.layer_consts("cpu") is consts
     for _ in range(2):
         net.serve(images, device="cpu")
-    assert net._image_read("cpu")[1] is consts
+    assert net.layer_consts("cpu") is consts
     assert built == [l.program.name for l in net.layers]
     image = net._device_image(torch.device("cpu")).reshape(1, -1)
-    for layer, c, form in zip(net.layers, consts, net.stack_forms("cpu")):
+    for layer, c in zip(net.layers, consts):
         p = cb.plan_cuda(layer.program)
         assert c.image.data_ptr() == image.data_ptr()
         assert torch.equal(c.w, cb._decode_wgt(image, p)[0])
         assert c.w.is_contiguous()
-        if p.acc and p.fused and form.fuse_bias:
+        if p.acc and c.fused:
             assert torch.equal(c.bias, cb._decode_acc32(image, p, p.acc)[0, 0])
         else:
             assert c.bias is None
@@ -163,7 +163,7 @@ def test_constants_are_built_once_and_rebuilt_with_a_segment(nets, model,
         want, _ = net.serve(images, backend="batched", device="cpu")
         got, _ = net.serve(images, backend="cuda", device="cpu")
         np.testing.assert_array_equal(got, want)
-        rebuilt = net._image_read("cpu")[1]
+        rebuilt = net.layer_consts("cpu")
         assert rebuilt is not consts
         assert len(built) == 2 * len(net.layers)
         k = net.layers.index(layer)
@@ -178,12 +178,11 @@ def test_constants_are_built_once_and_rebuilt_with_a_segment(nets, model,
 def _picked(net):
     """The first layer that fuses a bias, the first that runs the TensorAlu
     epilogue, and the first that joins a residual."""
-    forms = net.stack_forms("cpu")
     plans = [cb.plan_cuda(l.program) for l in net.layers]
     picks = {}
-    for layer, p, form in zip(net.layers, plans, forms):
-        kind = ("res" if p.res else "fused" if p.fused and form.fuse_bias
-                and p.acc else "epilogue" if not p.fused else None)
+    for layer, p, c in zip(net.layers, plans, net.layer_consts("cpu")):
+        kind = ("res" if p.res else "fused" if c.fused and p.acc
+                else "epilogue" if not p.fused else None)
         if kind is not None:
             picks.setdefault(kind, layer.program)
     return list(picks.values())
