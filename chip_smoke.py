@@ -40,16 +40,18 @@ In order it:
    port's compiler and serves 64 seeded requests on the card — four
    batches of 8 and one of 32 — through ``NetworkProgram.serve``; every
    answer must be bit-exact against ``reference_forward_int8`` and the
-   kernel launch counter must rise by exactly 5 per served batch; then
+   kernel launch counter must rise by exactly 5 per served batch, and
+   ``vta_stage``'s by 5 (one gather a layer); then
    ``NetworkProgram.verify(backend="cuda")`` (the compile-time input's
-   chain against the compiler's reference, 5 launches);
+   chain against the compiler's reference, 5 launches of each);
 4b. compiles resnet8 and resnet_tiny (through the graph front end) and the
    CIFAR CNN with the port's compiler at full width (random seeded
    weights, calibrated shifts) and serves each on the card in a batch of 8
    and one of 32 through ``NetworkProgram.serve``, the launch counters set
    to 0 just before and read just after: every answer bit-exact against
    the model's ``reference_forward_int8``, counted N/N, and the kernel
-   launch counter rising by exactly the layer count per batch (11, 7, 5);
+   launch counter rising by exactly the layer count per batch (11, 7, 5)
+   and ``vta_stage``'s by the layers' and joins' gathers (14, 9, 5);
 5. prints ``vta_gemm.plan``'s geometry and times the kernel, its plain
    version and ``torch._int_mm`` (a yardstick only; the port never calls
    it) at LeNet-5's shapes and at the GEMM shapes of resnet8, the CIFAR
@@ -79,7 +81,8 @@ In order it:
    just before and reads them just after: every answer bit-exact against
    a direct serve and the integer reference (N/N), ``metrics.audit()``
    empty, and ``vta_gemm``'s counter equal to the layer count (5, 11)
-   times the batches the run executed.  Then ``calibrate_service_model``
+   and ``vta_stage``'s to the gathers (5, 14) times the batches the run
+   executed.  Then ``calibrate_service_model``
    on the card at batch 32 and ``simulate`` of the same trace with it,
    its p50/p99 beside the engine's;
 7. holds ``flash_attention`` against its plain version
@@ -368,8 +371,19 @@ In order it:
    with each layer's launch (mode, lanes a thread, blocks, shared memory)
    and the totals a call.
 
+25. holds the operand gather kernel ``vta_stage`` (built in step 2) against
+   its plain version (``ref.vta_stage_ref``, on the card) at the main
+   path's shapes, exact equality: every layer's gathers (the operand, and
+   RES on a join) of LeNet-5 at 32,768 images, resnet8 at 8,192 and the
+   published ResNet-50 at 256, from seeded stack rows (the input image for
+   the first layer); then times each (mean of 10 launches between CUDA
+   events) beside the plain version (mean of 2) and its bytes bound (every
+   destination byte written once and every source byte the table reads
+   read once, at 3.35 TB/s), with each launch's tile and image groups, the
+   share of chunks one contiguous load serves, and the totals a call.
+
 It then prints one JSON line ``{"kernels": [...]}`` (every kernel) before
-the last line.  ``python3 chip_smoke.py --only 3,18,19,20,21,22,23,24``
+the last line.  ``python3 chip_smoke.py --only 3,18,19,20,21,22,23,24,25``
 builds and runs any of those phases alone (a development run: phase 18
 then computes its own unsharded baseline, and no kernel line is
 printed).  Any failure raises and exits non-zero.  The last line is
@@ -808,42 +822,58 @@ def unfused_layers(net, dev) -> int:
     return sum(not c.fused for c in net.layer_consts(dev))
 
 
+def stage_gathers(net) -> int:
+    """The ``vta_stage`` launches of one served batch of ``net``: one
+    gather of each layer's operand and one more of each join's RES."""
+    return len(net.layers) + sum(r is not None for r in net._res_sources())
+
+
 def serve_cnns(ops, cnns, dev) -> dict:
     """Phase 4b: each CNN of ``compile_cnns`` served on the card through
     ``NetworkProgram.serve`` in batches of ``CNN_BATCHES``, the launch
     counters set to 0 just before and read just after.  Every answer must
     be bit-exact against the model's integer reference, ``vta_gemm``'s
-    counter must rise by exactly the layer count per batch and
-    ``vta_alu``'s by the unfused layers' (no attention launch).  Returns
-    the record, with the total launches of each kernel."""
+    counter must rise by exactly the layer count per batch, ``vta_alu``'s
+    by the unfused layers' and ``vta_stage``'s by the layers' and joins'
+    gathers (no attention launch).  Returns the record, with the total
+    launches of each kernel."""
     for _, net, images, _, _ in cnns:
         net.serve(images[:2], device=dev)       # upload the image, warm up
     torch.cuda.synchronize()
     ops.reset_launches()
     served = []
     for name, net, images, _, layers in cnns:
-        per_batch, alu_per_batch, outs, lo = [], [], [], 0
+        per_batch, alu_per_batch, stage_per_batch, outs, lo = \
+            [], [], [], [], 0
         for bsz in CNN_BATCHES:
-            before, alu_before = ops.launches, ops.alu_launches
+            before, alu_before, stage_before = (
+                ops.launches, ops.alu_launches, ops.stage_launches)
             out, _ = net.serve(images[lo:lo + bsz], device=dev)
             per_batch.append(ops.launches - before)
             alu_per_batch.append(ops.alu_launches - alu_before)
+            stage_per_batch.append(ops.stage_launches - stage_before)
             outs.append(out)
             lo += bsz
-        served.append((name, per_batch, alu_per_batch, np.concatenate(outs)))
+        served.append((name, per_batch, alu_per_batch, stage_per_batch,
+                       np.concatenate(outs)))
     launches, attn = ops.launches, ops.attention_launches
     record = {"launches": launches, "alu_launches": ops.alu_launches,
-              "models": {}}
+              "stage_launches": ops.stage_launches, "models": {}}
     for (name, net, images, reference, layers), \
-            (_, per_batch, alu_per_batch, logits) in zip(cnns, served):
+            (_, per_batch, alu_per_batch, stage_per_batch, logits) in \
+            zip(cnns, served):
         unfused = unfused_layers(net, dev)
+        gathers = stage_gathers(net)
         if (per_batch != [layers] * len(CNN_BATCHES)
-                or alu_per_batch != [unfused] * len(CNN_BATCHES) or attn):
+                or alu_per_batch != [unfused] * len(CNN_BATCHES)
+                or stage_per_batch != [gathers] * len(CNN_BATCHES) or attn):
             raise AssertionError(f"{name}: kernel launches per batch "
                                  f"{per_batch}, expected {layers} each; "
                                  f"vta_alu {alu_per_batch}, expected "
-                                 f"{unfused} each; attention launches "
-                                 f"{attn}, expected 0")
+                                 f"{unfused} each; vta_stage "
+                                 f"{stage_per_batch}, expected {gathers} "
+                                 f"each; attention launches {attn}, "
+                                 f"expected 0")
         for r, img in enumerate(images):
             if not np.array_equal(logits[r], reference(img)):
                 raise AssertionError(f"{name} request {r}: logits differ "
@@ -854,6 +884,7 @@ def serve_cnns(ops, cnns, dev) -> dict:
             "layers": layers, "batches": list(CNN_BATCHES),
             "launches_per_batch": per_batch,
             "alu_launches_per_batch": alu_per_batch,
+            "stage_launches_per_batch": stage_per_batch,
             "bit_exact": f"{len(images)}/{len(images)}",
             "chunks_per_layer": net.chunks_per_layer(),
             "input_sources": net.input_sources,
@@ -861,7 +892,8 @@ def serve_cnns(ops, cnns, dev) -> dict:
         print(f"{name}: {len(images)}/{len(images)} requests bit-exact "
               f"(batches {list(CNN_BATCHES)}); kernel launches {per_batch} "
               f"per batch ({layers} layers), vta_alu {alu_per_batch} "
-              f"({unfused} unfused); chunks per layer "
+              f"({unfused} unfused), vta_stage {stage_per_batch} ({gathers} "
+              f"gathers); chunks per layer "
               f"{net.chunks_per_layer()}")
     return record
 
@@ -959,8 +991,8 @@ def _engine_run(ops, vta, net, images, dev, workers, layers, unfused,
     and read just after: ``serve_all`` of ``images`` (saturation) or, with
     ``arrivals``, their seeded trace replayed on the wall clock.  Fails
     unless the audit is clean, no request failed and ``vta_gemm`` launched
-    exactly ``layers`` times and ``vta_alu`` ``unfused`` times per executed
-    batch."""
+    exactly ``layers`` times, ``vta_alu`` ``unfused`` times and
+    ``vta_stage`` :func:`stage_gathers` times per executed batch."""
     engine = vta.VTAServingEngine(
         net, policy=vta.BatchPolicy(**ENGINE_POLICY),
         backends=("cuda",) * workers, device=dev, slo_s=ENGINE_SLO_S)
@@ -982,22 +1014,26 @@ def _engine_run(ops, vta, net, images, dev, workers, layers, unfused,
     finally:
         engine.shutdown()
     launches, attn = ops.launches, ops.attention_launches
-    alu_launches = ops.alu_launches
+    alu_launches, stage_launches = ops.alu_launches, ops.stage_launches
+    gathers = stage_gathers(net)
     batches = _batches(tickets)
     audit = engine.metrics.audit()
     summary = engine.metrics.summary()
     if audit or summary["failed"] or summary["completed"] != len(images):
         raise AssertionError(f"engine run: audit {audit}, summary {summary}")
     if (launches != layers * len(batches)
-            or alu_launches != unfused * len(batches) or attn):
-        raise AssertionError(f"engine run: {launches} kernel launches and "
-                             f"{alu_launches} vta_alu for {len(batches)} "
-                             f"batches of {layers} layers ({unfused} "
-                             f"unfused); attention launches {attn}")
+            or alu_launches != unfused * len(batches)
+            or stage_launches != gathers * len(batches) or attn):
+        raise AssertionError(f"engine run: {launches} kernel launches, "
+                             f"{alu_launches} vta_alu and {stage_launches} "
+                             f"vta_stage for {len(batches)} batches of "
+                             f"{layers} layers ({unfused} unfused, "
+                             f"{gathers} gathers); attention launches "
+                             f"{attn}")
     return outs, {
         "workers": workers, "wall_s": wall,
         "img_per_s": len(images) / wall, "launches": launches,
-        "alu_launches": alu_launches,
+        "alu_launches": alu_launches, "stage_launches": stage_launches,
         "batches": len(batches),
         "mean_formed_batch": sum(b for b, _ in batches) / len(batches),
         "mean_padded_batch": sum(p for _, p in batches) / len(batches),
@@ -1063,7 +1099,9 @@ def engine_phase(ops, name, net, layers, reference, direct_img_s, dev):
                   f"{s['slo_violations']}; {len(images)}/{len(images)} "
                   f"bit-exact; audit clean; {run['launches']} launches = "
                   f"{layers} x {run['batches']}, vta_alu "
-                  f"{run['alu_launches']} = {unfused} x {run['batches']}")
+                  f"{run['alu_launches']} = {unfused} x {run['batches']}, "
+                  f"vta_stage {run['stage_launches']} = "
+                  f"{stage_gathers(net)} x {run['batches']}")
     model = vta.calibrate_service_model(net, batch=32, device=dev)
     sims = {}
     for workers in (1, 2):
@@ -1088,7 +1126,8 @@ def engine_phase(ops, name, net, layers, reference, direct_img_s, dev):
                               "per_image_s": model.per_image_s},
                simulated=sims,
                launches=sum(r["launches"] for r in runs),
-               alu_launches=sum(r["alu_launches"] for r in runs))
+               alu_launches=sum(r["alu_launches"] for r in runs),
+               stage_launches=sum(r["stage_launches"] for r in runs))
     return rec
 
 
@@ -5738,6 +5777,108 @@ def alu_phase(ops, dev) -> dict:
                       if "ptxas" in line or "spill" in line]}
 
 
+STAGE_BATCHES = {"lenet5": 32768, "resnet8": 8192, "resnet50": 256}
+
+
+def stage_phase(ops, dev) -> dict:
+    """Phase 25: ``vta_stage`` against its plain version and its bound at
+    every layer's gathers of the three offline cells, at their batches."""
+    from repro_torch.kernels import ref, vta_stage
+    from repro_torch.lenet5_e2e import compile_lenet5
+    from repro_torch.models import resnet50, resnet8
+    from repro_torch.device import device_sm_count
+    shape = resnet50.ResNet50Shape()
+    builds = {
+        "lenet5": lambda: compile_lenet5()[1],
+        "resnet8": lambda: resnet8.compile_resnet8()[0],
+        "resnet50": lambda: resnet50.compile_resnet50(
+            resnet50.resnet50_random_weights(shape, seed=25),
+            [resnet50.synthetic_image(s, shape) for s in range(1, 3)],
+            resnet50.synthetic_image(0, shape), shape=shape)[0]}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    rows, totals = [], {}
+    for model, build in builds.items():
+        net = build()
+        batch = STAGE_BATCHES[model]
+        stages = net.stage_tables(dev)
+        width = -(-net.allocator.image_size() // 16) * 16
+        stack = torch.empty((batch, width), dtype=torch.uint8, device=dev)
+        for lo in range(0, batch, 64):
+            stack[lo:lo + 64].random_(0, 256, generator=gen)
+        n_in = int(np.prod(net.input_tensor.shape[1:]))
+        inputs = torch.randint(0, 256, (batch, n_in), dtype=torch.uint8,
+                               device=dev, generator=gen)
+        t = totals.setdefault(model, {"gathers": 0, "kernel_ms": 0.0,
+                                      "plain_ms": 0.0, "bound_ms": 0.0,
+                                      "bytes": 0})
+        for k, (layer, stage) in enumerate(zip(net.layers, stages)):
+            gathers = [("inp", net._sources()[k], stage.inp)]
+            if stage.res is not None:
+                gathers.append(("res", net._res_sources()[k], stage.res))
+            for what, src_k, table in gathers:
+                src = inputs if src_k < 0 else stack
+                dtype = torch.int8 if table.elem == 1 else torch.int32
+                out = torch.empty((batch, table.index.numel()), dtype=dtype,
+                                  device=dev)
+                want = torch.empty_like(out)
+                ops.vta_stage(src, table, out)
+                ref.vta_stage_ref(src, table.index, want)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise AssertionError(
+                        f"vta_stage {model} {layer.spec.name} {what}: "
+                        f"{int((out != want).sum())} elements differ from "
+                        f"the plain version")
+                del want
+                kernel_ms = cuda_ms(lambda: ops.vta_stage(src, table, out),
+                                    iters=10, warmup=2)
+                plain_ms = cuda_ms(lambda: ref.vta_stage_ref(
+                    src, table.index, out), iters=2, warmup=1)
+                index = table.index
+                read = int(torch.unique(index[index >= 0]).numel())
+                nbytes = batch * (out.shape[1] * out.element_size() + read)
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                launch = vta_stage.plan(table, batch, device_sm_count(dev))
+                row = {"model": model, "layer": layer.spec.name, "what": what,
+                       "batch": batch, "entries": index.numel(),
+                       "source_bytes": read,
+                       "contiguous": table.contiguous / table.chunks,
+                       "launch": dataclasses.asdict(launch),
+                       "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bytes": nbytes,
+                       "bound_share": bound_ms / kernel_ms}
+                rows.append(row)
+                t["gathers"] += 1
+                t["bytes"] += nbytes
+                for key in ("kernel_ms", "plain_ms", "bound_ms"):
+                    t[key] += row[key]
+                print(f"vta_stage {model} {layer.spec.name} {what} x{batch}: "
+                      f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                      f"bound {bound_ms:.4f} ms ({row['bound_share']:.1%}), "
+                      f"contiguous {row['contiguous']:.2f}, tile "
+                      f"{launch.tile_rows}x{launch.tile_cols}, "
+                      f"{launch.tiles} tiles x {launch.groups} groups of "
+                      f"{launch.per_block}")
+                del out
+        del stack, inputs, net
+        torch.cuda.empty_cache()
+        t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+        print(f"vta_stage {model}: a call's {t['gathers']} gathers "
+              f"{t['kernel_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_share']:.1%})")
+    return {"name": "vta_stage", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/vta_stage.cu",
+            "replaces": "none (the reference stages on the host in numpy: "
+                        "src/repro/core/network_compiler.py "
+                        "_stage_layer_input_batch, _stage_residual_batch)",
+            "per": "totals: one call of each cell, each gather timed alone",
+            "totals": totals, "layers": rows,
+            "ptxas": [line.strip() for line in
+                      vta_stage.KERNEL.build_log.splitlines()
+                      if "ptxas" in line or "spill" in line]}
+
+
 def find_cuobjdump():
     """``cuobjdump`` from the toolkit, else the copy in Triton's package."""
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
@@ -5813,7 +5954,7 @@ def f32_ptxas(log: str) -> list:
     return rows
 
 
-ONLY_PHASES = (3, 18, 19, 20, 21, 22, 23, 24)
+ONLY_PHASES = (3, 18, 19, 20, 21, 22, 23, 24, 25)
 
 
 def only_phases(argv) -> set:
@@ -5842,6 +5983,7 @@ def main() -> int:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import vta_alu as alu_kernel
     from repro_torch.kernels import vta_gemm as kernel
+    from repro_torch.kernels import vta_stage as stage_kernel
     from repro_torch.lenet5_e2e import compile_lenet5, request_images
     from repro_torch.models.lenet import reference_forward_int8
 
@@ -5865,7 +6007,8 @@ def main() -> int:
         so = k.build()
         return so, time.perf_counter() - t0
 
-    kernels = (kernel.KERNEL, *attn_kernel.KERNELS, alu_kernel.KERNEL)
+    kernels = (kernel.KERNEL, *attn_kernel.KERNELS, alu_kernel.KERNEL,
+               stage_kernel.KERNEL)
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
         builds = list(pool.map(timed_build, kernels))
     record["build_s"], record["ptxas"] = {}, {}
@@ -5922,6 +6065,8 @@ def main() -> int:
             record["vta_gemm_repeat"] = repeat_check(ref, dev)
         if 24 in only:
             record["vta_alu"] = alu_phase(ops, dev)
+        if 25 in only:
+            record["vta_stage"] = stage_phase(ops, dev)
         if 18 in only:
             record["mesh"] = mesh_phase(card)
         if 19 in only:
@@ -5969,25 +6114,32 @@ def main() -> int:
     unfused = unfused_layers(net, dev)
 
     ops.reset_launches()
-    per_batch, alu_per_batch, times, outs = [], [], [], []
+    per_batch, alu_per_batch, stage_per_batch, times, outs = \
+        [], [], [], [], []
     lo = 0
     for bsz in BATCH_SIZES:
-        before, alu_before = ops.launches, ops.alu_launches
+        before, alu_before, stage_before = (
+            ops.launches, ops.alu_launches, ops.stage_launches)
         t0 = time.perf_counter()
         out, _ = net.serve(images[lo:lo + bsz], device=dev)
         times.append(time.perf_counter() - t0)
         per_batch.append(ops.launches - before)
         alu_per_batch.append(ops.alu_launches - alu_before)
+        stage_per_batch.append(ops.stage_launches - stage_before)
         outs.append(out)
         lo += bsz
     launches, alu_launches = ops.launches, ops.alu_launches
+    stage_launches = ops.stage_launches
     if (per_batch != [5] * len(BATCH_SIZES) or unfused != 2
             or alu_per_batch != [2] * len(BATCH_SIZES)
+            or stage_gathers(net) != 5
+            or stage_per_batch != [5] * len(BATCH_SIZES)
             or ops.attention_launches):
         raise AssertionError(f"kernel launches per batch {per_batch}, "
                              f"expected 5 each; vta_alu {alu_per_batch}, "
                              f"expected 2 each ({unfused} unfused layers); "
-                             f"attention launches "
+                             f"vta_stage {stage_per_batch}, expected 5 "
+                             f"each; attention launches "
                              f"{ops.attention_launches}, expected 0")
     logits = np.concatenate(outs)
     for r, img in enumerate(images):
@@ -5999,7 +6151,8 @@ def main() -> int:
           f"kernel launches {launches} ({per_batch} per batch; layers "
           f"int32-out+TensorAlu {fused.count(False)}, fused int8 "
           f"{fused.count(True)}); vta_alu {alu_launches} ({alu_per_batch} "
-          f"per batch)")
+          f"per batch); vta_stage {stage_launches} ({stage_per_batch} per "
+          f"batch)")
     # the reference's check of a compiled network, on the card: the chain
     # over the compile-time input, each staged input and the output
     # against the compiler's (``NetworkProgram.verify``)
@@ -6007,14 +6160,18 @@ def main() -> int:
     verified, _ = net.verify(backend="cuda", device=dev)
     record["lenet5_verify"] = {"backend": "cuda", "launches": ops.launches,
                                "alu_launches": ops.alu_launches,
+                               "stage_launches": ops.stage_launches,
                                "output": verified.tolist()}
-    if ops.launches != len(net.layers) or ops.alu_launches != unfused:
+    if (ops.launches != len(net.layers) or ops.alu_launches != unfused
+            or ops.stage_launches != stage_gathers(net)):
         raise AssertionError(f"LeNet-5 verify: {ops.launches} launches, "
                              f"expected {len(net.layers)}; vta_alu "
-                             f"{ops.alu_launches}, expected {unfused}")
+                             f"{ops.alu_launches}, expected {unfused}; "
+                             f"vta_stage {ops.stage_launches}, expected "
+                             f"{stage_gathers(net)}")
     print(f"LeNet-5 NetworkProgram.verify(backend='cuda'): the output equals "
           f"the compiler's reference ({ops.launches} launches, vta_alu "
-          f"{ops.alu_launches})")
+          f"{ops.alu_launches}, vta_stage {ops.stage_launches})")
 
     # -- 4b. main path: resnet8, resnet_tiny, the CIFAR CNN on the card -----
     cnns = compile_cnns()
@@ -6117,6 +6274,16 @@ def main() -> int:
 
     # -- 24. the TensorAlu epilogue kernel at the cells' shapes -----------
     alu_entry = record["vta_alu"] = alu_phase(ops, dev)
+    # -- 25. the operand gather kernel at the cells' shapes ---------------
+    stage_entry = record["vta_stage"] = stage_phase(ops, dev)
+    stage_entry["launches_by_path"] = {
+        "lenet5": stage_launches,
+        "lenet5_verify": record["lenet5_verify"]["stage_launches"],
+        **{name: sum(m["stage_launches_per_batch"]) for name, m in
+           record["cnn_serve"]["models"].items()},
+        **{f"engine_{k}": e["stage_launches"]
+           for k, e in record["engine"].items()}}
+    stage_entry["launches"] = sum(stage_entry["launches_by_path"].values())
     alu_entry["launches_by_path"] = {
         "lenet5": alu_launches,
         "lenet5_verify": record["lenet5_verify"]["alu_launches"],
@@ -6426,6 +6593,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     record["kernels"].append(record.pop("vta_alu"))
+    record["kernels"].append(record.pop("vta_stage"))
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": record["kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -534,21 +534,19 @@ def layer_consts(prog, rows: torch.Tensor) -> LayerConsts:
                        fused)
 
 
-def _execute_stack(prog, stack: torch.Tensor, consts: LayerConsts, *,
-                   saturate: bool) -> SimReport:
+def _execute_stack(prog, stack: torch.Tensor, a: torch.Tensor,
+                   consts: LayerConsts, *, saturate: bool) -> SimReport:
     """Run ``prog`` over every DRAM row of ``stack``, whose WGT and ACC
-    preload are ``consts``, writing OUT bytes in place: one ``vta_gemm``
-    launch over the stacked rows and, on a layer that does not fuse, its
-    TensorAlu epilogue (on a CUDA stack one ``vta_alu`` launch, which
-    reads RES in place and ACC from ``consts.image``).  The stack's WGT
-    and ACC are not read."""
+    preload are ``consts`` and whose GEMM operands are ``a`` (the rows'
+    (Mp, Kp) int8 operands stacked, contiguous), writing OUT bytes in
+    place: one ``vta_gemm`` launch over the stacked rows and, on a layer
+    that does not fuse, its TensorAlu epilogue (on a CUDA stack one
+    ``vta_alu`` launch, which reads RES in place and ACC from
+    ``consts.image``).  The stack's INP, WGT and ACC are not read."""
     p = plan_cuda(prog)
     b = stack.shape[0]
     mp, np_ = p.padded_shape
     m = p.valid_shape[0]
-    with tracing.span("repro_torch.layer.decode", bytes=b * p.inp[1]):
-        # the launch's operand: the stacked rows
-        a = _decode_inp(stack, p).reshape(b * mp, -1).contiguous()
     with tracing.span("repro_torch.layer.gemm"):
         if consts.fused:                # the whole program inside the kernel
             out = _kernel_gemm(a, consts.w, consts.bias, relu=p.relu,
@@ -599,6 +597,15 @@ def _refuse_fault_hook(fault_hook) -> None:
             "runs on the reference package's interpreters)")
 
 
+def _execute_rows(prog, stack: torch.Tensor, saturate: bool) -> SimReport:
+    """:func:`_execute_stack` over rows that hold their own INP and share
+    WGT and ACC: the operands decoded from INP, the constants read off
+    the rows."""
+    a = _decode_inp(stack, plan_cuda(prog)).flatten(0, 1).contiguous()
+    return _execute_stack(prog, stack, a, layer_consts(prog, stack),
+                          saturate=saturate)
+
+
 class CudaSimulator:
     """Engine for one DRAM image: ``.run_program(prog)`` executes the
     compiled program on the kernel and commits OUT into ``self.dram`` (a
@@ -622,9 +629,7 @@ class CudaSimulator:
 
     def run_program(self, prog, *, fault_hook=None) -> SimReport:
         _refuse_fault_hook(fault_hook)
-        stack = self.dram.reshape(1, -1)
-        return _execute_stack(prog, stack, layer_consts(prog, stack),
-                              saturate=self.saturate)
+        return _execute_rows(prog, self.dram.reshape(1, -1), self.saturate)
 
     def run(self, instructions, *, plan=None, fault_hook=None) -> SimReport:
         raise CompileError(
@@ -650,13 +655,10 @@ class BatchCudaSimulator(CudaSimulator):
         p, stack = plan_cuda(prog), self.dram
         if all(bool((stack[:, lo:lo + n] == stack[:1, lo:lo + n]).all())
                for lo, n in filter(None, (p.wgt, p.acc))):
-            return _execute_stack(prog, stack, layer_consts(prog, stack),
-                                  saturate=self.saturate)
+            return _execute_rows(prog, stack, self.saturate)
         report = SimReport()
         for i in range(stack.shape[0]):
-            row = stack[i:i + 1]
-            r = _execute_stack(prog, row, layer_consts(prog, row),
-                               saturate=self.saturate)
+            r = _execute_rows(prog, stack[i:i + 1], self.saturate)
             report.gemm_loops += r.gemm_loops
             report.alu_loops += r.alu_loops
         return report

@@ -8,16 +8,22 @@ programs (``tests/test_torch_compiler.py``).
 Serving differs from the reference in where the work happens.  The
 reference stages every layer's input on the host between VTA executions;
 here the whole ``(batch, nbytes)`` DRAM stack lives on the device for the
-whole network: images come in once, each layer's im2row / pad / split /
-binarise (:mod:`repro_torch.core.staging`), its execution and the OUT
-decode all run in torch on that device, and only the logits come back.
-A layer executes on one of the reference's backends, with ``cuda`` in the
-place of ``pallas``: ``cuda`` (the default) as one ``vta_gemm`` launch
-plus its TensorAlu epilogue (:mod:`repro_torch.core.cuda_backend`);
-``batched``, ``fast`` and ``oracle`` as the instruction interpreters
-(:mod:`repro_torch.core.fast_simulator`, :mod:`~repro_torch.core.simulator`)
-with the reference's ``fault_hook`` and ``count_overflows``.  ``guard=``
-routes a serve through :mod:`repro_torch.harden`.
+whole network: images come in once, each layer's input is gathered in one
+``vta_stage`` launch from the OUT bytes its producer committed to the stack
+(or from the images, for the first layer), a residual layer's RES in one
+more, the layer executes, and only the logits come back.  Each gather goes
+through a table built once per compiled image by running the torch staging
+functions (:mod:`repro_torch.core.staging`: OUT decode, im2row, the tiled
+pool's rows, pad and split) over an index tensor, so the layout keeps one
+definition.  A layer executes on one of the reference's backends, with
+``cuda`` in the place of ``pallas``: ``cuda`` (the default) as one
+``vta_gemm`` launch over the gathered operands plus its TensorAlu epilogue
+(:mod:`repro_torch.core.cuda_backend`); ``batched``, ``fast`` and
+``oracle`` as the instruction interpreters
+(:mod:`repro_torch.core.fast_simulator`, :mod:`~repro_torch.core.simulator`),
+whose input is gathered into each row's INP region instead, with the
+reference's ``fault_hook`` and ``count_overflows``.  ``guard=`` routes a
+serve through :mod:`repro_torch.harden`.
 
 A program is a DAG schedule: layer k reads its input from the semantic
 output of layer ``input_sources[k]`` (``-1`` is the network input) and, for
@@ -25,8 +31,8 @@ a residual layer, stages the output of ``residual_sources[k]`` into its
 ``res`` region as the second ALU operand.  ``compile_network`` builds the
 linear chain (both lists ``None``: layer k feeds layer k+1); the graph
 front end (:func:`repro_torch.graph.compile_graph`) builds the DAG of the
-residual networks.  A layer's output stays on the device only while a
-later layer still reads it.
+residual networks.  Every layer's OUT region is its own, so a layer's
+output stays in the stack for every later layer that reads it.
 
 The device image is the programs' segments placed in one DRAM image and
 uploaded once per device; it is rebuilt when a segment is replaced (a
@@ -36,11 +42,13 @@ LayerConsts`: the kernel's weights and fused bias, the image its epilogue
 reads the ACC preload from, and whether the layer fuses: a row-broadcast
 bias, zero pad rows) depend only on that image, which serving never
 writes outside the INP and RES regions, so they are read once per image
-and cached with it; serving a batch then reads nothing back but the
-logits.  The ``cuda`` backend serves from them over a stack that holds
-only what varies by image: it is allocated, not a copy of the image, and
-staging, the kernels and the encode write every byte of it that is
-read.  The interpreters execute instructions that load WGT, ACC, UOP and
+and cached with it.  The layers' gather tables follow the compiled layout
+alone, so they are built once per device and kept when a segment is
+replaced.  Serving a batch then reads nothing back but the logits.  The ``cuda`` backend serves from
+them over a stack that holds only what varies by image: it is allocated,
+not a copy of the image, and the gathers, the kernels and the encode write
+every byte of it that is read (its INP regions are neither written nor
+read: the operands are gathered beside it).  The interpreters execute instructions that load WGT, ACC, UOP and
 INSN from DRAM, so their stacks hold the whole image in every row.
 """
 
@@ -54,10 +62,13 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.device import DeviceLike, device_of, resolve_device
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.vta_stage import StageTable
 
 from . import staging
 from .conv_lowering import mat2tensor
-from .cuda_backend import LayerConsts, _execute_stack, layer_consts
+from .cuda_backend import (LayerConsts, _decode_acc32, _decode_inp,
+                           _execute_stack, _region, layer_consts, plan_cuda)
 from .cycle_model import CycleReport, analyze_programs
 from .dram import DramAllocator
 from .errors import CompileError
@@ -72,6 +83,41 @@ SERVE_BACKENDS = ("batched", "cuda")
 SERVE_ONE_BACKENDS = ("oracle", "fast", "cuda")
 # ``verify`` runs the compile-time input on any backend
 VERIFY_BACKENDS = ("oracle", "fast", "batched", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerStage:
+    """A layer's gathers (:meth:`NetworkProgram.stage_tables`): ``inp``,
+    its input (the GEMM operand, or the INP region in block order), and
+    ``res``, its RES region (None where the layer joins no residual)."""
+
+    inp: StageTable
+    res: Optional[StageTable]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes one image's gathers write."""
+        return self.inp.index.numel() + (
+            4 * self.res.index.numel() if self.res is not None else 0)
+
+    @property
+    def contiguous(self) -> float:
+        """The share of the 16-byte chunks written that one contiguous
+        load serves."""
+        tables = [t for t in (self.inp, self.res) if t is not None]
+        return (sum(t.contiguous for t in tables)
+                / sum(t.chunks for t in tables))
+
+
+@dataclasses.dataclass
+class _DeviceEntry:
+    """One device's cache of a compiled image: the segments it was built
+    from, the DRAM image uploaded and every layer's :class:`LayerConsts`
+    over it (None until the cuda backend first asks)."""
+
+    segments: tuple
+    image: torch.Tensor
+    consts: Optional[List[LayerConsts]] = None
 
 
 @dataclasses.dataclass
@@ -92,14 +138,17 @@ class NetworkProgram:
     input_tensor: np.ndarray
     input_sources: Optional[List[int]] = None
     residual_sources: Optional[List[Optional[int]]] = None
-    # Per device: (the segments it was built from, the DRAM image uploaded
-    # to the device, every layer's LayerConsts over it, or None until the
-    # cuda backend first asks), filled on first use.  Serving threads may
-    # both miss and both build an entry; each stores a complete value in
-    # one dict assignment, so the race only duplicates work (the engine's
-    # warm-up fills it before its workers start).
-    _device_images: Dict[str, Tuple[tuple, torch.Tensor,
-                                    Optional[List[LayerConsts]]]] = \
+    # Per device: the image's entry (:class:`_DeviceEntry`), filled on
+    # first use.  Serving threads may both miss and both build an entry or
+    # a part of it; each stores a complete value in one assignment, so the
+    # race only duplicates work (the engine's warm-up fills it before its
+    # workers start).
+    _device_images: Dict[str, "_DeviceEntry"] = \
+        dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # Per (device, block order): the layers' gathers (:meth:`stage_tables`).
+    # They follow the compiled layout, not the segments' bytes, so a
+    # replaced segment (an injected fault, a restore) keeps them.
+    _stages: Dict[Tuple[str, bool], List["LayerStage"]] = \
         dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def _sources(self) -> List[int]:
@@ -192,38 +241,95 @@ class NetworkProgram:
         return tuple((name, data) for layer in self.layers
                      for name, data in layer.program.segments.items())
 
-    def _device_entry(self, dev: torch.device) -> tuple:
+    def _device_entry(self, dev: torch.device) -> "_DeviceEntry":
         """This device's cache entry, rebuilt when a segment was replaced
         since the image was uploaded (compared by identity: segments are
         immutable ``bytes``)."""
         segments = self._segments()
         cached = self._device_images.get(device_of(dev))
-        if cached is None or len(cached[0]) != len(segments) or any(
+        if cached is None or len(cached.segments) != len(segments) or any(
                 a[0] != b[0] or a[1] is not b[1]
-                for a, b in zip(cached[0], segments)):
-            cached = (segments, torch.from_numpy(self.dram_image()).to(dev),
-                      None)
+                for a, b in zip(cached.segments, segments)):
+            cached = _DeviceEntry(segments, torch.from_numpy(
+                self.dram_image()).to(dev))
             self._device_images[device_of(dev)] = cached
         return cached
 
     def _device_image(self, device: torch.device) -> torch.Tensor:
         """The DRAM image on ``device``, uploaded once per image."""
-        return self._device_entry(device)[1]
+        return self._device_entry(device).image
 
     def layer_consts(self, device: DeviceLike = None) -> List[LayerConsts]:
         """Each layer's :class:`LayerConsts` over the compiled image on
         ``device``, read once per image and cached with it.  A served
         stack's rows all stand for that image with only the INP and RES
-        regions restaged (zero-padded by
-        :func:`staging.batch_matrix_to_binary`), so the image's constants
+        regions restaged (their padding zero), so the image's constants
         are the stack's for every batch."""
+        entry = self._device_entry(resolve_device(device))
+        if entry.consts is None:
+            entry.consts = [layer_consts(l.program, entry.image)
+                            for l in self.layers]
+        return entry.consts
+
+    def stage_tables(self, device: DeviceLike = None, *,
+                     block_order: bool = False) -> List["LayerStage"]:
+        """Each layer's gathers on ``device``, built once per compiled
+        network and device (:meth:`_build_stages`): its GEMM operand,
+        row-major (Mp, Kp) as ``vta_gemm`` takes it, or with
+        ``block_order`` its INP region's bytes, which the instruction
+        interpreters read (the same entries, permuted); and a residual
+        layer's RES region."""
         dev = resolve_device(device)
-        cached = self._device_entry(dev)
-        if cached[2] is None:
-            cached = cached[:2] + ([layer_consts(l.program, cached[1])
-                                    for l in self.layers],)
-            self._device_images[device_of(dev)] = cached
-        return cached[2]
+        key = (device_of(dev), block_order)
+        stages = self._stages.get(key)
+        if stages is None:
+            stages = [LayerStage(s.inp.to(dev),
+                                 s.res.to(dev) if s.res is not None else None)
+                      for s in self._build_stages(block_order)]
+            self._stages[key] = stages
+        return stages
+
+    def _build_stages(self, block_order: bool) -> List["LayerStage"]:
+        """The gathers of every layer, on the host: the torch staging
+        functions run once over the index of each layer's source
+        (:func:`staging.out_index` of the layer it reads, or
+        :func:`staging.input_index`), so a served batch's layout has the
+        one definition those functions give it."""
+        bs = self.config.block_size
+        index: Dict[int, torch.Tensor] = {
+            -1: staging.input_index(self.input_tensor.shape[1:])}
+
+        def source(j: int) -> torch.Tensor:
+            if j not in index:
+                index[j] = staging.out_index(self.layers[j])
+            return index[j]
+
+        stages = []
+        for layer, src, rsrc in zip(self.layers, self._sources(),
+                                    self._res_sources()):
+            p = plan_cuda(layer.program)
+            inp = staging.operand_table(layer, source(src), bs)
+            if (inp.index.numel() != p.inp[1]
+                    or inp.rows != p.alpha * p.row_height):
+                raise CompileError(
+                    f"layer {layer.spec.name!r}: a staged operand of "
+                    f"{inp.rows} rows and {inp.index.numel()} bytes, the "
+                    f"INP region holds {p.inp[1]} in {p.alpha} block rows "
+                    f"of {p.row_height}", layer=layer.spec.name,
+                    constraint="stage-geometry")
+            if block_order:
+                inp = staging.block_order(inp, p.row_height, bs)
+            res = None
+            if rsrc is not None:
+                res = staging.residual_table(layer, source(rsrc), bs)
+                if p.res is None or 4 * res.index.numel() != p.res[1]:
+                    raise CompileError(
+                        f"layer {layer.spec.name!r}: a staged residual of "
+                        f"{4 * res.index.numel()} bytes, the RES region "
+                        f"holds {p.res and p.res[1]}", layer=layer.spec.name,
+                        constraint="stage-geometry")
+            stages.append(LayerStage(inp, res))
+        return stages
 
     def _as_image_batch(self, images, device: torch.device) -> torch.Tensor:
         """Normalise a request batch to one ``(B,) + input_shape[1:]`` int8
@@ -254,117 +360,78 @@ class NetworkProgram:
         batch = torch.as_tensor(batch).to(torch.int8)
         return batch.reshape((batch.shape[0],) + want[1:]).to(device)
 
-    @staticmethod
-    def _input_matrices(layer: CompiledLayer,
-                        sem: torch.Tensor) -> torch.Tensor:
-        """(B, M, K) input matrices of ``layer`` from the previous layer's
-        semantic outputs: im2row (conv; its rows laid out as a tiled
-        pool's ``input_rows`` name them) or NCHW flatten (fc)."""
-        spec = layer.spec
-        if spec.kind == "conv":
-            _, _, kh, kw = spec.weights.shape
-            return staging.expand_rows_batch(layer, staging.im2row_batch(
-                sem, kh, kw, spec.stride, spec.padding))
-        return sem.reshape(sem.shape[0], 1, -1)
-
-    def _stage_layer_input_batch(self, stack: torch.Tensor,
-                                 layer: CompiledLayer,
-                                 A: torch.Tensor) -> None:
-        """Batched §4.2 stage (ii) on the device: pad → split → binarise
-        the (B, M, K) input matrices into the layer's INP region."""
-        spec = layer.spec
-        raw = staging.batch_matrix_to_binary(A, self.config.block_size,
-                                             torch.int8)
-        region = layer.program.regions["inp"]
-        if raw.shape[1] != region.nbytes:
-            raise ValueError(
-                f"layer {spec.name!r}: staged input is {raw.shape[1]} "
-                f"bytes, INP region holds {region.nbytes} — request shape "
-                f"does not match the compiled geometry")
-        start = region.phys_addr - self.allocator.offset
-        stack[:, start:start + raw.shape[1]] = raw
-
-    def _stage_residual_batch(self, stack: torch.Tensor,
-                              layer: CompiledLayer,
-                              sems: torch.Tensor) -> torch.Tensor:
-        """Batched residual staging on the device: the skip activations
-        ``sems`` → int32 ``(B, M, N)`` operands
-        (:func:`staging.residual_operand_batch`) → ACC-format binary in the
-        layer's ``res`` region.  Returns the staged operands."""
-        R = staging.residual_operand_batch(layer.spec, sems,
-                                           layer.residual_matrix.shape)
-        raw = staging.batch_matrix_to_binary(R, self.config.block_size,
-                                             torch.int32)
-        region = layer.program.regions["res"]
-        if raw.shape[1] != region.nbytes:
-            raise ValueError(
-                f"layer {layer.spec.name!r}: staged residual is "
-                f"{raw.shape[1]} bytes, RES region holds {region.nbytes}")
-        start = region.phys_addr - self.allocator.offset
-        stack[:, start:start + raw.shape[1]] = raw
-        return R
-
-    def _last_reads(self) -> Dict[int, int]:
-        """Layer index → the last layer that reads its output (the final
-        layer's output is the network's and is kept to the end)."""
-        last: Dict[int, int] = {len(self.layers) - 1: len(self.layers)}
-        for k, (src, res) in enumerate(zip(self._sources(),
-                                           self._res_sources())):
-            for j in (src, res):
-                if j is not None and j >= 0:
-                    last[j] = max(last.get(j, k), k)
-        return last
-
     def _run_chain(self, stack: torch.Tensor, first: torch.Tensor,
-                   execute, *, check_chaining: bool = False
+                   execute, *, operands: bool, check_chaining: bool = False
                    ) -> Tuple[torch.Tensor, List[SimReport]]:
         """Run every layer over the stack in place, in schedule order: stage
-        its input from ``first`` (the network input) or an earlier layer's
-        semantic outputs, stage its residual operand if it has one,
-        ``execute(k, layer, stack)`` (which writes the layer's OUT region
-        and returns its report), decode.  Returns the last layer's semantic
+        its input, and its residual operand if it has one, with one
+        ``vta_stage`` gather each from ``first`` (the network input) or the
+        OUT bytes an earlier layer committed to the stack (a layer's OUT
+        region is its own, so it stays until the call ends), then
+        ``execute(k, layer, stack, a)``, which writes the layer's OUT region
+        and returns its report.  With ``operands`` (the ``cuda`` backend)
+        the input is gathered into ``a``, the (B·Mp, Kp) operand of
+        ``vta_gemm``; without it, into each row's INP region, which the
+        interpreters read (``a`` None).  Returns the last layer's semantic
         outputs (on the device) and the per-layer batch-total reports.
         ``check_chaining`` asserts each staged input and residual equals the
         matrix the layer was compiled against — a divergence is a
         compilation bug (the paper's traceability)."""
         reports: List[SimReport] = []
-        sems: Dict[int, torch.Tensor] = {}
-        last = self._last_reads()
+        stages = self.stage_tables(stack.device, block_order=not operands)
         srcs, rsrcs = self._sources(), self._res_sources()
         b = stack.shape[0]
-        for k, layer in enumerate(self.layers):
+        inputs = first.reshape(b, -1)
+        for k, (layer, stage) in enumerate(zip(self.layers, stages)):
+            p = plan_cuda(layer.program)
+            inp, res = stage.inp, stage.res
             with tracing.span("repro_torch.layer", k=k,
                               name=layer.spec.name):
-                regions = layer.program.regions
-                staged = regions["inp"].nbytes + (
-                    regions["res"].nbytes if rsrcs[k] is not None else 0)
                 with tracing.span("repro_torch.layer.stage",
-                                  bytes=b * staged):
-                    sem_in = first if srcs[k] < 0 else sems[srcs[k]]
-                    A = self._input_matrices(layer, sem_in)
+                                  bytes=b * stage.nbytes,
+                                  contiguous=stage.contiguous):
+                    a = None
+                    src = inputs if srcs[k] < 0 else stack
+                    if operands:
+                        a = torch.empty((b * inp.rows, inp.cols * 16),
+                                        dtype=torch.int8, device=stack.device)
+                        kernel_ops.vta_stage(src, inp, a.view(b, -1))
+                    else:
+                        kernel_ops.vta_stage(src, inp,
+                                             _region(stack, p.inp, torch.int8))
+                    if res is not None:
+                        kernel_ops.vta_stage(
+                            inputs if rsrcs[k] < 0 else stack, res,
+                            _region(stack, p.res, torch.int32))
                     if check_chaining:
-                        np.testing.assert_array_equal(
-                            A[0].cpu().numpy(), layer.input_matrix,
-                            err_msg=f"layer {srcs[k]}->{k} reshaping "
-                                    f"mismatch")
-                    self._stage_layer_input_batch(stack, layer, A)
-                    if rsrcs[k] is not None:
-                        sem_res = first if rsrcs[k] < 0 else sems[rsrcs[k]]
-                        R = self._stage_residual_batch(stack, layer, sem_res)
-                        if check_chaining:
-                            np.testing.assert_array_equal(
-                                R[0].cpu().numpy(), layer.residual_matrix,
-                                err_msg=f"layer {layer.spec.name!r}: "
-                                        f"residual operand mismatch")
-                reports.append(execute(k, layer, stack))
-                with tracing.span("repro_torch.layer.unpack"):
-                    out_mats = staging.decode_out_region_batch(
-                        layer.program, stack)
-                    sems[k] = staging.decode_layer_output_batch(layer,
-                                                                out_mats)
-            for j in [j for j in sems if last.get(j, k) <= k]:
-                del sems[j]             # no later layer reads it
-        return sems[len(self.layers) - 1], reports
+                        self._check_staged(k, layer, stack, a)
+                reports.append(execute(k, layer, stack, a))
+                if k == len(self.layers) - 1:
+                    with tracing.span("repro_torch.layer.unpack"):
+                        sem = staging.decode_layer_output_batch(
+                            layer, staging.decode_out_region_batch(
+                                layer.program, stack))
+        return sem, reports
+
+    def _check_staged(self, k: int, layer: CompiledLayer,
+                      stack: torch.Tensor, a: Optional[torch.Tensor]) -> None:
+        """The first image's staged input (``a``'s first operand, or the
+        INP region) and residual (the RES region) against the matrices
+        ``layer`` was compiled against."""
+        p = plan_cuda(layer.program)
+        staged = (a[:p.alpha * p.row_height] if a is not None
+                  else _decode_inp(stack[:1], p)[0])
+        m, n = layer.input_matrix.shape
+        np.testing.assert_array_equal(
+            staged[:m, :n].cpu().numpy(), layer.input_matrix,
+            err_msg=f"layer {self._sources()[k]}->{k} reshaping mismatch")
+        if self._res_sources()[k] is not None:
+            m, n = layer.residual_matrix.shape
+            np.testing.assert_array_equal(
+                _decode_acc32(stack[:1], p, p.res)[0, :m, :n].cpu().numpy(),
+                layer.residual_matrix,
+                err_msg=f"layer {layer.spec.name!r}: residual operand "
+                        f"mismatch")
 
     # ------------------------------------------------------- executors --
     @staticmethod
@@ -381,8 +448,8 @@ class NetworkProgram:
         the stack, with the layer's cached :class:`LayerConsts`: the
         stack's WGT and ACC are not read."""
         consts = self.layer_consts(dev)
-        return lambda k, layer, stack: _execute_stack(
-            layer.program, stack, consts[k], saturate=False)
+        return lambda k, layer, stack, a: _execute_stack(
+            layer.program, stack, a, consts[k], saturate=False)
 
     def _interpreter(self, backend: str, fault_hook, count_overflows: bool):
         """Each layer on an instruction interpreter over the stack, its
@@ -392,8 +459,8 @@ class NetworkProgram:
         which gets the interpreter's DRAM back."""
         from .fast_simulator import BatchFastSimulator, plan_for
 
-        def execute(k: int, layer: CompiledLayer,
-                    stack: torch.Tensor) -> SimReport:
+        def execute(k: int, layer: CompiledLayer, stack: torch.Tensor,
+                    a: None) -> SimReport:
             prog = layer.program
             hook = self._layer_hook(fault_hook, k)
             if backend == "batched":
@@ -506,7 +573,8 @@ class NetworkProgram:
                     execute = self._interpreter(backend, fault_hook,
                                                 count_overflows)
                     sp.set(bytes=stack.nbytes)
-            sem, reports = self._run_chain(stack, batch, execute)
+            sem, reports = self._run_chain(stack, batch, execute,
+                                           operands=backend == "cuda")
             return self._outputs(sem), reports
 
     def serve_one(self, image, *, backend: str = "cuda",
@@ -545,7 +613,7 @@ class NetworkProgram:
         first = self._as_image_batch([np.asarray(image)], dev)
         stack = self._device_image(dev).reshape(1, -1).clone()
         sem, _ = self._run_chain(stack, first, self._interpreter(
-            backend, fault_hook, count_overflows))
+            backend, fault_hook, count_overflows), operands=False)
         return self._outputs(sem)[0]
 
     def run_functional(self, *, check_chaining: bool = True,
@@ -573,6 +641,7 @@ class NetworkProgram:
         execute = (self._kernel_executor(dev) if backend == "cuda" else
                    self._interpreter(backend, fault_hook, False))
         sem, reports = self._run_chain(stack, first, execute,
+                                       operands=backend == "cuda",
                                        check_chaining=check_chaining)
         return self._outputs(sem)[0], reports
 

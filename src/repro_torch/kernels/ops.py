@@ -4,8 +4,10 @@ A CPU tensor goes to the plain torch version (``ref.vta_gemm_ref``,
 ``ref.attention_ref``); a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback from one to the other.  ``launches`` counts
 kernel launches made through :func:`vta_matmul`, ``alu_launches`` the
-TensorAlu epilogue kernels launched through :func:`vta_alu` (counted apart,
-so ``launches`` stays the GEMM's), and ``attention_launches`` the attention
+TensorAlu epilogue kernels launched through :func:`vta_alu` and
+``stage_launches`` the operand gathers launched through :func:`vta_stage`
+(each counted apart, so ``launches`` stays the GEMM's), and
+``attention_launches`` the attention
 kernels launched (``flash_attention.launches``: the count the C entry
 points report), so a run can show that its main path went through the
 kernels.
@@ -32,11 +34,13 @@ from . import flash_attention as _flash
 from . import ref as _ref
 from . import vta_alu as _vta_alu
 from . import vta_gemm as _vta_gemm
+from . import vta_stage as _vta_stage
 
 _BACKENDS = ("auto", "cuda", "torch")
 
 launches = 0            # kernel launches made by vta_matmul
 alu_launches = 0        # kernel launches made by vta_alu
+stage_launches = 0      # kernel launches made by vta_stage
 # serving workers launch from several threads at once: ``launches += 1`` is
 # a read-modify-write, so it is taken under this lock
 _launches_lock = threading.Lock()
@@ -54,10 +58,16 @@ def _count_alu_launch() -> None:
         alu_launches += 1
 
 
+def _count_stage_launch() -> None:
+    global stage_launches
+    with _launches_lock:
+        stage_launches += 1
+
+
 def reset_launches() -> None:
-    global launches, alu_launches
+    global launches, alu_launches, stage_launches
     with _launches_lock, _flash.launches_lock:
-        launches = alu_launches = 0
+        launches = alu_launches = stage_launches = 0
         _flash.launches = 0
 
 
@@ -118,6 +128,22 @@ def vta_alu(gemm: torch.Tensor, stack: torch.Tensor,
     _vta_alu.vta_alu(gemm, stack, table, blocks=blocks, acc=acc, res=res,
                      out=out, saturate=saturate, acc_image=acc_image)
     _count_alu_launch()
+
+
+def vta_stage(src: torch.Tensor, table: "_vta_stage.StageTable",
+              out: torch.Tensor) -> torch.Tensor:
+    """A layer's operand or RES region gathered from its producer's bytes
+    (``vta_stage.vta_stage``): ``out[b, i] = table.index[i] < 0 ? 0 :
+    src[b, table.index[i]]``, sign-extended into an int32 ``out``.  A CPU
+    tensor takes the plain version (``ref.vta_stage_ref``) after the
+    kernel's own checks; a CUDA tensor launches the kernel or raises.
+    Returns ``out``."""
+    if out.device.type == "cpu":
+        _vta_stage.check_operands(src, table, out)
+        return _ref.vta_stage_ref(src, table.index, out)
+    _vta_stage.vta_stage(src, table, out)
+    _count_stage_launch()
+    return out
 
 
 Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],

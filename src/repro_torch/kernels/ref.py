@@ -62,6 +62,18 @@ def _epilogue(acc, bias, relu, shift, saturate, out_dtype):
     return acc.to(torch.int32)
 
 
+def vta_stage_ref(src: torch.Tensor, index: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels/csrc/vta_stage.cu``: ``out[b, i] =
+    index[i] < 0 ? 0 : src[b, index[i]]``, each source byte read as int8
+    and written in ``out``'s dtype (an int32 destination sign-extends).
+    ``src`` (B, bytes) uint8 or int8; returns ``out``, written in place."""
+    idx = index.to(torch.int64)
+    rows = src.view(torch.int8) if src.dtype == torch.uint8 else src
+    vals = rows.index_select(1, idx.clamp(min=0)).masked_fill_(idx < 0, 0)
+    return out.copy_(vals)
+
+
 def vta_gemm_split_ref(a: torch.Tensor, b: torch.Tensor,
                        bias: Optional[torch.Tensor], plan, *,
                        relu: bool = False, shift: int = 0,

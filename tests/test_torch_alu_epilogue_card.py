@@ -15,8 +15,8 @@ Then served networks: LeNet-5, resnet8, the CIFAR CNN and resnet_tiny,
 ``serve`` on the card bit-equal to ``serve`` on the CPU with one
 ``vta_alu`` launch an unfused layer; under the profiler every device
 operation of an unfused layer's epilogue is the kernel (no int64 pass),
-its encode launches nothing, the stack is made without a device operation
-and every layer's decode copies INP alone.
+its encode launches nothing, the stack is made without a device operation,
+nothing decodes INP and every layer's stage launches only ``vta_stage``.
 
 Every test here is marked ``cuda``: it decides inside the test whether a
 CUDA card is present and skips on a host without one.  The module imports
@@ -277,14 +277,21 @@ def test_epilogue_is_one_kernel_and_encode_is_empty(model, tmp_path):
     spans = [s for s in tracing.snapshot()["spans"] if s["name"] == ENCODE]
     assert [s["attrs"]["bytes"] for s in spans] == [
         len(images) * cb.plan_cuda(l.program).out[1] for l in net.layers]
-    # the stack is allocated, not cloned from the image, and every layer's
-    # decode copies INP alone
+    # the stack is allocated, not cloned from the image; nothing decodes
+    # INP: each layer's stage is its gathers (the operand, and RES on a
+    # join), which write INP's bytes and RES's
     assert [o["name"] for o in launched
             if o["span"] == "repro_torch.serve.stack"] == []
-    decodes = [s["attrs"] for s in tracing.snapshot()["spans"]
-               if s["name"] == "repro_torch.layer.decode"]
-    assert decodes == [{"bytes": len(images) * cb.plan_cuda(
-        l.program).inp[1]} for l in net.layers]
+    spans = tracing.snapshot()["spans"]
+    assert not [s for s in spans if s["name"] == "repro_torch.layer.decode"]
+    stages = [s["attrs"]["bytes"] for s in spans
+              if s["name"] == "repro_torch.layer.stage"]
+    assert stages == [len(images) * (cb.plan_cuda(l.program).inp[1] + (
+        cb.plan_cuda(l.program).res[1] if src is not None else 0))
+        for l, src in zip(net.layers, net._res_sources())]
+    staged = [o["name"] for o in launched
+              if o["span"] == "repro_torch.layer.stage"]
+    assert staged and all("vta_stage" in name for name in staged), staged
 
 
 @pytest.mark.cuda

@@ -28,6 +28,7 @@ from repro_torch.core import cuda_backend, staging               # noqa: E402
 from repro_torch.core.errors import CompileError                 # noqa: E402
 from repro_torch.models.weights import WeightsError              # noqa: E402
 from test_torch_compiler import compile_cifar_reference          # noqa: E402
+from torch_stage_helpers import batch_matrix_to_binary          # noqa: E402
 
 MODELS = ["resnet8", "resnet_tiny", "cifar_cnn"]
 
@@ -109,6 +110,22 @@ def test_multi_chunk_layers_are_served():
     assert cnet.chunks_per_layer()[:2] == [3, 8]
 
 
+def _stage_residual(layer, stack: torch.Tensor,
+                    sems: torch.Tensor) -> torch.Tensor:
+    """The torch staging functions' residual staging (the reference the
+    ``vta_stage`` gather's RES tables are built from and held to): the skip
+    activations → int32 ``(B, M, N)`` operands → ACC-format bytes in the
+    layer's ``res`` region.  Returns the operands."""
+    R = staging.residual_operand_batch(layer.spec, sems,
+                                       layer.residual_matrix.shape)
+    raw = batch_matrix_to_binary(R, 16, torch.int32)
+    region = layer.program.regions["res"]
+    start = region.phys_addr - layer.program.allocator.offset
+    assert raw.shape[1] == region.nbytes
+    stack[:, start:start + raw.shape[1]] = raw
+    return R
+
+
 @pytest.mark.parametrize("model", ["resnet8", "resnet_tiny"])
 def test_residual_staging_matches_reference(nets, model):
     """Per residual layer: the port's batched residual staging writes the
@@ -129,15 +146,15 @@ def test_residual_staging_matches_reference(nets, model):
         jstack = np.broadcast_to(base, (3, base.size)).copy()
         jn._stage_residual_batch(jstack, jn.layers[k], sems)
         tstack = torch.from_numpy(base).expand(3, -1).clone()
-        R = tn._stage_residual_batch(
-            tstack, layer, torch.from_numpy(np.concatenate(sems)))
+        R = _stage_residual(layer, tstack,
+                            torch.from_numpy(np.concatenate(sems)))
         np.testing.assert_array_equal(tstack.numpy(), jstack)
         assert R.dtype == torch.int32
         staged += 1
         bad = torch.zeros((3,) + shape[1:-1] + (shape[-1] + 1,),
                           dtype=torch.int8)
         with pytest.raises(CompileError) as exc:
-            tn._stage_residual_batch(tstack, layer, bad)
+            _stage_residual(layer, tstack, bad)
         assert exc.value.constraint == "residual-shape"
     assert staged == (3 if model == "resnet8" else 2)
 
@@ -152,7 +169,7 @@ def test_int32_binarise_matches_reference(shape):
     mats = rng.integers(-(2 ** 31), 2 ** 31, shape, dtype=np.int64)
     mats[0, 0, 0], mats[-1, -1, -1] = -(2 ** 31), 2 ** 31 - 1
     mats = mats.astype(np.int32)
-    got = staging.batch_matrix_to_binary(torch.from_numpy(mats), 16,
+    got = batch_matrix_to_binary(torch.from_numpy(mats), 16,
                                          torch.int32)
     want = jlayout.batch_matrix_to_binary(mats, 16, np.int32)
     assert got.dtype == torch.uint8
@@ -179,8 +196,9 @@ def test_no_pair_lattice_is_sequential(nets, model):
 def test_cached_form_equals_per_call_checks(nets, model, monkeypatch):
     """Each layer's constants cached on the program equal what
     ``layer_consts`` reads off the served stack, the compiled image in
-    every row with the staged INP and RES, on every layer; serving passes
-    them for every layer; and the cached fusion decision is the plan's."""
+    every row with the staged operands as INP and the staged RES, on every
+    layer; serving passes them for every layer; and the cached fusion
+    decision is the plan's."""
     if model == "lenet5":
         from repro_torch.lenet5_e2e import compile_lenet5, request_images
         tn = compile_lenet5()[1]
@@ -191,16 +209,20 @@ def test_cached_form_equals_per_call_checks(nets, model, monkeypatch):
     real = tnc._execute_stack
     seen = []
 
-    def spy(prog, stack, consts, *, saturate):
+    def spy(prog, stack, a, consts, *, saturate):
         # the served stack holds only what varies by image: read the
-        # constants off the image in every row, with this batch's INP and
-        # RES
-        full = consts.image.expand(stack.shape[0], -1).clone()
-        for region in ("inp", "res"):
-            if region in prog.regions:
-                r = prog.regions[region]
-                lo = r.phys_addr - prog.allocator.offset
-                full[:, lo:lo + r.nbytes] = stack[:, lo:lo + r.nbytes]
+        # constants off the image in every row, with this batch's operands
+        # in block order as INP and its RES
+        b = stack.shape[0]
+        p = cuda_backend.plan_cuda(prog)
+        full = consts.image.expand(b, -1).clone()
+        lo, n = p.inp
+        full[:, lo:lo + n] = staging.matrix_blocks_batch(
+            a.view(b, p.alpha * p.row_height, -1), p.row_height,
+            16).view(torch.uint8)
+        if p.res is not None:
+            lo, n = p.res
+            full[:, lo:lo + n] = stack[:, lo:lo + n]
         want = cuda_backend.layer_consts(prog, full)
         assert consts.fused == want.fused, prog.name
         assert torch.equal(consts.w, want.w), prog.name
@@ -208,7 +230,7 @@ def test_cached_form_equals_per_call_checks(nets, model, monkeypatch):
         if want.bias is not None:
             assert torch.equal(consts.bias, want.bias), prog.name
         seen.append(prog.name)
-        return real(prog, stack, consts, saturate=saturate)
+        return real(prog, stack, a, consts, saturate=saturate)
 
     monkeypatch.setattr(tnc, "_execute_stack", spy)
     tn.serve(images, device="cpu")

@@ -30,6 +30,7 @@ from repro_torch.core import staging                             # noqa: E402
 from repro_torch.core.errors import CompileError                 # noqa: E402
 from repro_torch.harden import GuardPolicy                        # noqa: E402
 from repro_torch.kernels import ops as tops                      # noqa: E402
+from torch_stage_helpers import batch_matrix_to_binary          # noqa: E402
 
 
 def _cal():
@@ -78,11 +79,11 @@ def test_staging_byte_identical(nets, layer_idx):
         A = rng.integers(-128, 128, (b,) + shape).astype(np.int8)
         A_t = torch.from_numpy(A)
     raw = jlayout.batch_matrix_to_binary(A, 16, np.int8)
-    raw_t = staging.batch_matrix_to_binary(A_t, 16, torch.int8)
+    raw_t = batch_matrix_to_binary(A_t, 16, torch.int8)
     np.testing.assert_array_equal(raw_t.numpy(), raw)
     acc = rng.integers(-(2 ** 31), 2 ** 31, (b,) + shape).astype(np.int32)
     np.testing.assert_array_equal(
-        staging.batch_matrix_to_binary(torch.from_numpy(acc), 16,
+        batch_matrix_to_binary(torch.from_numpy(acc), 16,
                                        torch.int32).numpy(),
         jlayout.batch_matrix_to_binary(acc, 16, np.int32))
 

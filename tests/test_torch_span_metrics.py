@@ -69,7 +69,11 @@ def _span(i, name, parent, call, t0, t1, ms=None, /, **attrs):
             "attrs": attrs}
 
 
-def test_readers_by_hand(monkeypatch):
+@pytest.mark.parametrize("decode", [True, False])
+def test_readers_by_hand(monkeypatch, decode):
+    """Two calls' spans written by hand: with a ``layer.decode`` span (a
+    tree from before the operand gather) and without (the gather stages
+    the operand, so nothing decodes INP)."""
     from repro_torch import tracing
     log = []
     for c, base in ((1, 0), (20, 10_000_000)):
@@ -97,6 +101,8 @@ def test_readers_by_hand(monkeypatch):
                   at(6), 0.375),
             _span(c + 10, "repro_torch.serve.output", c, c, at(6), at(8.5),
                   0.25, bytes=40)]
+        if not decode:
+            log = [s for s in log if s["name"] != "repro_torch.layer.decode"]
     # a span of another, untraced thread's call outside a serve
     log.append(_span(99, "repro_torch.layer.gemm", None, 99, 0, 1, 7.0))
     monkeypatch.setattr(tracing, "snapshot",
@@ -112,7 +118,8 @@ def test_readers_by_hand(monkeypatch):
     assert read("copy_device_ms_per_kimg") == pytest.approx(2 * 0.75 / kimg)
     assert read("stack_clone_device_ms_per_kimg") == pytest.approx(2 / kimg)
     assert read("stage_device_ms_per_kimg") == pytest.approx(0.5 / kimg)
-    assert read("codec_device_ms_per_kimg") == pytest.approx(2 / kimg)
+    assert read("codec_device_ms_per_kimg") == pytest.approx(
+        (2 if decode else 1) / kimg)
     assert read("epilogue_device_ms_per_kimg") == pytest.approx(1.5 / kimg)
     assert read("serve_host_ms_per_call") == pytest.approx(9 - 2.5)
     assert read("stack_bytes_per_image") == (400 + 40 + 8) * 2 / 8

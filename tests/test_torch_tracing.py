@@ -20,9 +20,9 @@ from repro_torch.lenet5_e2e import compile_lenet5, request_images  # noqa: E402
 from repro_torch.models import resnet8 as t8                    # noqa: E402
 
 BATCH = 3
-LEAVES = ("repro_torch.layer.stage", "repro_torch.layer.decode",
-          "repro_torch.layer.gemm", "repro_torch.layer.epilogue",
-          "repro_torch.layer.encode", "repro_torch.layer.unpack")
+LEAVES = ("repro_torch.layer.stage", "repro_torch.layer.gemm",
+          "repro_torch.layer.epilogue", "repro_torch.layer.encode",
+          "repro_torch.layer.unpack")
 # the layers plan_cuda leaves to the TensorAlu epilogue
 UNFUSED = {"resnet8": ["b1b", "t2b", "t3b", "head"],
            "lenet5": ["l1_conv", "l2_conv"]}
@@ -49,8 +49,13 @@ def expected_names(net):
              "repro_torch.serve.stack"]
     for layer in net.layers:
         names.append("repro_torch.layer")
-        names += [n for n in LEAVES if n != "repro_torch.layer.epilogue"
-                  or not plan_cuda(layer.program).fused]
+        # the gather stages the operand: no layer decodes INP, and only
+        # the last unpacks its OUT (the logits)
+        names += [n for n in LEAVES
+                  if (n != "repro_torch.layer.epilogue"
+                      or not plan_cuda(layer.program).fused)
+                  and (n != "repro_torch.layer.unpack"
+                       or layer is net.layers[-1])]
     return names + ["repro_torch.serve.output"]
 
 
@@ -97,13 +102,19 @@ def test_bytes_are_the_regions_written(nets, model):
     # the cuda stack is allocated, not a copy of the image: nothing is
     # written into it before the chain
     assert got("repro_torch.serve.stack") == [0]
+    # the gathers write the operand (INP's bytes) and RES
     assert got("repro_torch.layer.stage") == [
         BATCH * (l.program.regions["inp"].nbytes
                  + (r.nbytes if r is not None else 0))
         for l, r in zip(net.layers, res)]
-    # decode copies INP alone: WGT and the ACC preload come from the image
-    assert got("repro_torch.layer.decode") == [
-        BATCH * l.program.regions["inp"].nbytes for l in net.layers]
+    # the share of 16-byte chunks one contiguous load serves, as the tables
+    # count it; a 1x1 stride-1 conv's operand and a join's RES are runs
+    shares = [s["attrs"]["contiguous"] for s in spans
+              if s["name"] == "repro_torch.layer.stage"]
+    assert shares == [st.contiguous for st in net.stage_tables("cpu")]
+    assert all(0.0 <= x <= 1.0 for x in shares)
+    if model == "resnet8":
+        assert max(shares) > 0.5
     assert got("repro_torch.layer.encode") == [
         BATCH * l.program.regions["out"].nbytes for l in net.layers]
     last = net.layers[-1].program.output_meta.valid_shape

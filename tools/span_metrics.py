@@ -23,11 +23,14 @@ INPUT = "repro_torch.serve.input"
 OUTPUT = "repro_torch.serve.output"
 STACK = "repro_torch.serve.stack"
 STAGE = "repro_torch.layer.stage"
+# INP decoded into the kernel's operand: only on a tree from before the
+# operand was gathered straight from the producer's OUT bytes
 DECODE = "repro_torch.layer.decode"
 EPILOGUE = "repro_torch.layer.epilogue"
 ENCODE = "repro_torch.layer.encode"
 UNPACK = "repro_torch.layer.unpack"
-# the spans whose ``bytes`` were written into the DRAM stack
+# the spans whose ``bytes`` were written by staging and the codecs: into
+# the DRAM stack, or (the ``cuda`` backend's operand) beside it
 WRITERS = (STACK, STAGE, ENCODE)
 
 
@@ -74,15 +77,16 @@ def stack_clone_device_ms_per_kimg(rec: dict) -> Optional[float]:
 
 
 def stage_device_ms_per_kimg(rec: dict) -> Optional[float]:
-    """Each layer's im2row or flatten, binarise and INP write, and a
-    residual layer's RES write."""
+    """Each layer's input staged (one ``vta_stage`` gather of its operand,
+    or of its INP region on the interpreters; on an older tree the im2row
+    or flatten, binarise and INP write) and a residual layer's RES."""
     return device_ms_per_kimg(rec, (STAGE,))
 
 
 def codec_device_ms_per_kimg(rec: dict) -> Optional[float]:
-    """INP decoded into the kernel's operand (WGT and the bias too where
-    the rows hold their own), OUT written, and OUT read back into the
-    layer's output."""
+    """OUT written, and the last layer's OUT read back into the logits
+    (on an older tree also INP decoded into the kernel's operand, and
+    every layer's OUT read back into its output)."""
     return device_ms_per_kimg(rec, (DECODE, ENCODE, UNPACK))
 
 
@@ -106,8 +110,10 @@ def serve_host_ms_per_call(rec: dict) -> Optional[float]:
 
 
 def stack_bytes_per_image(rec: dict) -> Optional[float]:
-    """Bytes written into the DRAM stack, per image: INP and RES, and
-    OUT (and the image cloned into the row, on a backend that clones it)."""
+    """Bytes staging and the codecs write, per image: the operand (INP's
+    bytes: beside the stack on the ``cuda`` backend, into it on the
+    interpreters) and RES, OUT, and the image cloned into the row on a
+    backend that clones it."""
     traced = traced_spans(rec)
     if traced is None:
         return None

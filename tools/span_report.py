@@ -32,7 +32,8 @@ and prints:
   ``maxpool3x3s2``).  The port's own kernels are
   put down by name where the trace links their launch to no leaf span
   (``KERNEL_SPANS``: ``vta_gemm`` to ``layer.gemm``, the TensorAlu
-  epilogue's ``vta_alu`` to ``layer.epilogue``); ``misplaced_kernels``
+  epilogue's ``vta_alu`` to ``layer.epilogue``, the operand gather's
+  ``vta_stage`` to ``layer.stage``); ``misplaced_kernels``
   lists any that the trace links to another span.
 
 Prints the card's name and power limit, and as its last line one JSON
@@ -56,6 +57,8 @@ import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# ``layer.decode`` is a tree's from before the operand gather, whose every
+# layer also unpacked its OUT; since it, only the last layer unpacks
 LEAVES = ("repro_torch.serve.input", "repro_torch.serve.stack",
           "repro_torch.layer.stage", "repro_torch.layer.decode",
           "repro_torch.layer.gemm", "repro_torch.layer.epilogue",
@@ -65,7 +68,8 @@ LAYER = "repro_torch.layer"
 EPILOGUE = "repro_torch.layer.epilogue"
 # the port's kernels by name, and the leaf span each is launched in
 KERNEL_SPANS = {"vta_gemm": "repro_torch.layer.gemm",
-                "vta_alu": "repro_torch.layer.epilogue"}
+                "vta_alu": "repro_torch.layer.epilogue",
+                "vta_stage": "repro_torch.layer.stage"}
 
 
 def leaf_of(op: dict) -> str:
